@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one CUDA card.
+
+Usage (from the repository root, on a machine with a CUDA card and the CUDA
+toolkit):
+
+    python3 chip_smoke.py
+
+Phases — any failure exits non-zero:
+
+  1. build both hand-written kernels with nvcc (one process per source);
+  2. hold each kernel against its plain PyTorch version at the main path's
+     shapes (W=4096 rings of capacity 64) — outputs must be exactly equal —
+     and time kernel, plain version and library call on the device (CUDA
+     graph replay, CUDA events), plus the kernel's eager wrapper call;
+  3. run the main path at constellation scale: W=4096 (64x64 mesh), FIB
+     n=48 cutoff=28 max_leaf_cost=2048, NEIGHBOR, τ=5, capacity 64, 1500
+     ticks — leap/staged (the CUDA default, `deque_apply`), leap/loop
+     (`steal_compact`) and tick mode; the two backends must agree field for
+     field and tick mode must agree with leap mode except in `events`; a
+     300-tick window of both leap runs is timed, then profiled for the
+     device's busy share and kernel launches per event;
+  4. run drained closed systems at W=100 (FIB n=34 cutoff=18) for all four
+     strategies on the card's staged backend (`deque_apply`), and LIFELINE
+     once more on the loop backend (`steal_compact`); each run must launch
+     its kernel, be exact and equal the port's own CPU run of the same input
+     (the CPU runs go in worker processes beside the card runs; every worker
+     is joined before the phase ends).
+
+It prints the card's name and power limit, then one JSON line with each
+kernel's launches on the main path, error, times and bound, and last
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet), int ops counted here
+W_MAIN, CAP_MAIN = 4096, 64
+
+
+def _bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _call_ms(torch, fn, reps: int = 25, inner: int = 40) -> float:
+    """Median over `reps` batches of the per-call time of `inner` eager
+    back-to-back calls, by CUDA events: what the main path pays per call,
+    Python wrapper and launch included."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _device_ms(torch, fn, calls: int = 50, reps: int = 15) -> float:
+    """Device time per call: `calls` calls captured in one CUDA graph,
+    replayed `reps` times and timed by CUDA events (median), so host launch
+    overhead is left out. Inputs stay warm in L2, as on the main path where
+    the previous op just wrote them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _max_abs_err(pairs) -> int:
+    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+               for x, y in pairs)
+
+
+def phase_build(build):
+    t0 = time.perf_counter()
+    build.build()
+    print(f"[build] both kernels built in {time.perf_counter() - t0:.3f} s")
+    for name, log in build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def phase_kernels(torch, np, ops, ref, deque, tasks):
+    """Kernels against their plain versions at W=4096, C=64."""
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(20261016)
+    W, C, T = W_MAIN, CAP_MAIN, 4
+    G = ref.GRANT_WIDTH
+    L = tasks.EXPAND_K + 1
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+
+    buf = t(rs.integers(-2**31, 2**31 - 1, (W, C, T), dtype=np.int64))
+    # bottoms parked near the wrap for a quarter of the workers
+    bot = rs.integers(0, C, W)
+    bot[: W // 4] = C - 1 - rs.integers(0, 4, W // 4)
+    size = rs.integers(0, C + 1, W)
+    size[W // 8: W // 4] = rs.integers(0, 3, W // 8)   # grants > size
+    grants = rs.integers(0, G + 1, W)
+    bot, size, grants = t(bot), t(size), t(grants)
+
+    out_k = ops.steal_compact(buf, bot, size, grants)
+    out_p = ref.steal_compact(buf, bot, size, grants)
+    torch.cuda.synchronize()
+    err_sc = _max_abs_err(zip(out_k, out_p))
+    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        raise SystemExit(f"steal_compact disagrees with its plain version "
+                         f"(max abs err {err_sc})")
+    g = torch.minimum(grants, size).clamp(min=0)
+    sc_bytes = (int(g.sum()) * 16 + W * G * 16 + 3 * W * 4 + 2 * W * 4)
+    sc_ops = W * G * 8
+    def kern():
+        return ops.steal_compact(buf, bot, size, grants)
+
+    sc = {
+        "ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+        "plain_ms": _device_ms(torch, lambda: ref.steal_compact(buf, bot, size, grants)),
+        "library_ms": None, "max_abs_err": err_sc,
+        "bytes": sc_bytes, "ops": sc_ops}
+    sc["bound_ms"], sc["bound_by"] = _bound_ms(sc_bytes, sc_ops)
+
+    # push log: slots drawn from a few ring positions so lanes repeat, and
+    # live-lane counts n below the lane budget L for most workers
+    base = rs.integers(0, C, (W, 1))
+    slot = t((base + rs.integers(0, 3, (W, L))) % C)
+    rec = t(rs.integers(-2**31, 2**31 - 1, (W, L, T), dtype=np.int64))
+    n = t(rs.integers(0, L + 1, W))
+    new_k = ops.deque_apply(buf, slot, rec, n)
+    new_p = ref.deque_apply(buf, slot, rec, n)
+    # the library yardstick: one index_put after the last-lane dedup
+    dops = deque.DequeOps(buf0=buf, bot=bot, size=size, slot=slot, rec=rec, n=n)
+    last = deque._last_lane_map(dops)
+    lanes = torch.arange(L, device=dev)[None, :]
+    keep = (lanes < n[:, None]) & (torch.gather(last, 1, slot.long()) == lanes)
+    w_idx = torch.arange(W, device=dev)[:, None].expand(W, L)[keep]
+    s_idx = slot.long()[keep]
+    vals = rec[keep]
+    new_l = buf.index_put((w_idx, s_idx), vals)
+    torch.cuda.synchronize()
+    err_da = _max_abs_err([(new_k, new_p)])
+    if not torch.equal(new_k, new_p) or not torch.equal(new_l, new_p):
+        raise SystemExit(f"deque_apply disagrees with its plain version "
+                         f"(max abs err {err_da})")
+    live = int(n.sum())
+    da_bytes = 2 * W * C * T * 4 + live * (T * 4 + 4) + W * 4
+    da_ops = W * C * (2 * L + 4)
+    def kern():
+        return ops.deque_apply(buf, slot, rec, n)
+
+    da = {
+        "ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+        "plain_ms": _device_ms(torch, lambda: ref.deque_apply(buf, slot, rec, n)),
+        "library_ms": _device_ms(torch, lambda: buf.index_put((w_idx, s_idx), vals)),
+        "max_abs_err": err_da, "bytes": da_bytes, "ops": da_ops}
+    da["bound_ms"], da["bound_by"] = _bound_ms(da_bytes, da_ops)
+    for name, r in (("steal_compact", sc), ("deque_apply", da)):
+        print(f"[kernels] {name}: exact; device per launch: kernel "
+              f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
+              f"{r['library_ms']} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}, {r['bytes']} bytes); eager wrapper call "
+              f"{r['call_ms']:.6f} ms")
+    return {"steal_compact": sc, "deque_apply": da}
+
+
+def _assert_equal(np, a, b, skip=(), what=""):
+    for f in a._fields:
+        if f in skip:
+            continue
+        x, y = getattr(a, f), getattr(b, f)
+        same = (np.array_equal(np.asarray(x), np.asarray(y))
+                if isinstance(x, np.ndarray) or isinstance(y, np.ndarray)
+                else x == y)
+        if not same:
+            raise SystemExit(f"{what}: field {f} differs: {x!r} vs {y!r}")
+
+
+def _profile(torch, fn):
+    """Run `fn` under torch.profiler (CUDA activity); returns (device busy
+    ms, device activities, {name: (device ms, count)}). Busy time is the sum
+    of the device activities' durations (one stream: they never overlap).
+    Reads the raw kineto events: building the profiler's per-op tables for
+    ~10^5 kernels costs minutes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, cnt = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, cnt + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    return busy, sum(c for _, c in by_name.values()), by_name
+
+
+def phase_main_path(torch, np, sim, topo, tasks, ops):
+    """W=4096 Starlink-scale closed run on the card, both deque backends."""
+    mesh = topo.MeshTopology.square(W_MAIN)
+    wl = tasks.FibWorkload(n=48, cutoff=28, max_leaf_cost=2048)
+    base = dict(strategy=sim.stealing.Strategy.NEIGHBOR, hop_ticks=5,
+                capacity=CAP_MAIN, max_ticks=1500)
+    runs, launches, profiled = {}, {}, {}
+    for label, extra, kernel in (
+            ("leap/staged", {}, "deque_apply"),
+            ("leap/loop", {"deque_backend": "loop"}, "steal_compact"),
+            ("tick/staged", {"step_mode": "tick"}, "deque_apply")):
+        cfg = sim.SimConfig(**base, **extra)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = sim.simulate(wl, mesh, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        if counts[kernel] == 0:
+            raise SystemExit(f"{label}: kernel {kernel} was never launched")
+        runs[label] = r
+        launches.setdefault(kernel, counts[kernel])
+        print(f"[main] W={W_MAIN} {label}: ticks={r.ticks} events={r.events} "
+              f"wall={dt:.3f} s ticks/s={r.ticks / dt:.2f} "
+              f"events/s={r.events / dt:.2f} ms/event={dt / r.events * 1e3:.3f} "
+              f"nodes={r.nodes} overflow={r.overflow} "
+              f"hiwater={int(r.per_worker_hiwater.max())} launches={counts}")
+    _assert_equal(np, runs["leap/staged"], runs["leap/loop"],
+                  what="staged vs loop")
+    _assert_equal(np, runs["leap/staged"], runs["tick/staged"],
+                  skip=("events",), what="leap vs tick")
+    r = runs["leap/staged"]
+    if r.ticks != base["max_ticks"] or r.nodes <= 0 or r.overflow != 0:
+        raise SystemExit(f"main path: unexpected result {r.ticks=} "
+                         f"{r.nodes=} {r.overflow=}")
+    print("[main] staged == loop field for field; tick == leap except events")
+    # where the time goes: a 300-tick window of each leap run, timed
+    # unprofiled, then again under the profiler
+    for label, extra, kernel in (
+            ("leap/staged", {}, "deque_apply"),
+            ("leap/loop", {"deque_backend": "loop"}, "steal_compact")):
+        cfg = sim.SimConfig(**{**base, "max_ticks": 300}, **extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = sim.simulate(wl, mesh, cfg).events
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, n_dev, by_name = _profile(torch, lambda: sim.simulate(wl, mesh, cfg))
+        hits = [v for k, v in by_name.items() if f"{kernel}_kernel" in k]
+        k_ms, k_n = sum(ms for ms, _ in hits), sum(c for _, c in hits)
+        if k_n == 0:
+            raise SystemExit(f"profile of {label}: no {kernel} kernel seen")
+        profiled[kernel] = k_ms / k_n
+        print(f"[profile] W={W_MAIN} {label}, 300 ticks, {ev} events: device "
+              f"busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+              f"{busy / wall_ms:.4f}); {n_dev} device activities = "
+              f"{n_dev / ev:.1f} per event; {kernel} {k_n}x, "
+              f"{k_ms / k_n * 1e3:.3f} us each")
+        for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+    return launches, profiled
+
+
+def _drained_cpu_run(strategy_value: str):
+    """The port's CPU run of one drained W=100 configuration (runs in a
+    worker process, beside the card runs of the main process)."""
+    import torch
+
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import tasks
+    from repro_torch.core import topology as topo
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    r = sim.simulate(tasks.FibWorkload(n=34, cutoff=18),
+                     topo.MeshTopology.square(100), _drained_cfg(sim, strategy_value),
+                     device="cpu")
+    return r, time.perf_counter() - t0
+
+
+def _drained_cfg(sim, strategy_value: str, **extra):
+    return sim.SimConfig(strategy=sim.stealing.Strategy(strategy_value),
+                         hop_ticks=5, capacity=64, **extra)
+
+
+def phase_drained(torch, np, sim, topo, tasks, ops):
+    """Drained W=100 runs of every strategy on the card (staged backend,
+    `deque_apply`), plus one on the loop backend (`steal_compact`); each
+    exact, each launching its kernel, and equal to the port's CPU run of
+    the same input."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    mesh = topo.MeshTopology.square(100)
+    wl = tasks.FibWorkload(n=34, cutoff=18)
+    strategies = [s.value for s in sim.stealing.Strategy]
+    card_runs = [(v, "staged", "deque_apply") for v in strategies]
+    card_runs.append(("lifeline", "loop", "steal_compact"))
+    with ProcessPoolExecutor(len(strategies),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = {v: pool.submit(_drained_cpu_run, v) for v in strategies}
+        for v, backend, kernel in card_runs:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rg = sim.simulate(wl, mesh, _drained_cfg(sim, v, deque_backend=backend))
+            torch.cuda.synchronize()
+            dt_g = time.perf_counter() - t0
+            counts = dict(ops.LAUNCHES)
+            what = f"W=100 {v} {backend}"
+            if counts[kernel] == 0:
+                raise SystemExit(f"{what}: kernel {kernel} was never launched")
+            if (rg.result != wl.expected_result()
+                    or rg.nodes != wl.expected_nodes() or rg.overflow != 0):
+                raise SystemExit(f"{what}: result {rg.result} nodes "
+                                 f"{rg.nodes} overflow {rg.overflow} not exact")
+            rc, dt_c = cpu_runs[v].result()
+            _assert_equal(np, rg, rc, what=f"{what} card vs cpu")
+            print(f"[drained] {what}: exact (result={rg.result} "
+                  f"nodes={rg.nodes}), ticks={rg.ticks} events={rg.events}, "
+                  f"card {dt_g:.3f} s ({dt_g / rg.events * 1e3:.3f} ms/event), "
+                  f"launches={counts}, cpu {dt_c:.3f} s in a worker process, "
+                  f"card == cpu")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from repro_torch.core import deque, tasks
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import topology as topo
+    from repro_torch.kernels import build, ops, ref
+
+    t_start = time.perf_counter()
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    phase_build(build)
+    kern = phase_kernels(torch, np, ops, ref, deque, tasks)
+    launches, profiled = phase_main_path(torch, np, sim, topo, tasks, ops)
+    phase_drained(torch, np, sim, topo, tasks, ops)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[total] {time.perf_counter() - t_start:.3f} s")
+    print(smi)
+    line = {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
+         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"],
+         "library_ms": kern[name]["library_ms"],
+         "call_ms": kern[name]["call_ms"],
+         "main_path_device_ms": profiled[name]}
+        for name, replaces in (
+            ("steal_compact", "src/repro/kernels/steal_compact.py:44"),
+            ("deque_apply", "src/repro/kernels/deque_apply.py:42"))]}
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

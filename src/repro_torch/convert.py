@@ -1,0 +1,52 @@
+"""Build the port's objects from the reference's inputs, given as plain
+fields and numpy arrays, so both packages run the same thing.
+
+The simulator has no weights: its inputs are a workload's fields, a mesh's
+``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields and, for the
+deque layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
+be any enum (or plain string) with the same values. This module imports
+nothing of the reference package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core import deque as dq
+from .core import simulator as sim
+from .core import stealing, tasks
+from .core import topology as topo
+
+_WORKLOADS = {"FibWorkload": tasks.FibWorkload, "UtsWorkload": tasks.UtsWorkload}
+
+
+def _value(x):
+    return getattr(x, "value", x)
+
+
+def workload(kind: str, fields: dict):
+    """`kind` is the workload's class name ("FibWorkload", "UtsWorkload")."""
+    return _WORKLOADS[kind](**fields)
+
+
+def mesh(num_workers: int, rows: int, cols: int, torus: bool = False):
+    return topo.MeshTopology(num_workers=int(num_workers), rows=int(rows),
+                             cols=int(cols), torus=bool(torus))
+
+
+def sim_config(fields: dict) -> sim.SimConfig:
+    """A `SimConfig` from a field dict (e.g. `dataclasses.asdict` of the
+    reference's config)."""
+    f = dict(fields)
+    if "strategy" in f:
+        f["strategy"] = stealing.Strategy(_value(f["strategy"]))
+    if "recovery" in f:
+        f["recovery"] = sim.Recovery(_value(f["recovery"]))
+    return sim.SimConfig(**f)
+
+
+def deque_state(buf, bot, size, device="cpu") -> dq.DequeState:
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return dq.DequeState(t(buf), t(bot), t(size))

@@ -1,0 +1,2 @@
+"""Simulator core of the port: rng → topology → tasks → deque → stealing →
+simulator, each the counterpart of the `repro.core` module of the same name."""

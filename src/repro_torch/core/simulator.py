@@ -1,0 +1,672 @@
+"""Tick-level simulator of work stealing on a high-latency 2D mesh, in torch.
+
+One tick is one work unit of task execution; each mesh hop costs
+`hop_ticks` ticks (τ), so a steal attempt occupies the thief for a
+request flight and a response flight. Steal requests resolve when they
+arrive: a victim serves the requests that arrive in the same tick in
+deterministic (priority, worker id) order, one bottom task each while tasks
+and its per-round budget last (paper §3.1, §3.3).
+
+This module runs the CLOSED system: one root task, no failures, no link
+state, no arrivals, no tracing. It reproduces the reference JAX simulator
+(`repro.core.simulator.simulate`) field for field on those inputs: the
+randomness is a pure function of ``(seed, tick)`` (`rng.fold_in`), every
+quantity is int32 with the same wrap-around, and the deque, selection and
+grant logic mirror the reference step by step.
+
+Execution is a host loop over `tick_fn`, one device step per iteration:
+
+  * ``step_mode="tick"`` runs every tick;
+  * ``step_mode="leap"`` runs one full tick, then advances the clock in one
+    fused step to the next tick at which any worker does more than burn
+    down work or wait out a flight (`_next_event`, `leap`). Results equal
+    tick mode's except `events`, the count of loop iterations.
+
+The host reads the clock and the liveness flag back once per iteration —
+one device-to-host sync per event, which bounds the card's throughput in
+this version.
+
+Deque backends: ``deque_backend="loop"`` commits each deque mutation on its
+own, exporting grants through the `steal_compact` kernel when kernels are
+on; ``"staged"`` records a tick's mutations in a `deque.DequeOps` delta and
+commits them once through the `deque_apply` kernel. Auto (None) picks
+staged with kernels on a CUDA device and loop with the plain versions on the
+CPU. Options beyond the closed system raise `NotImplementedError` and name
+the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import deque as dq
+from . import rng, stealing, tasks
+from . import topology as topo
+
+PHASE_RUN = 0
+PHASE_REQ = 1   # steal request in flight (thief → victim)
+PHASE_RESP = 2  # steal response in flight (victim → thief)
+
+STEAL_MSG_BYTES = 32  # request+reply payload estimate (task record + header)
+
+# Exact hop accounting: low lane holds 30 bits, high lane the carries.
+_HOP_LANE_BITS = 30
+_HOP_LANE_MASK = (1 << _HOP_LANE_BITS) - 1
+
+# Next-event sentinel: beyond any reachable tick (max_ticks stays below).
+_NEVER = 1 << 30
+
+ARRIVAL_K = 8  # request records per accepted arrival candidate (upper bound)
+
+_I32 = torch.int32
+
+
+class Recovery(enum.Enum):
+    NONE = "none"
+    TC = "tc"
+    SUPERVISION = "supervision"
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Simulator knobs; field names and meanings follow the reference's
+    `SimConfig`. `famine_batch` defaults to 0 here: the famine fast path is
+    not ported yet and it changes no result except `events`."""
+
+    strategy: stealing.Strategy = stealing.Strategy.NEIGHBOR
+    hop_ticks: int = 5                 # τ in work-unit ticks
+    capacity: int = 1024
+    max_grants_per_victim: int = 4     # per-round budget, <= stealing.GRANT_WIDTH
+    escalate_after: int = 4
+    max_ticks: int = 2_000_000
+    seed: int = 0
+    step_mode: str = "leap"            # "leap" or "tick"
+    famine_batch: int = 0
+    # grant-export (loop backend) / staged-commit (staged backend) kernels;
+    # None = auto (kernels on a CUDA device, plain versions on the CPU)
+    use_steal_kernel: bool | None = None
+    # "staged", "loop", or None = auto (staged on CUDA, loop on the CPU)
+    deque_backend: str | None = None
+    recovery: Recovery = Recovery.NONE
+    ckpt_interval: int = 0
+    supervision_slots: int = 64
+    warn_ticks: int = 0
+    preshed: bool = False
+    arrival_gap_q8: int = 0
+    arrival_batch: int = 1
+    trace: object = None
+
+    @property
+    def static(self) -> "StaticConfig":
+        return StaticConfig(
+            capacity=self.capacity, max_ticks=self.max_ticks,
+            step_mode=self.step_mode, famine_batch=self.famine_batch,
+            use_steal_kernel=self.use_steal_kernel,
+            deque_backend=self.deque_backend, recovery=self.recovery,
+            supervision_slots=self.supervision_slots, preshed=self.preshed,
+            trace=self.trace)
+
+    @property
+    def params(self) -> "SimParams":
+        return SimParams(
+            strategy=stealing.strategy_code(self.strategy),
+            hop_ticks=self.hop_ticks, escalate_after=self.escalate_after,
+            max_grants_per_victim=self.max_grants_per_victim,
+            warn_ticks=self.warn_ticks, ckpt_interval=self.ckpt_interval,
+            seed=self.seed, arrival_gap_q8=self.arrival_gap_q8,
+            arrival_batch=self.arrival_batch)
+
+    def split(self) -> "tuple[StaticConfig, SimParams]":
+        return self.static, self.params
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticConfig:
+    """The shape/program-structure half of a `SimConfig`."""
+    capacity: int = 1024
+    max_ticks: int = 2_000_000
+    step_mode: str = "leap"
+    famine_batch: int = 0
+    use_steal_kernel: bool | None = None
+    deque_backend: str | None = None
+    recovery: Recovery = Recovery.NONE
+    supervision_slots: int = 64
+    preshed: bool = False
+    trace: object = None
+
+
+class SimParams(NamedTuple):
+    """The data half of a `SimConfig`, as plain ints."""
+    strategy: int = stealing.NEIGHBOR_CODE
+    hop_ticks: int = 5
+    escalate_after: int = 4
+    max_grants_per_victim: int = 4
+    warn_ticks: int = 0
+    ckpt_interval: int = 0
+    seed: int = 0
+    arrival_gap_q8: int = 0
+    arrival_batch: int = 1
+
+
+class SimState(NamedTuple):
+    deque: dq.DequeState
+    acc: torch.Tensor          # (W,) int32 mod-RESULT_MOD checksum
+    work: torch.Tensor         # (W,) int32 remaining ticks on current expansion
+    fails: torch.Tensor        # (W,) consecutive failed attempts
+    phase: torch.Tensor        # (W,) PHASE_*
+    timer: torch.Tensor        # (W,) ticks left in current phase
+    victim: torch.Tensor       # (W,) in-flight victim id
+    loot: torch.Tensor         # (W, T) in-flight stolen record
+    got: torch.Tensor          # (W,) bool steal granted (valid in PHASE_RESP)
+    alive: torch.Tensor        # (W,) bool
+    sup_buf: torch.Tensor      # (W, S, T) supervision ledger (recovery slice)
+    sup_thief: torch.Tensor    # (W, S)
+    sup_n: torch.Tensor        # (W,)
+    attempts: torch.Tensor     # (W,) steal attempts launched per thief
+    successes: torch.Tensor    # (W,) granted-loot deliveries per thief
+    nodes: torch.Tensor        # (W,) tree nodes expanded
+    busy: torch.Tensor         # (W,) ticks spent working
+    steal_wait: torch.Tensor   # (W,) ticks spent in REQ/RESP
+    hops_lo: torch.Tensor      # () int32: Σ msg hops, low 30-bit lane (exact)
+    hops_hi: torch.Tensor      # () int32: Σ msg hops, carry lane
+    ckpt_count: torch.Tensor   # () int32 checkpoints taken
+    overflow: torch.Tensor     # (W,) int32 dropped-task count per worker
+    stolen_from: torch.Tensor  # (W,) int32 tasks granted out of each bottom
+    hiwater: torch.Tensor      # (W,) int32 running max end-of-tick occupancy
+    arr_t: torch.Tensor        # () int32 next arrival candidate (_NEVER: off)
+    arr_k: torch.Tensor        # () int32 arrival-stream cursor
+    arr_injected: torch.Tensor
+    arr_dropped: torch.Tensor
+    arr_done: torch.Tensor
+    soj_lo: torch.Tensor
+    soj_hi: torch.Tensor
+
+
+class SimResult(NamedTuple):
+    result: int
+    ticks: int
+    nodes: int
+    attempts: int
+    successes: int
+    p_success: float
+    busy_ticks: int
+    steal_wait_ticks: int
+    bytes_hops: float
+    ckpt_bytes: float
+    overflow: int
+    utilization: float
+    per_worker_busy: np.ndarray
+    events: int = 0
+    per_worker_overflow: np.ndarray | None = None
+    per_worker_stolen: np.ndarray | None = None
+    per_worker_hiwater: np.ndarray | None = None
+    per_worker_attempts: np.ndarray | None = None
+    per_worker_successes: np.ndarray | None = None
+    trace: object = None
+    timeseries: object = None
+    arrivals_injected: int = 0
+    arrivals_dropped: int = 0
+    requests_done: int = 0
+    sojourn_sum_ticks: int = 0
+    sojourn_mean: float = 0.0
+    sojourn: dict | None = None
+
+
+def _mesh_tables(mesh: topo.MeshTopology, device) -> dict:
+    """Victim-set tables for every strategy plus the (W, 2) coordinates
+    hop distances are priced from."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=_I32,
+                               device=device)
+    return {
+        "neighbors": t(stealing.neighbor_list(mesh)),
+        "coords": t(mesh.coords),
+        "radius2": t(stealing.radius2_list(mesh)),
+        "lifelines": t(stealing.lifeline_list(mesh.num_workers)),
+    }
+
+
+def _select(code: int, escalate_after: int, tbl, key, is_thief, fails, W: int):
+    """Victim selection for the strategy `code`, with the same key usage as
+    the reference's per-strategy branches."""
+    if code == stealing.GLOBAL_CODE:
+        return stealing.choose_global(key, W, is_thief)
+    if code == stealing.NEIGHBOR_CODE:
+        return stealing.choose_neighbor(key, tbl["neighbors"], is_thief)
+    if code == stealing.LIFELINE_CODE:
+        return stealing.choose_lifeline(key, tbl["lifelines"], fails, W,
+                                        is_thief)
+    return stealing.choose_adaptive(key, tbl["neighbors"], tbl["radius2"],
+                                    fails, is_thief, escalate_after)
+
+
+def _lane_budget() -> int:
+    """Push-log width of the staged backend on the no-recovery path: the
+    expansion children plus the thief-side loot import. Recovery and
+    pre-shed widen it when they are ported."""
+    return tasks.EXPAND_K + 1
+
+
+class _LoopDeques:
+    """Per-op deque backend: every mutation commits its own buffer."""
+
+    def __init__(self, state: dq.DequeState, use_kernel: bool):
+        self.st = state
+        self.use_kernel = use_kernel
+
+    @property
+    def size(self):
+        return self.st.size
+
+    def push(self, task, mask):
+        self.st, ok = dq.push_top(self.st, task, mask)
+        return ok
+
+    def push_many(self, tasks_, counts):
+        self.st, over = dq.push_top_many(self.st, tasks_, counts)
+        return over
+
+    def pop(self, mask):
+        self.st, task, ok = dq.pop_top(self.st, mask)
+        return task, ok
+
+    def export(self, grants, width):
+        stolen, self.st = dq.export_bottom(self.st, grants, width,
+                                           use_kernel=self.use_kernel)
+        return stolen
+
+    def finish(self) -> dq.DequeState:
+        return self.st
+
+
+class _StagedDeques:
+    """Staged deque backend: mutations accumulate in a `deque.DequeOps`
+    delta and `finish()` commits the tick in one pass."""
+
+    def __init__(self, state: dq.DequeState, lanes: int, use_kernel: bool):
+        self.ops = dq.stage(state, lanes)
+        self.use_kernel = use_kernel
+
+    @property
+    def size(self):
+        return self.ops.size
+
+    def push(self, task, mask):
+        self.ops, ok = dq.stage_push(self.ops, task, mask)
+        return ok
+
+    def push_many(self, tasks_, counts):
+        self.ops, over = dq.stage_push_many(self.ops, tasks_, counts)
+        return over
+
+    def pop(self, mask):
+        self.ops, task, ok = dq.stage_pop(self.ops, mask)
+        return task, ok
+
+    def export(self, grants, width):
+        self.ops, stolen = dq.stage_export(self.ops, grants, width)
+        return stolen
+
+    def finish(self) -> dq.DequeState:
+        return dq.apply(self.ops, use_kernel=self.use_kernel)
+
+
+def _scheduled_horizons(ne: torch.Tensor, t: int, p: SimParams) -> torch.Tensor:
+    """Clip `ne` at the next periodic checkpoint tick (a host-side term).
+    Deaths, wake-ups, epochs and arrivals join with their slices."""
+    if p.ckpt_interval > 0:
+        ck = p.ckpt_interval
+        ne = ne.clamp(max=t + ((ck - t % ck) % ck))
+    return ne
+
+
+def _next_event(state: SimState, t: int, p: SimParams, W: int) -> torch.Tensor:
+    """First tick >= t at which any worker does more than a bulk decrement
+    (0-d int32). Conservative: an early answer costs one loop iteration,
+    never correctness."""
+    alive = state.alive
+    run = (state.phase == PHASE_RUN) & alive
+    # burning workers: event when work hits 0
+    burn_ev = t + state.work
+    # work-exhausted workers expand (deque nonempty) or start a steal — with
+    # no link state, any other worker is a reachable victim
+    idle_acts = (state.deque.size > 0) | (W > 1)
+    never = torch.full_like(state.work, _NEVER)
+    run_ev = torch.where(state.work > 0, burn_ev,
+                         torch.where(idle_acts, t, never))
+    ev = torch.where(run, run_ev, never)
+    # in-flight steal messages arrive when the timer reaches 0
+    flight = (state.phase != PHASE_RUN) & alive
+    ev = torch.where(flight, t + (state.timer - 1).clamp(min=0), ev)
+    return _scheduled_horizons(ev.amin(), t, p)
+
+
+# options beyond the closed system: what each is, and its ROADMAP Queue 1 item
+_NOT_PORTED = {
+    "recovery": ("Recovery.TC / Recovery.SUPERVISION", 9),
+    "preshed": ("pre-shed malleability (preshed, warn_ticks)", 9),
+    "fail_time": ("failure schedules (fail_time)", 9),
+    "wake_time": ("wake-ups (wake_time)", 9),
+    "fail_period": ("periodic failure schedules (fail_period)", 9),
+    "speed": ("straggler speeds (speed)", 9),
+    "linkstate": ("time-varying link state (linkstate)", 10),
+    "routing_backend": ("the link-state routing tables (routing_backend)", 10),
+    "trace": ("the flight recorder (trace)", 11),
+    "arrivals": ("open-loop arrivals (arrivals, arrival_gap_q8)", 12),
+    "famine_batch": ("the famine fast path (famine_batch > 0 in leap mode)", 7),
+}
+
+
+def _not_ported(what: str):
+    desc, item = _NOT_PORTED[what]
+    return NotImplementedError(f"{desc} is not ported to repro_torch yet "
+                               f"(ROADMAP.md, Queue 1 item {item})")
+
+
+def _check_cfg(cfg: SimConfig):
+    if cfg.step_mode not in ("leap", "tick"):
+        raise ValueError(f"step_mode must be 'leap' or 'tick', got {cfg.step_mode!r}")
+    if cfg.deque_backend not in (None, "staged", "loop"):
+        raise ValueError(
+            "deque_backend must be 'staged', 'loop', or None (auto), "
+            f"got {cfg.deque_backend!r}")
+    if cfg.max_ticks >= _NEVER:
+        raise ValueError(f"max_ticks must stay below {_NEVER}")
+    if cfg.famine_batch < 0:
+        raise ValueError("famine_batch must be >= 0 (0 disables the fast path)")
+    _check_params(cfg.params)
+    if cfg.recovery != Recovery.NONE:
+        raise _not_ported("recovery")
+    if cfg.preshed:
+        raise _not_ported("preshed")
+    if cfg.trace is not None:
+        raise _not_ported("trace")
+    if cfg.arrival_gap_q8 > 0:
+        raise _not_ported("arrivals")
+    if cfg.step_mode == "leap" and cfg.famine_batch > 0:
+        raise _not_ported("famine_batch")
+
+
+def _check_params(p: SimParams):
+    if int(p.max_grants_per_victim) > stealing.GRANT_WIDTH:
+        raise ValueError(
+            "max_grants_per_victim must be <= stealing.GRANT_WIDTH "
+            f"({stealing.GRANT_WIDTH}), got {int(p.max_grants_per_victim)}")
+    if not 0 <= int(p.strategy) < len(stealing.CODE_STRATEGIES):
+        raise ValueError(f"unknown strategy code {int(p.strategy)}")
+    if int(p.hop_ticks) < 0:
+        raise ValueError("hop_ticks must be >= 0")
+    if not 0 <= int(p.arrival_gap_q8) < (1 << 31):
+        raise ValueError("arrival_gap_q8 must be a non-negative int32")
+    if not 1 <= int(p.arrival_batch) <= ARRIVAL_K:
+        raise ValueError(f"arrival_batch must be in [1, {ARRIVAL_K}], "
+                         f"got {int(p.arrival_batch)}")
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch.simulate runs on a CUDA device by default and none "
+            "is available; pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
+              p: SimParams, device: torch.device):
+    W = mesh.num_workers
+    tbl = _mesh_tables(mesh, device)
+    coords = tbl["coords"]
+    tables = workload.tables(device)
+    S = cfg.supervision_slots
+    code, escalate_after = int(p.strategy), int(p.escalate_after)
+    hop_ticks, max_grants = int(p.hop_ticks), int(p.max_grants_per_victim)
+    key0 = rng.PRNGKey(p.seed)
+    on_cuda = device.type == "cuda"
+    use_kernel = (cfg.use_steal_kernel if cfg.use_steal_kernel is not None
+                  else on_cuda)
+    staged = (cfg.deque_backend == "staged"
+              or (cfg.deque_backend is None and on_cuda))
+    lanes = _lane_budget()
+
+    deques = dq.make(W, cfg.capacity, device=device)
+    T = deques.buf.shape[2]
+    root = torch.as_tensor(workload.root_task(), device=device)
+    assert root.shape[-1] == T, (
+        f"root task width {root.shape[-1]} != deque record width {T}")
+    deques, _ = dq.push_top(deques, root[None].expand(W, T),
+                            torch.arange(W, device=device) == 0)
+
+    def session(deq):
+        if staged:
+            return _StagedDeques(deq, lanes, use_kernel)
+        return _LoopDeques(deq, use_kernel)
+
+    def zeros(*shape, dtype=_I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=_I32, device=device)
+
+    z = zeros(W)
+    state0 = SimState(
+        deque=deques, acc=z, work=z, fails=z, phase=z, timer=z, victim=z - 1,
+        loot=zeros(W, T), got=zeros(W, dtype=torch.bool),
+        alive=torch.ones((W,), dtype=torch.bool, device=device),
+        sup_buf=zeros(W, S, T), sup_thief=zeros(W, S) - 1, sup_n=z,
+        attempts=z, successes=z, nodes=z, busy=z, steal_wait=z,
+        hops_lo=scalar(0), hops_hi=scalar(0), ckpt_count=scalar(0),
+        overflow=z, stolen_from=z, hiwater=deques.size,
+        arr_t=scalar(_NEVER), arr_k=scalar(0), arr_injected=scalar(0),
+        arr_dropped=scalar(0), arr_done=scalar(0), soj_lo=scalar(0),
+        soj_hi=scalar(0))
+
+    def tick_fn(state: SimState, t: int):
+        """One tick with full semantics; returns (state, live)."""
+        key = rng.fold_in(key0, t)
+        # No worker dies or wakes in the closed system this module runs
+        # (simulate() rejects failure schedules), so `alive` stays all-True.
+        alive = state.alive
+        ses = session(state.deque)
+
+        # ------------- periodic checkpoint counter -------------------------- #
+        if p.ckpt_interval > 0 and t % p.ckpt_interval == 0:
+            state = state._replace(ckpt_count=state.ckpt_count + 1)
+
+        # ------------- phase RUN: work / expand / start steal -------------- #
+        # (no stragglers: every tick is an active tick for every worker)
+        running = (state.phase == PHASE_RUN) & alive
+        burning = running & (state.work > 0)
+        work = state.work - burning.to(_I32)
+
+        can_expand = running & ~burning & (ses.size > 0)
+        task, popped = ses.pop(can_expand)
+        ex = tasks.expand(task, popped, tables)
+        over = ses.push_many(ex["children"], ex["n_children"])
+        # int32 add wraps before the floor-mod, as in the reference
+        acc = torch.remainder(state.acc + ex["value"], tasks.RESULT_MOD)
+        work = work + (ex["cost"] - 1).clamp(min=0) * popped.to(_I32)
+        nodes = state.nodes + ex["nodes"]
+        busy = state.busy + (burning | popped).to(_I32)
+        overflow = state.overflow + over.to(_I32)
+
+        # idle workers become thieves: request departs now, arrives in h·τ
+        idle = running & ~burning & ~popped & (ses.size == 0)
+        victim_new = _select(code, escalate_after, tbl, key, idle,
+                             state.fails, W)
+        has_victim = victim_new >= 0
+        vhops = torch.where(has_victim, topo.hop_dist(mesh, coords, victim_new), 0)
+        req_ticks = vhops * hop_ticks
+        start_req = idle & has_victim & alive
+        phase = torch.where(start_req, PHASE_REQ, state.phase)
+        timer = torch.where(start_req, req_ticks, state.timer)
+        victim = torch.where(start_req, victim_new, state.victim)
+        attempts = state.attempts + start_req.to(_I32)
+        hop_units = torch.where(start_req, vhops, 0).sum()
+
+        # ------------- phase REQ: in flight / arrival ----------------------- #
+        in_req = (phase == PHASE_REQ) & alive
+        timer = torch.where(in_req, (timer - 1).clamp(min=0), timer)
+        arriving = in_req & (timer == 0)
+        # victims must be alive to grant (dead satellites drop requests)
+        valid_victim = arriving & alive[victim.clamp(0, W - 1).long()]
+        plan = stealing.resolve_grants(torch.where(valid_victim, victim, -1),
+                                       ses.size, max_grants)
+        v = plan.victim.clamp(0, W - 1).long()
+        stolen_blk = ses.export(plan.taken, stealing.GRANT_WIDTH)
+        stolen = stolen_blk[v, plan.rank.clamp(0, stealing.GRANT_WIDTH - 1).long()]
+        got = plan.got
+        stolen_from = state.stolen_from + plan.taken
+        # response departs: travel back
+        resp_start = arriving
+        phase = torch.where(resp_start, PHASE_RESP, phase)
+        back_hops = torch.where(resp_start, topo.hop_dist(mesh, coords, victim), 0)
+        timer = torch.where(resp_start, back_hops * hop_ticks, timer)
+        hop_units = hop_units + torch.where(resp_start, back_hops, 0).sum()
+        loot = torch.where(resp_start[:, None], stolen, state.loot)
+        got_flight = torch.where(resp_start, got, state.got)
+
+        # exact 62-bit hop accumulation (int32 lanes with explicit carry)
+        lo = state.hops_lo + hop_units.to(_I32)
+        hops_hi = state.hops_hi + (lo >> _HOP_LANE_BITS)
+        hops_lo = lo & _HOP_LANE_MASK
+
+        # ------------- phase RESP: in flight / delivery --------------------- #
+        in_resp = (phase == PHASE_RESP) & alive
+        timer = torch.where(in_resp, (timer - 1).clamp(min=0), timer)
+        delivered = in_resp & (timer == 0)
+        # thief-side import: a delivery landing on a full deque is a task loss
+        want_import = delivered & got_flight
+        imported = ses.push(loot, want_import)
+        overflow = overflow + (want_import & ~imported).to(_I32)
+        successes = state.successes + want_import.to(_I32)
+        fails = torch.where(want_import, 0,
+                            state.fails + (delivered & ~got_flight).to(_I32))
+        phase = torch.where(delivered, PHASE_RUN, phase)
+        steal_wait = state.steal_wait + (in_req | in_resp).to(_I32)
+
+        # the one commit of every staged deque mutation this tick (loop
+        # backend: already committed, a no-op here)
+        deque_ = ses.finish()
+
+        got_left = got_flight & ~delivered
+        new_state = state._replace(
+            deque=deque_, acc=acc, work=work, fails=fails, phase=phase,
+            timer=timer, victim=victim, loot=loot, got=got_left,
+            alive=alive, attempts=attempts, successes=successes, nodes=nodes,
+            busy=busy, steal_wait=steal_wait, hops_lo=hops_lo, hops_hi=hops_hi,
+            overflow=overflow, stolen_from=stolen_from,
+            hiwater=torch.maximum(state.hiwater, deque_.size))
+        live = (deque_.size.sum() + work.sum() + got_left.sum()) > 0
+        return new_state, live
+
+    def leap(state: SimState, t: int, live: torch.Tensor, ne: torch.Tensor):
+        """Fused fast-forward over the dead ticks in [t, ne). Returns
+        (state, t, live) with t and live as 0-d tensors. If the window's
+        bulk burn consumes the LAST pending work, land right after the final
+        burn tick (where the one-tick stepper exits) and clear live."""
+        delta = (ne.clamp(max=cfg.max_ticks) - t).clamp(min=0)
+        delta = torch.where(live, delta, 0)
+        burning = (state.phase == PHASE_RUN) & state.alive & (state.work > 0)
+        nact = torch.where(burning, torch.minimum(delta, state.work), 0)
+        drained = (state.deque.size.sum() + (state.work - nact).sum()
+                   + state.got.sum()) == 0
+        # tick right after the last burn of the burners that finish in-window
+        exit_t = torch.where(burning & (nact == state.work), t + state.work,
+                             0).amax()
+        delta = torch.where(live & drained,
+                            torch.minimum(delta, (exit_t - t).clamp(min=0)),
+                            delta)
+        nact = torch.where(burning, torch.minimum(delta, state.work), 0)
+        # in-flight messages: timers tick down, thieves accumulate wait
+        flight = (state.phase != PHASE_RUN) & state.alive
+        dflt = torch.where(flight, delta, 0)
+        return state._replace(
+            timer=state.timer - dflt, steal_wait=state.steal_wait + dflt,
+            work=state.work - nact, busy=state.busy + nact), \
+            t + delta, live & ~drained
+
+    state, t, live, iters = state0, 0, True, 0
+    while live and t < cfg.max_ticks:
+        state, live_d = tick_fn(state, t)
+        t += 1
+        if cfg.step_mode == "leap":
+            ne = _next_event(state, t, p, W)
+            state, t_d, live_d = leap(state, t, live_d, ne)
+            # the one device-to-host sync of the iteration
+            t, live = torch.stack([t_d.to(_I32), live_d.to(_I32)]).tolist()
+        else:
+            live = bool(live_d)
+        iters += 1
+    return state, t, iters
+
+
+def _ckpt_state_bytes(mesh: topo.MeshTopology, cfg: StaticConfig) -> int:
+    return mesh.num_workers * cfg.capacity * 4 * 4 + mesh.num_workers * 4
+
+
+def _finalize(state: SimState, ticks: int, iters: int,
+              mesh: topo.MeshTopology, cfg: StaticConfig) -> SimResult:
+    def np_(x):
+        return x.cpu().numpy()
+
+    busy_w = np_(state.busy)
+    att_w, suc_w = np_(state.attempts), np_(state.successes)
+    att, suc = int(att_w.sum()), int(suc_w.sum())
+    busy = int(busy_w.astype(np.int64).sum())
+    alive_n = int(np_(state.alive).sum())
+    hop_units = (int(state.hops_hi) << _HOP_LANE_BITS) + int(state.hops_lo)
+    soj_sum = (int(state.soj_hi) << _HOP_LANE_BITS) + int(state.soj_lo)
+    req_done = int(state.arr_done)
+    overflow_w = np_(state.overflow)
+    return SimResult(
+        result=int(np_(state.acc).astype(np.int64).sum() % tasks.RESULT_MOD),
+        ticks=ticks, nodes=int(np_(state.nodes).sum()), attempts=att,
+        successes=suc, p_success=suc / max(att, 1), busy_ticks=busy,
+        steal_wait_ticks=int(np_(state.steal_wait).astype(np.int64).sum()),
+        bytes_hops=float(hop_units * STEAL_MSG_BYTES),
+        ckpt_bytes=float(int(state.ckpt_count) * _ckpt_state_bytes(mesh, cfg)),
+        overflow=int(overflow_w.astype(np.int64).sum()),
+        utilization=busy / max(ticks * max(alive_n, 1), 1),
+        per_worker_busy=busy_w,
+        events=iters,
+        per_worker_overflow=overflow_w,
+        per_worker_stolen=np_(state.stolen_from),
+        per_worker_hiwater=np_(state.hiwater),
+        per_worker_attempts=att_w,
+        per_worker_successes=suc_w,
+        arrivals_injected=int(state.arr_injected),
+        arrivals_dropped=int(state.arr_dropped),
+        requests_done=req_done,
+        sojourn_sum_ticks=soj_sum,
+        sojourn_mean=soj_sum / max(req_done, 1))
+
+
+def simulate(workload, mesh: topo.MeshTopology, cfg: SimConfig | None = None,
+             fail_time=None, speed=None, linkstate=None, wake_time=None,
+             fail_period=None, routing_backend: str = "auto", arrivals=None,
+             *, device=None) -> SimResult:
+    """Run the closed-system simulator on `device` (default: the CUDA
+    device; raises if there is none — pass ``device="cpu"`` for the plain
+    PyTorch path). Arguments follow the reference's `simulate`; the failure,
+    straggler, link-state and arrival arguments must be None, and
+    `routing_backend` "auto", until their slices are ported
+    (`NotImplementedError` names the ROADMAP item)."""
+    cfg = cfg or SimConfig()
+    _check_cfg(cfg)
+    for name, arg in (("fail_time", fail_time), ("speed", speed),
+                      ("linkstate", linkstate), ("wake_time", wake_time),
+                      ("fail_period", fail_period), ("arrivals", arrivals)):
+        if arg is not None:
+            raise _not_ported(name)
+    if routing_backend != "auto":
+        raise _not_ported("routing_backend")
+    dev = _resolve_device(device)
+    scfg, params = cfg.split()
+    state, ticks, iters = _sim_core(workload, mesh, scfg, params, dev)
+    return _finalize(state, ticks, iters, mesh, scfg)

@@ -1,0 +1,262 @@
+"""Victim-selection strategies and steal-conflict resolution (paper §3.1).
+
+  * GLOBAL   — victim uniform at random over all other workers.
+  * NEIGHBOR — victim uniform at random over the thief's direct mesh
+               neighbors (the paper's contribution).
+  * LIFELINE — hypercube lifelines tried first, then global random.
+  * ADAPTIVE — neighbor-only, widening to radius-2 after `escalate_after`
+               consecutive failed attempts (paper §6).
+
+Selection is vectorized over workers and keyed by a host-side threefry key
+(`core.rng`), drawing exactly the victims `jax.random` draws. Conflicts are
+resolved by `resolve_grants`: thieves that pick the same victim are ranked
+by (priority, worker id) and served one bottom task each while the victim's
+tasks and per-round budget last.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import rng
+from . import topology as topo
+
+
+class Strategy(enum.Enum):
+    GLOBAL = "global"
+    NEIGHBOR = "neighbor"
+    LIFELINE = "lifeline"
+    ADAPTIVE = "adaptive"
+
+
+GLOBAL_CODE, NEIGHBOR_CODE, LIFELINE_CODE, ADAPTIVE_CODE = range(4)
+STRATEGY_CODES = {
+    Strategy.GLOBAL: GLOBAL_CODE,
+    Strategy.NEIGHBOR: NEIGHBOR_CODE,
+    Strategy.LIFELINE: LIFELINE_CODE,
+    Strategy.ADAPTIVE: ADAPTIVE_CODE,
+}
+CODE_STRATEGIES = {c: s for s, c in STRATEGY_CODES.items()}
+
+
+def strategy_code(strategy) -> int:
+    """Dispatch code of `strategy` (a Strategy, its value string, or an
+    already-encoded int, passed through)."""
+    if isinstance(strategy, Strategy):
+        return STRATEGY_CODES[strategy]
+    if isinstance(strategy, str):
+        return STRATEGY_CODES[Strategy(strategy)]
+    return int(strategy)
+
+
+# Staging width of the grant/export path: the most bottom tasks a victim can
+# hand out in one steal round. One constant shared by the export of both
+# deque backends and the steal_compact kernel (its compile-time width,
+# checked by the wrapper); `max_grants_per_victim` must stay <= it.
+GRANT_WIDTH = 8
+
+
+class StealPlan(NamedTuple):
+    victim: torch.Tensor   # (W,) int32 chosen victim, -1 for non-thieves
+    rank: torch.Tensor     # (W,) int32 rank among same-victim requesters
+    got: torch.Tensor      # (W,) bool steal granted
+    taken: torch.Tensor    # (W,) int32 tasks taken from this worker (victim view)
+    hops: torch.Tensor     # (W,) int32 thief→victim hop distance
+
+
+# --------------------------------------------------------------------------- #
+# Victim-set tables (host numpy, precomputed at init — paper §3.1 step 1)
+# --------------------------------------------------------------------------- #
+def neighbor_list(mesh: topo.MeshTopology) -> np.ndarray:
+    """(W, 4) neighbor ids, NO_NEIGHBOR-padded (radius-1 victim set)."""
+    return mesh.neighbor_table
+
+
+def radius2_list(mesh: topo.MeshTopology) -> np.ndarray:
+    """(W, 12) ids of workers within <= 2 hops (excluding self), ascending,
+    deduplicated, padded with NO_NEIGHBOR."""
+    W = mesh.num_workers
+    R, C = mesh.rows, mesh.cols
+    offs = np.asarray([(dr, dc)
+                       for dr in range(-2, 3) for dc in range(-2, 3)
+                       if 0 < abs(dr) + abs(dc) <= 2], np.int64)   # (12, 2)
+    r = mesh.coords[:, 0:1].astype(np.int64) + offs[None, :, 0]    # (W, 12)
+    c = mesh.coords[:, 1:2].astype(np.int64) + offs[None, :, 1]
+    if mesh.torus and W == R * C:  # the hop metric wraps only on exact tori
+        r %= R
+        c %= C
+        ok = np.ones_like(r, bool)
+    else:
+        ok = (r >= 0) & (r < R) & (c >= 0) & (c < C)
+    cand = np.where(ok, r * C + c, W)
+    cand = np.where(cand >= W, W, cand)              # ragged last row
+    cand = np.where(cand == np.arange(W)[:, None], W, cand)  # wraps onto self
+    cand.sort(axis=1)
+    dup = np.zeros_like(cand, bool)
+    dup[:, 1:] = cand[:, 1:] == cand[:, :-1]
+    cand[dup] = W
+    cand.sort(axis=1)
+    return np.where(cand == W, topo.NO_NEIGHBOR, cand).astype(np.int32)
+
+
+def lifeline_list(num_workers: int, degree: int = 0) -> np.ndarray:
+    """Hypercube lifelines: worker w's lifelines are w with one base-2 digit
+    toggled (Saraswat et al. PPoPP'11), padded to a fixed width."""
+    if degree == 0:
+        degree = max(1, int(np.ceil(np.log2(max(num_workers, 2)))))
+    out = np.full((num_workers, degree), topo.NO_NEIGHBOR, dtype=np.int32)
+    for w in range(num_workers):
+        k = 0
+        for b in range(degree):
+            partner = w ^ (1 << b)
+            if partner < num_workers:
+                out[w, k] = partner
+                k += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Selection (vectorized; `key` is the round's host-side threefry key)
+# --------------------------------------------------------------------------- #
+def _pick_from_list(key, table: torch.Tensor, is_thief: torch.Tensor):
+    """Uniform choice among the valid (!= -1) entries of each worker's row."""
+    W = table.shape[0]
+    valid = table != topo.NO_NEIGHBOR
+    n_valid = valid.sum(dim=1).to(torch.int32).clamp(min=1)
+    r = rng.uniform(key, W, table.device)
+    pick = torch.minimum((r * n_valid).to(torch.int32), n_valid - 1)
+    # rank of each valid slot; the pick-th valid entry of each row
+    order = torch.cumsum(valid.to(torch.int32), dim=1) - 1
+    hit = valid & (order == pick[:, None])
+    victim = torch.where(hit, table, topo.NO_NEIGHBOR).amax(dim=1)
+    return torch.where(is_thief & (victim >= 0), victim, topo.NO_NEIGHBOR)
+
+
+def choose_global(key, num_workers: int, is_thief: torch.Tensor):
+    """Uniform over all other workers (paper's global strategy)."""
+    W = num_workers
+    r = rng.randint(key, W, 0, max(W - 1, 1), is_thief.device)
+    me = torch.arange(W, dtype=torch.int32, device=is_thief.device)
+    victim = torch.where(r >= me, r + 1, r).clamp(0, W - 1)
+    return torch.where(is_thief & (W > 1), victim, topo.NO_NEIGHBOR)
+
+
+def choose_neighbor(key, neighbor_table: torch.Tensor, is_thief: torch.Tensor):
+    """Uniform over the thief's directly connected neighbors."""
+    return _pick_from_list(key, neighbor_table, is_thief)
+
+
+def choose_lifeline(key, lifelines: torch.Tensor, fails: torch.Tensor,
+                    num_workers: int, is_thief: torch.Tensor):
+    """Try lifelines round-robin by fail count; fall back to global random."""
+    W, L = lifelines.shape
+    use_global = fails >= L
+    _, k2 = rng.split(key)
+    slot = fails.clamp(0, L - 1).long()
+    lane = lifelines[torch.arange(W, device=fails.device), slot]
+    fallback = choose_global(k2, num_workers, is_thief)
+    victim = torch.where(use_global | (lane == topo.NO_NEIGHBOR), fallback, lane)
+    return torch.where(is_thief, victim, topo.NO_NEIGHBOR)
+
+
+def choose_adaptive(key, neighbor_table: torch.Tensor,
+                    radius2_table: torch.Tensor, fails: torch.Tensor,
+                    is_thief: torch.Tensor, escalate_after: int = 4):
+    """Neighbor-only, escalating to radius-2 after repeated failures."""
+    k1, k2 = rng.split(key)
+    near = _pick_from_list(k1, neighbor_table, is_thief)
+    far = _pick_from_list(k2, radius2_table, is_thief)
+    return torch.where(is_thief & (fails >= escalate_after), far, near)
+
+
+# --------------------------------------------------------------------------- #
+# Conflict resolution
+# --------------------------------------------------------------------------- #
+def segment_prefix(key: torch.Tensor, active: torch.Tensor,
+                   weights: torch.Tensor | None = None,
+                   priority: torch.Tensor | None = None) -> torch.Tensor:
+    """Exclusive prefix sum of `weights` within equal-`key` segments.
+
+    Workers are ordered inside a segment by (priority, worker id); worker
+    w's result is the sum of the weights of same-key active workers that
+    precede it. Inactive workers sort last and return 0.
+
+    Args:
+      key: (W,) segment id per active worker, in [0, W].
+      active: (W,) bool.
+      weights: (W,) int summands; defaults to ones (prefix = rank).
+      priority: (W,) optional within-segment order in [0, W) (lower =
+        first); worker id breaks ties. Defaults to worker id.
+    """
+    W = key.shape[0]
+    dev = key.device
+    ids = torch.arange(W, dtype=torch.int64, device=dev)
+    if weights is None:
+        weights = torch.ones((W,), dtype=torch.int32, device=dev)
+    pri = ids if priority is None else priority.to(torch.int64)
+    skey = torch.where(active, key.to(torch.int64), W)  # inactive sort last
+    # one composite key (segment, priority, id): total, so no reliance on
+    # sort stability; it replaces the reference's three-key lexsort
+    _, order = torch.sort((skey * W + pri) * W + ids)
+    skey_sorted = skey[order]
+    w_sorted = torch.where(active, weights, 0)[order].to(torch.int32)
+    excl = torch.cumsum(w_sorted, 0).to(torch.int32) - w_sorted
+    is_start = torch.ones((W,), dtype=torch.bool, device=dev)
+    is_start[1:] = skey_sorted[1:] != skey_sorted[:-1]
+    seg_first, _ = torch.cummax(torch.where(is_start, ids, 0), 0)
+    prefix_sorted = excl - excl[seg_first]
+    prefix = torch.empty((W,), dtype=torch.int32, device=dev)
+    prefix[order] = prefix_sorted  # `order` is a permutation: no duplicates
+    return torch.where(active, prefix, 0)
+
+
+def resolve_grants(victim: torch.Tensor, sizes: torch.Tensor,
+                   max_grants_per_victim: int = 4,
+                   priority: torch.Tensor | None = None) -> StealPlan:
+    """Deterministically match thieves to victim deque-bottom slots.
+
+    Sort-based segment ranking (O(W log W)); `resolve_grants_pairwise` is
+    the O(W^2) oracle. `rank[w]` is w's position in its victim's service
+    order, `got[w]` whether a task is granted (rank < min(size, budget)),
+    `taken[v]` how many tasks leave victim v's bottom this round.
+    """
+    W = victim.shape[0]
+    req = victim >= 0
+    rank = segment_prefix(victim, req, priority=priority)
+    vc = victim.clamp(0, W - 1).long()
+    vsize = torch.where(req, sizes[vc], 0)
+    budget = vsize.clamp(max=max_grants_per_victim)
+    got = req & (rank < budget)
+    taken = torch.zeros((W,), dtype=torch.int32, device=victim.device)
+    taken.index_add_(0, vc, got.to(torch.int32))  # integer adds: any order
+    return StealPlan(victim=torch.where(req, victim, topo.NO_NEIGHBOR),
+                     rank=rank, got=got, taken=taken,
+                     hops=torch.zeros_like(taken))
+
+
+def resolve_grants_pairwise(victim: torch.Tensor, sizes: torch.Tensor,
+                            max_grants_per_victim: int = 4,
+                            priority: torch.Tensor | None = None) -> StealPlan:
+    """O(W^2) pairwise-rank reference for `resolve_grants` (test oracle)."""
+    W = victim.shape[0]
+    req = victim >= 0
+    ids = torch.arange(W, device=victim.device)
+    if priority is None:
+        priority = ids
+    same = (victim[:, None] == victim[None, :]) & req[:, None] & req[None, :]
+    ahead = same & ((priority[None, :] < priority[:, None])
+                    | ((priority[None, :] == priority[:, None])
+                       & (ids[None, :] < ids[:, None])))
+    rank = ahead.sum(dim=1).to(torch.int32)
+    vc = victim.clamp(0, W - 1).long()
+    vsize = torch.where(req, sizes[vc], 0)
+    got = req & (rank < vsize.clamp(max=max_grants_per_victim))
+    taken = torch.zeros((W,), dtype=torch.int32, device=victim.device)
+    taken.index_add_(0, vc, got.to(torch.int32))
+    return StealPlan(victim=torch.where(req, victim, topo.NO_NEIGHBOR),
+                     rank=rank, got=got, taken=taken,
+                     hops=torch.zeros_like(taken))

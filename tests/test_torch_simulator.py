@@ -1,0 +1,145 @@
+"""Port parity of the closed-system simulator: `repro_torch` on the CPU
+against `repro.core.simulator.simulate`, every `SimResult` field, for FIB at
+W ∈ {9, 36}, all four strategies, tick/leap x loop/staged (W=100 and the
+UTS point are in test_torch_simulator_w100.py, other mesh shapes in
+test_torch_simulator_meshes.py). Also: the port never imports JAX, runs on
+CUDA by default, and refuses what it has not ported."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch_parity import check_against_reference
+
+from repro.core import simulator as rsim
+from repro.core import stealing as rst
+from repro.core import tasks as rtasks
+from repro.core import topology as rtopo
+from repro_torch import convert
+from repro_torch.core import simulator as psim
+from repro_torch.core import tasks as ptasks
+from repro_torch.core import topology as ptopo
+
+FIB = rtasks.FibWorkload(n=16, cutoff=8, max_leaf_cost=8)
+STRATEGIES = list(rst.Strategy)
+
+
+def _cfg(strategy, **kw):
+    base = dict(strategy=strategy, hop_ticks=3, capacity=32, famine_batch=0,
+                max_ticks=5000)
+    return rsim.SimConfig(**{**base, **kw})
+
+
+@pytest.fixture(scope="module")
+def reference_runs():
+    """Reference results, one compile per (workload, W): the strategy is a
+    traced parameter of the reference."""
+    cache = {}
+
+    def get(workload, W, strategy, **kw):
+        key = (workload, W, strategy, tuple(sorted(kw.items())))
+        if key not in cache:
+            mesh = rtopo.MeshTopology.square(W)
+            cfg = _cfg(strategy, **kw)
+            cache[key] = (rsim.simulate(workload, mesh, cfg), mesh, cfg)
+        return cache[key]
+    return get
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES, ids=lambda s: s.value)
+@pytest.mark.parametrize("W", [9, 36])
+def test_fib_matches_reference(reference_runs, W, strategy):
+    ref, mesh, cfg = reference_runs(FIB, W, strategy)
+    assert ref.result == FIB.expected_result() and ref.nodes == FIB.expected_nodes()
+    check_against_reference(ref, FIB, mesh, cfg)
+
+
+def test_overflow_checkpoints_and_truncation_match_reference(reference_runs):
+    """Tiny rings that drop tasks, the checkpoint counter, a grant budget of
+    one, and a run cut at max_ticks before it drains."""
+    small = {"capacity": 3, "ckpt_interval": 7, "max_grants_per_victim": 1}
+    cut = {"max_ticks": 40, "escalate_after": 1}
+    for strategy, kw in ((rst.Strategy.NEIGHBOR, small),
+                         (rst.Strategy.ADAPTIVE, cut)):
+        ref, mesh, cfg = reference_runs(FIB, 9, strategy, **kw)
+        check_against_reference(ref, FIB, mesh, cfg)
+    assert reference_runs(FIB, 9, rst.Strategy.NEIGHBOR, **small)[0].overflow > 0
+    assert reference_runs(FIB, 9, rst.Strategy.ADAPTIVE, **cut)[0].ticks == 40
+
+
+def test_port_imports_no_jax():
+    """`import repro_torch` and a whole CPU simulate leave JAX and the
+    reference package out of sys.modules."""
+    code = (
+        "import sys, repro_torch\n"
+        "from repro_torch.core import simulator as s, tasks as t, topology as m\n"
+        "import repro_torch.convert, repro_torch.kernels.ops\n"
+        "r = s.simulate(t.FibWorkload(n=12, cutoff=6), m.MeshTopology.square(9),\n"
+        "               s.SimConfig(capacity=16), device='cpu')\n"
+        "assert r.result == t.FibWorkload(n=12, cutoff=6).expected_result()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl, mesh = ptasks.FibWorkload(n=10, cutoff=5), ptopo.MeshTopology.square(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        psim.simulate(wl, mesh, psim.SimConfig(capacity=16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        psim.simulate(wl, mesh, psim.SimConfig(capacity=16), device="cuda")
+
+
+@pytest.mark.parametrize("kwargs,cfg_kw", [
+    ({}, {"recovery": psim.Recovery.TC}),
+    ({}, {"recovery": psim.Recovery.SUPERVISION}),
+    ({}, {"preshed": True}),
+    ({}, {"trace": object()}),
+    ({}, {"arrival_gap_q8": 256}),
+    ({}, {"famine_batch": 64}),
+    ({"fail_time": np.full(4, -1, np.int32)}, {}),
+    ({"wake_time": np.full(4, -1, np.int32)}, {}),
+    ({"fail_period": np.full(4, -1, np.int32)}, {}),
+    ({"speed": np.ones(4, np.int32)}, {}),
+    ({"linkstate": object()}, {}),
+    ({"arrivals": object()}, {}),
+    ({"routing_backend": "sparse"}, {}),
+], ids=["tc", "supervision", "preshed", "trace", "arrivals_gap", "famine",
+        "fail_time", "wake_time", "fail_period", "speed", "linkstate", "arrivals",
+        "routing_backend"])
+def test_unported_options_raise(kwargs, cfg_kw):
+    cfg = psim.SimConfig(capacity=16, **cfg_kw)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item \d+"):
+        psim.simulate(ptasks.FibWorkload(n=10, cutoff=5),
+                      ptopo.MeshTopology.square(4), cfg, device="cpu", **kwargs)
+    # famine_batch is accepted in tick mode, where the reference ignores it
+    if cfg_kw == {"famine_batch": 64}:
+        psim.simulate(ptasks.FibWorkload(n=10, cutoff=5),
+                      ptopo.MeshTopology.square(4),
+                      dataclasses.replace(cfg, step_mode="tick"), device="cpu")
+
+
+def test_config_split_mirrors_reference():
+    ref = rsim.SimConfig(strategy=rst.Strategy.ADAPTIVE, hop_ticks=2, seed=9)
+    got = convert.sim_config(dataclasses.asdict(ref))
+    assert tuple(got.params) == tuple(ref.params)
+    assert rsim.SimParams._fields == psim.SimParams._fields
+    assert rsim.SimState._fields == psim.SimState._fields
+    assert rsim.SimResult._fields == psim.SimResult._fields
+    assert ({f.name for f in dataclasses.fields(rsim.SimConfig)}
+            == {f.name for f in dataclasses.fields(psim.SimConfig)})
+    assert ({f.name for f in dataclasses.fields(rsim.StaticConfig)}
+            == {f.name for f in dataclasses.fields(psim.StaticConfig)})

@@ -1,0 +1,85 @@
+"""Shared helpers of the port's parity tests: numpy in, both packages out.
+
+Inputs are made with numpy from a seed and handed to the JAX reference
+(`repro`) and to the port (`repro_torch`, on the CPU); results are compared
+as numpy arrays.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+
+def np_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed)
+
+
+def to_jax(a, dtype=jnp.int32):
+    return jnp.asarray(np.asarray(a), dtype)
+
+
+def to_torch(a, dtype=torch.int32):
+    return torch.as_tensor(np.ascontiguousarray(a)).to(dtype)
+
+
+def as_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_same(a, b, what=""):
+    """Exact equality of two arrays (jax, torch or numpy), shape included."""
+    a, b = as_np(a), as_np(b)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} != {b.shape}"
+    np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+def assert_results_equal(ref, port, skip=()):
+    """Every field of two `SimResult`s equal (arrays elementwise)."""
+    assert ref._fields == port._fields
+    for f in ref._fields:
+        if f in skip:
+            continue
+        a, b = getattr(ref, f), getattr(port, f)
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            assert_same(a, b, f)
+        else:
+            assert a == b, f"{f}: reference {a!r} != port {b!r}"
+
+
+def port_simulate(workload, mesh, cfg, **overrides):
+    """Run the port on the CPU with the reference's workload, mesh and
+    `SimConfig` (carried across by `repro_torch.convert`), with `overrides`
+    applied to the config's fields."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.core import simulator as psim
+
+    fields = {**dataclasses.asdict(cfg), **overrides}
+    return psim.simulate(
+        convert.workload(type(workload).__name__, dataclasses.asdict(workload)),
+        convert.mesh(mesh.num_workers, mesh.rows, mesh.cols, mesh.torus),
+        convert.sim_config(fields), device="cpu")
+
+
+# (step_mode, deque_backend, use_steal_kernel): the port's stepper x backend
+# matrix; the kernel flag routes the CPU run through the kernels' plain versions
+PORT_MODES = [("tick", "loop", False), ("tick", "staged", True),
+              ("leap", "loop", True), ("leap", "staged", False)]
+
+
+def check_against_reference(ref_result, workload, mesh, cfg):
+    """Every port mode equals the reference run (leap, famine_batch=0) in
+    every field; `events` equals it in leap mode and equals `ticks` in tick
+    mode."""
+    for mode, backend, kernel in PORT_MODES:
+        got = port_simulate(workload, mesh, cfg, step_mode=mode,
+                            deque_backend=backend, use_steal_kernel=kernel,
+                            famine_batch=0)
+        assert_results_equal(ref_result, got, skip=("events",))
+        if mode == "leap":
+            assert got.events == ref_result.events, (mode, backend)
+        else:
+            assert got.events == got.ticks
