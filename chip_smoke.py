@@ -8,11 +8,15 @@ toolkit):
 
 Phases — any failure exits non-zero:
 
-  1. build both hand-written kernels with nvcc (one process per source);
-  2. hold each kernel against its plain PyTorch version at the main path's
-     shapes (W=4096 rings of capacity 64) — outputs must be exactly equal —
-     and time kernel, plain version and library call on the device (CUDA
-     graph replay, CUDA events), plus the kernel's eager wrapper call;
+  1. build the four hand-written kernels with nvcc (one process per source,
+     all started together);
+  2. hold each simulator kernel against its plain PyTorch version at the
+     main path's shapes (W=4096 rings of capacity 64) — outputs must be
+     exactly equal — and time kernel, plain version and library call on the
+     device (CUDA graph replay, CUDA events), plus the kernel's eager
+     wrapper call; then the same for the attention kernels at the serving
+     path's shapes and a few more (ragged, windowed, long, an empty row),
+     within a stated bf16 tolerance;
   3. run the main path at constellation scale: W=4096 (64x64 mesh), FIB
      n=48 cutoff=28 max_leaf_cost=2048, NEIGHBOR, τ=5, capacity 64, 1500
      ticks — leap/staged (the CUDA default, `deque_apply`), leap/loop
@@ -25,7 +29,16 @@ Phases — any failure exits non-zero:
      once more on the loop backend (`steal_compact`); each run must launch
      its kernel, be exact and equal the port's own CPU run of the same input
      (the CPU runs go in worker processes beside the card runs; every worker
-     is joined before the phase ends).
+     is joined before the phase ends);
+  5. serve qwen2-0.5b at full width (24 layers, d 896, vocab 151936, bf16,
+     random weights from seed 0): 8 requests, prompt 512, 64 new tokens
+     through `serve_loop.serve_requests` — `flash_attention` must launch 24
+     times and `decode_attention` 24 x 63 times; the same inputs then run
+     teacher-forced through the plain attention versions and every step's
+     logits must agree within a stated tolerance; prefill and decode rates,
+     peak device memory and the device's busy share are measured; and
+     `simulate_serving` on the launcher's request lengths must give the
+     same stats on the card and on the CPU.
 
 It prints the card's name and power limit, then one JSON line with each
 kernel's launches on the main path, error, times and bound, and last
@@ -44,11 +57,24 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet), int ops counted here
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
 W_MAIN, CAP_MAIN = 4096, 64
+# attention kernels against their plain versions on the card, bf16 outputs:
+# |kernel - plain| <= ATOL + RTOL * |plain| elementwise. The values are O(1)
+# and reach ~4; the kernels round p to bf16 per block, the plain versions
+# after normalising, so outputs may differ by a rounding or two: RTOL is
+# about two bf16 ulps of the value (one ulp is 2^-8 to 2^-7 of it), ATOL
+# covers values near 0
+ATTN_ATOL_BF16, ATTN_RTOL_BF16 = 2e-2, 2 ** -7
+# serving: max abs difference of any logit between the kernel path and the
+# plain-attention path, teacher-forced on the same tokens (bf16 logits; one
+# bf16 ulp at 4 is 2^-5; 24 layers of bf16 rounding in between)
+LOGIT_TOL = 0.25
 
 
-def _bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+def _bound_ms(nbytes: float, nops: float,
+              ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -111,7 +137,8 @@ def _max_abs_err(pairs) -> int:
 def phase_build(build):
     t0 = time.perf_counter()
     build.build()
-    print(f"[build] both kernels built in {time.perf_counter() - t0:.3f} s")
+    print(f"[build] {len(build.SOURCES)} kernels built in "
+          f"{time.perf_counter() - t0:.3f} s")
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -199,6 +226,123 @@ def phase_kernels(torch, np, ops, ref, deque, tasks):
               f"({r['bound_by']}, {r['bytes']} bytes); eager wrapper call "
               f"{r['call_ms']:.6f} ms")
     return {"steal_compact": sc, "deque_apply": da}
+
+
+def _flash_work(B, KV, G, S, hd, causal, window, elt):
+    """(bytes, FLOPs) prefill attention must move and do: q, k, v read
+    once, the output written once; QK and PV products over the visible
+    (query, key) pairs only."""
+    pairs = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i + 1 if causal else S
+        pairs += hi - lo
+    nbytes = (2 * B * KV * G * S * hd + 2 * B * KV * S * hd) * elt
+    return nbytes, 4 * B * KV * G * pairs * hd
+
+
+def _decode_work(KV, G, hd, lengths, elt):
+    """(bytes, FLOPs) of decode attention: q and output once, the K and V
+    rows below each row's length once, the lengths."""
+    B, n = len(lengths), int(sum(lengths))
+    nbytes = 2 * B * KV * G * hd * elt + 2 * n * KV * hd * elt + 4 * B
+    return nbytes, 4 * n * KV * G * hd
+
+
+def phase_attention(torch, ops, ref):
+    """The attention kernels against their plain versions on the card, in
+    bf16. The first case of each kernel is the serving path's shape; it is
+    also timed (kernel, plain version, eager call, library call)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    bf16, HD = torch.bfloat16, 64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def check(name, what, got, want, required=True):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        allowed = ATTN_ATOL_BF16 + ATTN_RTOL_BF16 * want.float().abs()
+        err, worst = float(diff.max()), float((diff / allowed).max())
+        ok = worst <= 1 and bool(torch.isfinite(got.float()).all())
+        print(f"[kernels] {name} {what}: max abs err {err:.6f}, max err / "
+              f"allowed {worst:.4f} (allowed {ATTN_ATOL_BF16} + {ATTN_RTOL_BF16} "
+              f"x |plain|{'' if required else '; not required'})")
+        if required and not ok:
+            raise SystemExit(f"{name} {what} disagrees with its plain version")
+        return err
+
+    out = {}
+    # flash attention: (B, S, G, causal, window); the first is the path's
+    flash_cases = [(8, 512, 7, True, 0), (1, 2048, 7, True, 0),
+                   (2, 500, 7, True, 0), (2, 500, 7, True, 128),
+                   (1, 333, 7, False, 0)]
+    errs = []
+    for i, (B, S, G, causal, window) in enumerate(flash_cases):
+        q, k, v = rnd(B, 2, G, S, HD), rnd(B, 2, S, HD), rnd(B, 2, S, HD)
+        errs.append(check("flash_attention",
+                          f"B={B} KV=2 G={G} S={S} causal={causal} window={window}",
+                          ops.flash_attention(q, k, v, causal=causal, window=window),
+                          ref.flash_attention(q, k, v, causal=causal, window=window)))
+        if i == 0:
+            nbytes, nops = _flash_work(B, 2, G, S, HD, causal, window, 2)
+            qh = q.view(B, 2 * G, S, HD)
+            r = {"ms": _device_ms(torch, lambda: ops.flash_attention(q, k, v)),
+                 "call_ms": _call_ms(torch, lambda: ops.flash_attention(q, k, v)),
+                 "plain_ms": _device_ms(torch, lambda: ref.flash_attention(q, k, v)),
+                 "library_ms": _device_ms(torch, lambda: F.scaled_dot_product_attention(
+                     qh, k, v, is_causal=True, enable_gqa=True)),
+                 "bytes": nbytes, "ops": nops}
+            r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
+            lib = F.scaled_dot_product_attention(qh, k, v, is_causal=True,
+                                                 enable_gqa=True)
+            check("flash_attention", "library call (SDPA) vs plain",
+                  lib.view_as(q), ref.flash_attention(q, k, v), required=False)
+            out["flash_attention"] = r
+    out["flash_attention"]["max_abs_err"] = max(errs)
+
+    # decode attention: (B, T, lengths); the first is the path's (ragged,
+    # 512..575 written positions of a 584-slot cache)
+    g2 = torch.Generator().manual_seed(7)
+    decode_cases = [(8, 584, torch.randint(512, 576, (8,), generator=g2).tolist()),
+                    (4, 4096, [0, 4096, 1, 2500]), (3, 100, [64, 65, 100])]
+    errs = []
+    for i, (B, T, lengths) in enumerate(decode_cases):
+        q, kc, vc = rnd(B, 2, 7, HD), rnd(B, 2, T, HD), rnd(B, 2, T, HD)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = ops.decode_attention(q, kc, vc, ln)
+        errs.append(check("decode_attention", f"B={B} KV=2 G=7 T={T} lengths={lengths}",
+                          got, ref.decode_attention(q, kc, vc, ln)))
+        if 0 in lengths and not bool((got[lengths.index(0)] == 0).all()):
+            raise SystemExit("decode_attention: a row of length 0 is not 0")
+        if i == 0:
+            nbytes, nops = _decode_work(2, 7, HD, lengths, 2)
+            mask = (torch.arange(T, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+            qh = q.view(B, 14, 1, HD)
+            r = {"ms": _device_ms(torch, lambda: ops.decode_attention(q, kc, vc, ln)),
+                 "call_ms": _call_ms(torch, lambda: ops.decode_attention(q, kc, vc, ln)),
+                 "plain_ms": _device_ms(torch, lambda: ref.decode_attention(q, kc, vc, ln)),
+                 "library_ms": _device_ms(torch, lambda: F.scaled_dot_product_attention(
+                     qh, kc, vc, attn_mask=mask, enable_gqa=True)),
+                 "bytes": nbytes, "ops": nops}
+            r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
+            lib = F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask,
+                                                 enable_gqa=True)
+            check("decode_attention", "library call (SDPA) vs plain",
+                  lib.view_as(q), ref.decode_attention(q, kc, vc, ln), required=False)
+            out["decode_attention"] = r
+    out["decode_attention"]["max_abs_err"] = max(errs)
+    for name, r in out.items():
+        print(f"[kernels] {name}: device per launch at the serving shape: kernel "
+              f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
+              f"{r['library_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}; {r['bytes']} bytes, {r['ops']} FLOP); eager "
+              f"wrapper call {r['call_ms']:.6f} ms")
+    return out
 
 
 def _assert_equal(np, a, b, skip=(), what=""):
@@ -359,6 +503,185 @@ def phase_drained(torch, np, sim, topo, tasks, ops):
                   f"card == cpu")
 
 
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64
+
+
+def _greedy_run(torch, transformer, cfg, params, prompts, cache_len, feed=None):
+    """Prefill `prompts`, then SERVE_NEW - 1 decode steps. Step i is fed
+    `feed[:, i]`, or the greedy token of the step before when `feed` is
+    None. Returns (greedy tokens (B, SERVE_NEW), logits (SERVE_NEW, B, V))."""
+    logits, cache, pos = transformer.prefill(params, cfg, prompts, cache_len)
+    steps = [logits]
+    for i in range(SERVE_NEW - 1):
+        tok = steps[-1].argmax(-1) if feed is None else feed[:, i]
+        logits, cache, pos = transformer.decode_step(params, cfg, tok.long(), cache, pos)
+        steps.append(logits)
+    logits = torch.stack(steps)
+    return logits.argmax(-1).t().to(torch.int32), logits
+
+
+def _served_view(torch, greedy, eos: int):
+    """What `serve_requests` returns for a greedy token sequence: the first
+    token as is, later ones replaced by EOS from the first EOS on."""
+    later = greedy[:, 1:]
+    alive = torch.cumprod((later != eos).int(), dim=1).bool()
+    return torch.cat([greedy[:, :1], torch.where(alive, later, eos)], dim=1)
+
+
+def phase_serve(torch, np, ops, ref):
+    """qwen2-0.5b at full width on the card through the serving entry
+    point; kernel path against the plain attention path; rates, memory,
+    busy share; the serving simulation card == CPU."""
+    from unittest import mock
+
+    from repro_torch.models import registry, transformer
+    from repro_torch.runtime import serve_loop
+
+    cfg = registry.get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} kv, hd {cfg.hd}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; {n_params} parameters (config count "
+          f"{cfg.n_params()}), random from seed 0, made in "
+          f"{time.perf_counter() - t0:.3f} s")
+    sc = serve_loop.ServeConfig(max_new_tokens=SERVE_NEW, prompt_len=SERVE_PROMPT,
+                                cache_len=SERVE_PROMPT + SERVE_NEW + 8)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device="cuda")
+    # warm-up: cuBLAS handles, the kernels' libraries, the allocator
+    serve_loop.serve_requests(cfg, params, serve_loop.ServeConfig(
+        max_new_tokens=2, prompt_len=SERVE_PROMPT, cache_len=sc.cache_len),
+        prompts)
+    torch.cuda.synchronize()
+
+    # the main path: launches counted from 0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served, info = serve_loop.serve_requests(cfg, params, sc, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (SERVE_NEW - 1)}
+    print(f"[serve] serve_requests: {info['decoded']} tokens in {wall:.3f} s "
+          f"({info['decoded'] / wall:.2f} tokens/s end to end); launches "
+          f"{counts}; peak device memory {peak} bytes")
+    for name, n in want.items():
+        if counts[name] != n:
+            raise SystemExit(f"serve: {name} launched {counts[name]} times, "
+                             f"expected {n}")
+    if tuple(served.shape) != (SERVE_BATCH, SERVE_NEW):
+        raise SystemExit(f"serve: output shape {tuple(served.shape)}")
+
+    # kernel path, greedy, and the plain attention path teacher-forced on
+    # its tokens: every step's logits compared
+    greedy_k, logits_k = _greedy_run(torch, transformer, cfg, params, prompts,
+                                     sc.cache_len)
+    reproduced = bool(torch.equal(_served_view(torch, greedy_k, sc.eos_id), served))
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention), \
+            mock.patch.object(ops, "decode_attention", ref.decode_attention):
+        greedy_p, logits_p = _greedy_run(torch, transformer, cfg, params, prompts,
+                                         sc.cache_len, feed=greedy_k)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits_k.float()).all()):
+        raise SystemExit("serve: non-finite logits on the kernel path")
+    diff = (logits_k.float() - logits_p.float()).abs()
+    step_err = diff.amax(dim=(1, 2)).tolist()
+    agree = float((greedy_k == greedy_p).float().mean())
+    print(f"[serve] kernel vs plain attention, teacher-forced: max abs logit "
+          f"difference prefill {step_err[0]:.6f}, decode steps max "
+          f"{max(step_err[1:]):.6f} (tolerance {LOGIT_TOL}); mean abs "
+          f"{float(diff.mean()):.6f}; |logit| max {float(logits_k.abs().max()):.4f}; "
+          f"greedy-token agreement {agree:.6f} over {greedy_k.numel()} tokens; "
+          f"the kernel rerun reproduces the served tokens: {reproduced}")
+    if max(step_err) > LOGIT_TOL:
+        raise SystemExit("serve: kernel path and plain attention path disagree")
+    del logits_k, logits_p, diff
+
+    # rates: prefill, and decode steps fed the greedy tokens
+    def prefill():
+        return transformer.prefill(params, cfg, prompts, sc.cache_len)
+
+    def decode(cache, pos, n=SERVE_NEW - 1):
+        for i in range(n):
+            transformer.decode_step(params, cfg, greedy_k[:, i].long(), cache, pos + i)
+
+    pre_s, dec_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache, pos = prefill()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode(cache, pos)
+        torch.cuda.synchronize()
+        pre_s.append(t1 - t0)
+        dec_s.append((time.perf_counter() - t1) / (SERVE_NEW - 1))
+    pre, dec = sorted(pre_s)[1], sorted(dec_s)[1]
+    print(f"[serve] prefill {SERVE_BATCH}x{SERVE_PROMPT}: {pre * 1e3:.3f} ms "
+          f"({SERVE_BATCH * SERVE_PROMPT / pre:.2f} tokens/s); decode "
+          f"{dec * 1e3:.3f} ms/step ({SERVE_BATCH / dec:.2f} tokens/s) at batch "
+          f"{SERVE_BATCH}, cache {sc.cache_len} (median of 3)")
+
+    # where the time goes: one prefill and 16 decode steps under the profiler
+    profiled = {}
+    n_prof = min(16, SERVE_NEW - 1)
+    for what, fn, kernel in (
+            ("prefill", prefill, ("flash_attention_kernel",)),
+            (f"decode x{n_prof}", lambda: decode(cache, pos, n_prof),
+             ("decode_partial_kernel", "decode_combine_kernel"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, n_dev, by_name = _profile(torch, fn)
+        hits = [(k, v) for k, v in by_name.items() if any(n in k for n in kernel)]
+        k_ms = sum(ms for _, (ms, _) in hits)
+        k_n = max(c for k, (_, c) in hits if kernel[0] in k) if hits else 0
+        if k_n == 0:
+            raise SystemExit(f"profile of {what}: no {kernel[0]} seen")
+        name = "flash_attention" if what == "prefill" else "decode_attention"
+        profiled[name] = k_ms / k_n
+        print(f"[profile] serve {what}: device busy {busy:.3f} ms of {wall_ms:.3f} "
+              f"ms wall (busy share {busy / wall_ms:.4f}); {n_dev} device "
+              f"activities; {name} {k_n}x, {k_ms / k_n * 1e3:.3f} us each, "
+              f"{k_ms / busy:.4f} of the busy time")
+        for kname, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {kname[:90]}")
+
+    # the serving simulation: card == CPU on the launcher's request lengths
+    rng = np.random.default_rng(0)
+    lens = np.minimum((rng.pareto(1.2, (4, 8 * 4)) * 16 + 4), 64).astype(np.int32)
+    sim_cfg = serve_loop.ServeConfig(batch_slots=8, n_shards=4)
+    t0 = time.perf_counter()
+    on_card = serve_loop.simulate_serving(cfg, sim_cfg, lens)
+    t_card = time.perf_counter() - t0
+    on_cpu = serve_loop.simulate_serving(cfg, sim_cfg, lens, device="cpu")
+    if on_card != on_cpu:
+        raise SystemExit(f"simulate_serving: card {on_card} != cpu {on_cpu}")
+    print(f"[serve] simulate_serving card == cpu: occupancy "
+          f"{on_card.occupancy:.6f} moved={on_card.moved} steps={on_card.steps} "
+          f"completed={on_card.completed} (card {t_card:.3f} s)")
+    return counts, profiled
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -376,8 +699,12 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build(build)
     kern = phase_kernels(torch, np, ops, ref, deque, tasks)
+    kern.update(phase_attention(torch, ops, ref))
     launches, profiled = phase_main_path(torch, np, sim, topo, tasks, ops)
     phase_drained(torch, np, sim, topo, tasks, ops)
+    serve_counts, serve_profiled = phase_serve(torch, np, ops, ref)
+    launches.update({k: serve_counts[k] for k in serve_profiled})
+    profiled.update(serve_profiled)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -395,7 +722,9 @@ def main() -> int:
          "main_path_device_ms": profiled[name]}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),
-            ("deque_apply", "src/repro/kernels/deque_apply.py:42"))]}
+            ("deque_apply", "src/repro/kernels/deque_apply.py:42"),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:79"),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:63"))]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ fields and numpy arrays, so both packages run the same thing.
 The simulator has no weights: its inputs are a workload's fields, a mesh's
 ``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields and, for the
 deque layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
-be any enum (or plain string) with the same values. This module imports
-nothing of the reference package.
+be any enum (or plain string) with the same values. The LM's input is its
+parameter tree (`lm_params`). This module imports nothing of the reference
+package.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from .core import deque as dq
 from .core import simulator as sim
 from .core import stealing, tasks
 from .core import topology as topo
+from .models import layers
+from .models.config import ModelConfig
 
 _WORKLOADS = {"FibWorkload": tasks.FibWorkload, "UtsWorkload": tasks.UtsWorkload}
 
@@ -50,3 +53,37 @@ def deque_state(buf, bot, size, device="cpu") -> dq.DequeState:
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
     return dq.DequeState(t(buf), t(bot), t(size))
+
+
+def lm_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
+    """The port's transformer parameters from the reference's parameter
+    tree, given as numpy arrays (e.g. `jax.tree.map(np.asarray, params)`).
+
+    The reference stacks every `layers` leaf along a leading n_layers axis;
+    the port keeps one dict per layer. Weights are cast once to cfg.dtype
+    on `device` — the reference casts its fp32 masters to cfg.dtype at
+    every use, so the values are the same — and norm scales stay fp32, as
+    the reference multiplies them in fp32. A tied embedding stays one
+    table."""
+    dt = layers.dtype_of(cfg.dtype)
+
+    def leaf(a, path):
+        t = torch.from_numpy(np.array(a, np.float32))
+        keep_fp32 = path[-1] == "scale"
+        return t.to(device=device, dtype=torch.float32 if keep_fp32 else dt)
+
+    def tree(node, path=()):
+        if isinstance(node, dict):
+            return {k: tree(v, path + (k,)) for k, v in node.items()}
+        return leaf(node, path)
+
+    out = {k: tree(v, (k,)) for k, v in params.items() if k != "layers"}
+
+    def layer(i, node):
+        if isinstance(node, dict):
+            return {k: layer(i, v) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    out["layers"] = [tree(layer(i, params["layers"]))
+                     for i in range(cfg.n_layers)]
+    return out

@@ -121,31 +121,25 @@ def peek_bottom_window(state: DequeState, window: int) -> torch.Tensor:
     return _gather_rows(state.buf, idx)
 
 
-def export_bottom(state: DequeState, grants: torch.Tensor, width: int,
-                  use_kernel: bool = False):
+def export_bottom(state: DequeState, grants: torch.Tensor, width: int):
     """Extract `grants[w]` bottom records into a dense staging block and
     advance each deque's bottom — the victim side of a steal round.
 
     Returns (stolen, state): `stolen` is (W, width, T) with the first
     min(grants, size)[w] rows of worker w's bottom window and zeros beyond.
-    With `use_kernel=True` the extraction goes through `kernels.ops.
-    steal_compact` (the CUDA kernel on the card, its plain version on CPU).
+    The extraction is `kernels.ops.steal_compact`: the CUDA kernel on the
+    card, its plain version for CPU tensors.
     """
+    from ..kernels import ops as kernel_ops
+
     # never advance the bottom past what the staging block exports
     grants = grants.clamp(max=width)
-    if use_kernel:
-        from ..kernels import ops as kernel_ops
-
-        stolen, new_bot, new_size = kernel_ops.steal_compact(
-            state.buf, state.bot, state.size, grants)
-        assert stolen.shape[1] >= width, (
-            f"steal_compact staging width {stolen.shape[1]} < requested {width}")
-        return stolen[:, :width], DequeState(state.buf, new_bot, new_size)
-    g = torch.minimum(grants, state.size)
-    ranks = torch.arange(width, device=g.device)[None, :]
-    rows = peek_bottom_window(state, width)
-    stolen = torch.where((ranks < g[:, None])[:, :, None], rows, 0)
-    return stolen, steal_bottom(state, g)
+    stolen, new_bot, new_size = kernel_ops.steal_compact(
+        state.buf, state.bot, state.size, grants)
+    if stolen.shape[1] < width:
+        raise ValueError(f"export width {width} exceeds the steal_compact "
+                         f"staging width {stolen.shape[1]}")
+    return stolen[:, :width], DequeState(state.buf, new_bot, new_size)
 
 
 def steal_bottom(state: DequeState, counts: torch.Tensor) -> DequeState:
@@ -305,18 +299,11 @@ def stage_clear(ops: DequeOps, mask: torch.Tensor) -> DequeOps:
     return ops._replace(size=torch.where(mask, 0, ops.size))
 
 
-def apply(ops: DequeOps, use_kernel: bool = False) -> DequeState:
+def apply(ops: DequeOps) -> DequeState:
     """Commit all staged mutations in one pass, lanes in staging order (the
-    last write to a slot wins). With `use_kernel=True` the commit goes
-    through `kernels.ops.deque_apply` (the CUDA kernel on the card, its plain
-    version on CPU); the plain path below keeps only the last live lane per
-    (worker, slot) through the last-lane map, then gathers."""
-    if use_kernel:
-        from ..kernels import ops as kernel_ops
+    last write to a slot wins), through `kernels.ops.deque_apply`: the CUDA
+    kernel on the card, its plain version for CPU tensors."""
+    from ..kernels import ops as kernel_ops
 
-        buf = kernel_ops.deque_apply(ops.buf0, ops.slot, ops.rec, ops.n)
-        return DequeState(buf, ops.bot, ops.size)
-    last = _last_lane_map(ops)                                   # (W, C)
-    staged = _gather_rows(ops.rec, last.clamp(min=0))
-    buf = torch.where((last >= 0)[:, :, None], staged, ops.buf0)
+    buf = kernel_ops.deque_apply(ops.buf0, ops.slot, ops.rec, ops.n)
     return DequeState(buf, ops.bot, ops.size)

@@ -27,12 +27,13 @@ one device-to-host sync per event, which bounds the card's throughput in
 this version.
 
 Deque backends: ``deque_backend="loop"`` commits each deque mutation on its
-own, exporting grants through the `steal_compact` kernel when kernels are
-on; ``"staged"`` records a tick's mutations in a `deque.DequeOps` delta and
-commits them once through the `deque_apply` kernel. Auto (None) picks
-staged with kernels on a CUDA device and loop with the plain versions on the
-CPU. Options beyond the closed system raise `NotImplementedError` and name
-the ROADMAP item that brings them.
+own, exporting grants through the `steal_compact` kernel; ``"staged"``
+records a tick's mutations in a `deque.DequeOps` delta and commits them once
+through the `deque_apply` kernel. Auto (None) picks staged on a CUDA device
+and loop on the CPU. The kernels' wrappers run their plain versions for CPU
+tensors, so on the card the simulator always runs the kernels, and
+``use_steal_kernel=False`` there raises. Options beyond the closed system
+raise `NotImplementedError` and name the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -87,8 +88,9 @@ class SimConfig:
     seed: int = 0
     step_mode: str = "leap"            # "leap" or "tick"
     famine_batch: int = 0
-    # grant-export (loop backend) / staged-commit (staged backend) kernels;
-    # None = auto (kernels on a CUDA device, plain versions on the CPU)
+    # grant-export (loop backend) / staged-commit (staged backend) kernels:
+    # always on the card (False raises there); on the CPU both values run
+    # the kernels' plain versions
     use_steal_kernel: bool | None = None
     # "staged", "loop", or None = auto (staged on CUDA, loop on the CPU)
     deque_backend: str | None = None
@@ -255,9 +257,8 @@ def _lane_budget() -> int:
 class _LoopDeques:
     """Per-op deque backend: every mutation commits its own buffer."""
 
-    def __init__(self, state: dq.DequeState, use_kernel: bool):
+    def __init__(self, state: dq.DequeState):
         self.st = state
-        self.use_kernel = use_kernel
 
     @property
     def size(self):
@@ -276,8 +277,7 @@ class _LoopDeques:
         return task, ok
 
     def export(self, grants, width):
-        stolen, self.st = dq.export_bottom(self.st, grants, width,
-                                           use_kernel=self.use_kernel)
+        stolen, self.st = dq.export_bottom(self.st, grants, width)
         return stolen
 
     def finish(self) -> dq.DequeState:
@@ -288,9 +288,8 @@ class _StagedDeques:
     """Staged deque backend: mutations accumulate in a `deque.DequeOps`
     delta and `finish()` commits the tick in one pass."""
 
-    def __init__(self, state: dq.DequeState, lanes: int, use_kernel: bool):
+    def __init__(self, state: dq.DequeState, lanes: int):
         self.ops = dq.stage(state, lanes)
-        self.use_kernel = use_kernel
 
     @property
     def size(self):
@@ -313,7 +312,7 @@ class _StagedDeques:
         return stolen
 
     def finish(self) -> dq.DequeState:
-        return dq.apply(self.ops, use_kernel=self.use_kernel)
+        return dq.apply(self.ops)
 
 
 def _scheduled_horizons(ne: torch.Tensor, t: int, p: SimParams) -> torch.Tensor:
@@ -428,8 +427,6 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     hop_ticks, max_grants = int(p.hop_ticks), int(p.max_grants_per_victim)
     key0 = rng.PRNGKey(p.seed)
     on_cuda = device.type == "cuda"
-    use_kernel = (cfg.use_steal_kernel if cfg.use_steal_kernel is not None
-                  else on_cuda)
     staged = (cfg.deque_backend == "staged"
               or (cfg.deque_backend is None and on_cuda))
     lanes = _lane_budget()
@@ -444,8 +441,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
     def session(deq):
         if staged:
-            return _StagedDeques(deq, lanes, use_kernel)
-        return _LoopDeques(deq, use_kernel)
+            return _StagedDeques(deq, lanes)
+        return _LoopDeques(deq)
 
     def zeros(*shape, dtype=_I32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -667,6 +664,12 @@ def simulate(workload, mesh: topo.MeshTopology, cfg: SimConfig | None = None,
     if routing_backend != "auto":
         raise _not_ported("routing_backend")
     dev = _resolve_device(device)
+    if dev.type == "cuda" and cfg.use_steal_kernel is False:
+        raise ValueError(
+            "use_steal_kernel=False asks for the kernels' plain versions, "
+            "which run only for CPU tensors: on a CUDA device the simulator "
+            "always runs the hand-written kernels; pass device='cpu' for "
+            "the plain path")
     scfg, params = cfg.split()
     state, ticks, iters = _sim_core(workload, mesh, scfg, params, dev)
     return _finalize(state, ticks, iters, mesh, scfg)

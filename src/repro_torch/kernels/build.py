@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("steal_compact", "deque_apply")
+SOURCES = ("steal_compact", "deque_apply", "flash_attention", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +34,17 @@ _SIGNATURES = {
     },
     "deque_apply": {
         "deque_apply_launch": [_P] * 5 + [_I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_P],
+        "flash_attention_head_dim": [],
+        "flash_attention_max_group": [],
+    },
+    "decode_attention": {
+        "decode_attention_launch": [_P] * 8 + [_I] * 5 + [_P],
+        "decode_attention_head_dim": [],
+        "decode_attention_max_group": [],
+        "decode_attention_chunk": [],
     },
 }
 

@@ -15,7 +15,10 @@ import torch
 from ..core import stealing
 from . import build, ref
 
-LAUNCHES = {"steal_compact": 0, "deque_apply": 0}
+LAUNCHES = {"steal_compact": 0, "deque_apply": 0, "flash_attention": 0,
+            "decode_attention": 0}
+# the attention kernels' element types, by the code their launch takes
+_FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
@@ -23,11 +26,12 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
+def _check(name: str, t: torch.Tensor, shape: tuple,
+           dtype: torch.dtype = torch.int32) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
@@ -90,4 +94,71 @@ def deque_apply(buf, slot, rec, n):
                                  W, C, L, _stream())
     _raise_on(err, "deque_apply")
     LAUNCHES["deque_apply"] += 1
+    return out
+
+
+def _check_attention(name: str, lib, q: torch.Tensor, G: int):
+    """The element type, head dim and group size the kernel `name` takes."""
+    if q.dtype not in _FLOAT_CODES:
+        raise ValueError(f"{name}: expected float32 or bfloat16, got {q.dtype}")
+    hd = getattr(lib, f"{name}_head_dim")()
+    if q.shape[-1] != hd:
+        raise ValueError(f"{name}: the kernel takes head dim {hd}, got {q.shape[-1]}")
+    max_g = getattr(lib, f"{name}_max_group")()
+    if not 1 <= G <= max_g:
+        raise ValueError(f"{name}: the kernel takes 1..{max_g} query heads per "
+                         f"KV head, got {G}")
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q (B, KV, G, Sq, hd), k and v (B, KV, Sk, hd) → (B, KV, G, Sq, hd):
+    causal (or not) attention over positions from 0, within `window`
+    positions when window > 0."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    B, KV, G, Sq, hd = q.shape
+    Sk = k.shape[2]
+    for nm, t, shp in (("q", q, (B, KV, G, Sq, hd)), ("k", k, (B, KV, Sk, hd)),
+                       ("v", v, (B, KV, Sk, hd))):
+        _check(f"flash_attention.{nm}", t, shp, q.dtype)
+    lib = build.load("flash_attention")
+    _check_attention("flash_attention", lib, q, G)
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    out = torch.empty_like(q)
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * KV, G,
+        Sq, Sk, int(causal), int(window), _FLOAT_CODES[q.dtype], _stream())
+    _raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q (B, KV, G, hd), caches (B, KV, T, hd), lengths (B,) int32 →
+    (B, KV, G, hd): each row attends to the first lengths[b] positions of
+    its cache."""
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k_cache, v_cache, lengths)
+    B, KV, G, hd = q.shape
+    T = k_cache.shape[2]
+    for nm, t, shp in (("q", q, (B, KV, G, hd)), ("k_cache", k_cache, (B, KV, T, hd)),
+                       ("v_cache", v_cache, (B, KV, T, hd))):
+        _check(f"decode_attention.{nm}", t, shp, q.dtype)
+    _check("decode_attention.lengths", lengths, (B,))
+    lib = build.load("decode_attention")
+    _check_attention("decode_attention", lib, q, G)
+    n_chunks = -(-T // lib.decode_attention_chunk())
+    part_acc = torch.empty((B * KV * n_chunks * G * hd,), dtype=torch.float32,
+                           device=q.device)
+    part_m = torch.empty((B * KV * n_chunks * G,), dtype=torch.float32,
+                         device=q.device)
+    part_l = torch.empty_like(part_m)
+    out = torch.empty_like(q)
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(),
+        B, KV, G, T, _FLOAT_CODES[q.dtype], _stream())
+    _raise_on(err, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
     return out

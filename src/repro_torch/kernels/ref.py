@@ -1,8 +1,11 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-Each function computes exactly what its CUDA kernel computes, at the same
-interface. The wrappers in `ops` run these for CPU tensors; on the card they
-serve only as the yardstick `chip_smoke.py` holds each kernel against.
+Each function computes what its CUDA kernel computes, at the same
+interface: the simulator's kernels exactly, the attention kernels up to the
+order of float sums and where p is rounded to v's type. The wrappers in
+`ops` run these for CPU tensors; on the card they serve only as the
+yardstick `chip_smoke.py` and the `gpu`-marked tests hold each kernel
+against.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import torch
 # the one staging width of the grant export, shared with the kernel's
 # compile-time constant (checked by the wrapper)
 from ..core.stealing import GRANT_WIDTH
+
+NEG_INF = -1e30
 
 
 def steal_compact(buf, bot, size, grants):
@@ -43,3 +48,48 @@ def deque_apply(buf, slot, rec, n):
         hit = (cols == slot[:, lane][:, None]) & (lane < n)[:, None]
         out = torch.where(hit[:, :, None], rec[:, lane][:, None, :], out)
     return out
+
+
+def _softmax_pv(s, v, eq: str, out_dtype):
+    """Masked softmax over the last axis of fp32 scores `s` (masked entries
+    hold NEG_INF), normalised, cast to v's type, then the PV product: the
+    order of the reference's oracles. A row with no visible key gives 0."""
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    return torch.einsum(eq, (p / l.clamp(min=1e-30)).to(v.dtype), v).to(out_dtype)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Causal or windowed grouped-query attention, positions from 0.
+
+    q: (B, KV, G, Sq, hd); k, v: (B, KV, Sk, hd) → (B, KV, G, Sq, hd) in
+    q's type. Key s is visible to query i iff (not causal or i >= s) and
+    (window == 0 or i - s < window). Scores are taken in fp32, as the
+    kernel's are.
+    """
+    Sq, hd = q.shape[-2:]
+    Sk = k.shape[-2]
+    s = torch.einsum("bkgqh,bksh->bkgqs", q.float(), k.float()) * hd ** -0.5
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= (qp - kp) < window
+    s = torch.where(mask, s, NEG_INF)
+    return _softmax_pv(s, v, "bkgqs,bksh->bkgqh", q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """One query position per GQA group against a KV cache.
+
+    q: (B, KV, G, hd); caches: (B, KV, T, hd); lengths: (B,) int32, the
+    visible prefix of each row's cache. Returns (B, KV, G, hd) in q's type.
+    """
+    T, hd = k_cache.shape[-2:]
+    s = torch.einsum("bkgh,bkth->bkgt", q.float(), k_cache.float()) * hd ** -0.5
+    valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    return _softmax_pv(s, v_cache, "bkgt,bkth->bkgh", q.dtype)

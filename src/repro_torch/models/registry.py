@@ -1,0 +1,95 @@
+"""Architecture registry: `--arch <id>` → (config, model functions), for
+the architectures the port serves.
+
+Mirrors `repro.models.registry`: `get_config`, `get_fns`, `list_archs`
+and `reduced` (copied verbatim, so tests shrink a config exactly as the
+reference does). An architecture or family the port does not serve yet
+raises `NotImplementedError` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Callable, NamedTuple
+
+from . import transformer
+from .config import ModelConfig
+
+
+class ModelFns(NamedTuple):
+    init: Callable
+    prefill: Callable
+    decode_step: Callable
+
+
+_FAMILY_FNS = {
+    "dense": ModelFns(transformer.init, transformer.prefill,
+                      transformer.decode_step),
+}
+# families of the reference not served yet → ROADMAP Queue 1 item
+_FAMILY_ITEMS = {"hybrid": "15.2", "ssm": "15.3", "moe": "15.4", "vlm": "15.5",
+                 "encdec": "15.6"}
+
+ARCH_MODULES = {
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+}
+# the reference's other architectures → ROADMAP Queue 1 item
+_ARCH_ITEMS = {
+    "recurrentgemma-9b": "15.2",
+    "rwkv6-1.6b": "15.3",
+    "qwen2-moe-a2.7b": "15.4",
+    "phi3.5-moe-42b-a6.6b": "15.4",
+    "llava-next-mistral-7b": "15.5",
+    "whisper-tiny": "15.6",
+    "mistral-large-123b": "15.8",
+    "granite-3-8b": "15.8",
+    "yi-34b": "15.8",
+}
+
+
+def list_archs() -> list[str]:
+    return list(ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch in _ARCH_ITEMS:
+        raise transformer.not_ported(f"architecture {arch!r}", _ARCH_ITEMS[arch])
+    mod = importlib.import_module(ARCH_MODULES[arch])
+    return mod.CONFIG
+
+
+def get_fns(cfg: ModelConfig) -> ModelFns:
+    if cfg.family in _FAMILY_ITEMS:
+        raise transformer.not_ported(f"model family {cfg.family!r}",
+                                     _FAMILY_ITEMS[cfg.family])
+    return _FAMILY_FNS[cfg.family]
+
+
+def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 64,
+            vocab: int = 128, seq_hint: int = 64) -> ModelConfig:
+    """Shrink a config to smoke-test size, preserving family structure."""
+    ratio = max(cfg.n_heads // cfg.n_kv_heads, 1)
+    n_kv = 2 if cfg.n_kv_heads > 1 else 1
+    n_heads = n_kv * min(ratio, 4)
+    head_dim = max(d_model // n_heads, 8)
+    updates = dict(
+        n_layers=max(n_layers, len(cfg.pattern)),
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=d_model * 2,
+        vocab=vocab,
+        window=min(cfg.window, seq_hint // 2) if cfg.window else None,
+        lru_width=d_model if cfg.lru_width else 0,
+        n_encoder_layers=min(cfg.n_encoder_layers, 2),
+        n_frontend_tokens=min(cfg.n_frontend_tokens, 16) if cfg.n_frontend_tokens else 0,
+        rwkv_head_dim=16,
+    )
+    if cfg.moe is not None:
+        updates["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=min(cfg.moe.top_k, 2),
+            n_shared=min(cfg.moe.n_shared, 1), d_ff_expert=d_model,
+            d_ff_shared=d_model if cfg.moe.d_ff_shared else 0, ep_pad_to=0)
+    return dataclasses.replace(cfg, **updates)

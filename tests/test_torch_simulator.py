@@ -79,6 +79,8 @@ def test_port_imports_no_jax():
         "import sys, repro_torch\n"
         "from repro_torch.core import simulator as s, tasks as t, topology as m\n"
         "import repro_torch.convert, repro_torch.kernels.ops\n"
+        "import repro_torch.launch.serve, repro_torch.runtime.serve_loop\n"
+        "import repro_torch.models.transformer\n"
         "r = s.simulate(t.FibWorkload(n=12, cutoff=6), m.MeshTopology.square(9),\n"
         "               s.SimConfig(capacity=16), device='cpu')\n"
         "assert r.result == t.FibWorkload(n=12, cutoff=6).expected_result()\n"
@@ -101,6 +103,18 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         psim.simulate(wl, mesh, psim.SimConfig(capacity=16))
     with pytest.raises(RuntimeError, match="CUDA"):
         psim.simulate(wl, mesh, psim.SimConfig(capacity=16), device="cuda")
+
+
+def test_plain_kernels_refused_on_cuda(monkeypatch):
+    """On a CUDA device the simulator has no path to the kernels' plain
+    versions: `use_steal_kernel=False` raises before any tensor is made."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    wl, mesh = ptasks.FibWorkload(n=10, cutoff=5), ptopo.MeshTopology.square(4)
+    for backend in ("loop", "staged", None):
+        cfg = psim.SimConfig(capacity=16, use_steal_kernel=False,
+                             deque_backend=backend)
+        with pytest.raises(ValueError, match="plain versions"):
+            psim.simulate(wl, mesh, cfg, device="cuda")
 
 
 @pytest.mark.parametrize("kwargs,cfg_kw", [

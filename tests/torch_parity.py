@@ -65,7 +65,8 @@ def port_simulate(workload, mesh, cfg, **overrides):
 
 
 # (step_mode, deque_backend, use_steal_kernel): the port's stepper x backend
-# matrix; the kernel flag routes the CPU run through the kernels' plain versions
+# matrix; on the CPU both values of the kernel flag run the kernels' plain
+# versions, and both are accepted
 PORT_MODES = [("tick", "loop", False), ("tick", "staged", True),
               ("leap", "loop", True), ("leap", "staged", False)]
 
