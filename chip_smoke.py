@@ -8,7 +8,7 @@ toolkit):
 
 Phases — any failure exits non-zero:
 
-  1. build the four hand-written kernels with nvcc (one process per source,
+  1. build the five hand-written kernels with nvcc (one process per source,
      all started together);
   2. hold each simulator kernel against its plain PyTorch version at the
      main path's shapes (W=4096 rings of capacity 64) — outputs must be
@@ -16,7 +16,10 @@ Phases — any failure exits non-zero:
      device (CUDA graph replay, CUDA events), plus the kernel's eager
      wrapper call; then the same for the attention kernels at the serving
      path's shapes and a few more (ragged, windowed, long, an empty row),
-     within a stated bf16 tolerance;
+     within a stated bf16 tolerance; then `wkv6` at rwkv6 serving's prefill
+     (B=8, S=512, H=32, hd=64) and decode (S=1, carried state) shapes and at
+     S=7 and S=1000, from zero and given states, output and final state
+     within a stated fp32 tolerance;
   3. run the main path at constellation scale: W=4096 (64x64 mesh), FIB
      n=48 cutoff=28 max_leaf_cost=2048, NEIGHBOR, τ=5, capacity 64, 1500
      ticks — leap/staged (the CUDA default, `deque_apply`), leap/loop
@@ -38,7 +41,16 @@ Phases — any failure exits non-zero:
      logits must agree within a stated tolerance; prefill and decode rates,
      peak device memory and the device's busy share are measured; and
      `simulate_serving` on the launcher's request lengths must give the
-     same stats on the card and on the CPU.
+     same stats on the card and on the CPU;
+  6. serve rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64,
+     d_ff 7168, vocab 65536, layernorm, bf16, random weights from seed 0):
+     8 requests, prompt 512, 64 new tokens through
+     `serve_loop.serve_requests` — `wkv6` must launch 24 times in the
+     prefill and 24 times in each of the 63 decode steps; the same inputs
+     then run teacher-forced through the plain `wkv6` and every step's
+     logits must agree within the same tolerance as phase 5; prefill and
+     decode rates, peak device memory and the device's busy share are
+     measured.
 
 It prints the card's name and power limit, then one JSON line with each
 kernel's launches on the main path, error, times and bound, and last
@@ -70,6 +82,11 @@ ATTN_ATOL_BF16, ATTN_RTOL_BF16 = 2e-2, 2 ** -7
 # plain-attention path, teacher-forced on the same tokens (bf16 logits; one
 # bf16 ulp at 4 is 2^-5; 24 layers of bf16 rounding in between)
 LOGIT_TOL = 0.25
+# wkv6 against its plain version on the card, fp32 outputs and states:
+# |kernel - plain| <= WKV_RTOL * max|plain| + WKV_ATOL over each compared
+# tensor — the same recurrence with its sums in another order (fmaf, four
+# partial sums), the error growing with the values the state accumulates
+WKV_RTOL, WKV_ATOL = 1e-4, 1e-5
 
 
 def _bound_ms(nbytes: float, nops: float,
@@ -345,6 +362,101 @@ def phase_attention(torch, ops, ref):
     return out
 
 
+def _wkv6_work(B, S, H, hd, state: bool):
+    """(bytes, FLOPs) of the WKV6 recurrence: r, k, v, w and u read once,
+    the output written once, the given state read once and the final state
+    written once; per step and (b, h), 5·hd² FLOPs for the r·S product and
+    the rank-1 state update, plus 4·hd for the u bonus term."""
+    n = B * S * H * hd
+    st = B * H * hd * hd * 4
+    nbytes = 5 * n * 4 + H * hd * 4 + st * (2 if state else 1)
+    return nbytes, B * S * H * (5 * hd * hd + 4 * hd)
+
+
+def _wkv6_inputs(torch, gen, B, S, H, hd, state):
+    """r, k, v, w, u and a state as rwkv6's time mix makes them: r, k, v
+    from bf16 matmuls of unit-scale activations with normal(0, 0.02)
+    weights, cast to fp32; w = exp(-exp(w0 + lora)) with w0 per channel in
+    (-6, -0.5) (slow to fast decay) and the LoRA of two bf16 matmuls; u ~
+    N(0, 0.3^2). `state` is None (none given: the kernel starts from
+    zeros), "zeros" (a zero tensor, what prefill passes) or "random" (~
+    N(0, 0.3^2), a state carried into decode)."""
+    dev = torch.device("cuda")
+    D = H * hd
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = rnd(B, S, D).to(bf16)
+    r, k, v = ((x @ rnd(D, D, scale=0.02).to(bf16)).float().view(B, S, H, hd)
+               for _ in range(3))
+    w0 = torch.rand((D,), generator=gen, device=dev) * 5.5 - 6.0
+    lora = (x @ rnd(D, 64, scale=0.02).to(bf16)) @ rnd(64, D, scale=0.02).to(bf16)
+    w = torch.exp(-torch.exp(w0 + lora.float())).view(B, S, H, hd)
+    u = rnd(H, hd, scale=0.3)
+    if state is None:
+        return r, k, v, w, u, None
+    if state == "zeros":
+        return r, k, v, w, u, torch.zeros((B, H, hd, hd), device=dev)
+    return r, k, v, w, u, rnd(B, H, hd, hd, scale=0.3)
+
+
+def phase_wkv6(torch, ops, ref):
+    """`wkv6` against its plain version on the card, in fp32. The first
+    case is rwkv6 serving's prefill (a zero state tensor given), the second
+    its decode (a carried state); both are timed (kernel, plain version,
+    eager call)."""
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(20261018)
+    cases = [(8, 512, 32, "zeros"), (8, 1, 32, "random"), (8, 512, 32, "random"),
+             (8, 512, 32, None), (2, 7, 32, None), (2, 1000, 4, "random"),
+             (3, 1, 4, None)]
+    errs, timed = [], {}
+    for i, (B, S, H, state) in enumerate(cases):
+        r, k, v, w, u, s0 = _wkv6_inputs(torch, gen, B, S, H, 64, state)
+        got = ops.wkv6(r, k, v, w, u, s0)
+        want = ref.wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        for what, g, p in (("out", got[0], want[0]), ("final state", got[1], want[1])):
+            err = float((g - p).abs().max())
+            allowed = WKV_RTOL * float(p.abs().max()) + WKV_ATOL
+            errs.append(err)
+            print(f"[kernels] wkv6 B={B} S={S} H={H} hd=64 state "
+                  f"{state or 'none'}, {what}: max abs err "
+                  f"{err:.3e}, max |plain| {float(p.abs().max()):.4f}, allowed "
+                  f"{allowed:.3e} ({WKV_RTOL} x max|plain| + {WKV_ATOL})")
+            if not err <= allowed or not bool(torch.isfinite(g).all()):
+                raise SystemExit(f"wkv6 B={B} S={S} {what} disagrees with its "
+                                 f"plain version")
+        if i < 2:
+            nbytes, nops = _wkv6_work(B, S, H, 64, s0 is not None)
+
+            def kern():
+                return ops.wkv6(r, k, v, w, u, s0)
+
+            def plain():
+                return ref.wkv6(r, k, v, w, u, s0)
+
+            t = {"ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+                 # the plain version launches ~10 kernels a step: few calls a graph
+                 "plain_ms": _device_ms(torch, plain, calls=2, reps=5),
+                 "library_ms": None, "bytes": nbytes, "ops": nops}
+            t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, nops)
+            timed["prefill" if i == 0 else "decode"] = t
+            print(f"[kernels] wkv6 at the serving {'prefill' if i == 0 else 'decode'} "
+                  f"shape B={B} S={S} H={H}: kernel {t['ms']:.6f} ms, plain "
+                  f"{t['plain_ms']:.6f} ms, library none (no single PyTorch call), "
+                  f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}; {nbytes} bytes, "
+                  f"{nops} FLOP); eager wrapper call {t['call_ms']:.6f} ms")
+    out = dict(timed["prefill"])
+    out["max_abs_err"] = max(errs)
+    out["decode_ms"] = timed["decode"]["ms"]
+    out["decode_plain_ms"] = timed["decode"]["plain_ms"]
+    out["decode_bound_ms"] = timed["decode"]["bound_ms"]
+    return {"wkv6": out}
+
+
 def _assert_equal(np, a, b, skip=(), what=""):
     for f in a._fields:
         if f in skip:
@@ -506,15 +618,16 @@ def phase_drained(torch, np, sim, topo, tasks, ops):
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64
 
 
-def _greedy_run(torch, transformer, cfg, params, prompts, cache_len, feed=None):
-    """Prefill `prompts`, then SERVE_NEW - 1 decode steps. Step i is fed
-    `feed[:, i]`, or the greedy token of the step before when `feed` is
-    None. Returns (greedy tokens (B, SERVE_NEW), logits (SERVE_NEW, B, V))."""
-    logits, cache, pos = transformer.prefill(params, cfg, prompts, cache_len)
+def _greedy_run(torch, model, cfg, params, prompts, cache_len, feed=None):
+    """Prefill `prompts`, then SERVE_NEW - 1 decode steps of `model` (a
+    module or `ModelFns` with `prefill` and `decode_step`). Step i is fed `feed[:, i]`,
+    or the greedy token of the step before when `feed` is None. Returns
+    (greedy tokens (B, SERVE_NEW), logits (SERVE_NEW, B, V))."""
+    logits, cache, pos = model.prefill(params, cfg, prompts, cache_len)
     steps = [logits]
     for i in range(SERVE_NEW - 1):
         tok = steps[-1].argmax(-1) if feed is None else feed[:, i]
-        logits, cache, pos = transformer.decode_step(params, cfg, tok.long(), cache, pos)
+        logits, cache, pos = model.decode_step(params, cfg, tok.long(), cache, pos)
         steps.append(logits)
     logits = torch.stack(steps)
     return logits.argmax(-1).t().to(torch.int32), logits
@@ -671,6 +784,142 @@ def phase_serve(torch, np, ops, ref):
     return counts, profiled
 
 
+def phase_serve_rwkv6(torch, np, ops, ref):
+    """rwkv6-1.6b at full width on the card through the serving entry
+    point; kernel path against the plain `wkv6` path; rates, memory, busy
+    share. Returns (main-path launches, per-launch device ms of `wkv6` in
+    the profiled prefill and decode)."""
+    from unittest import mock
+
+    from repro_torch.models import registry
+    from repro_torch.runtime import serve_loop
+
+    cfg = registry.get_config("rwkv6-1.6b")
+    fns = registry.get_fns(cfg)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = fns.init(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve_rwkv6] {cfg.name}: {L} layers, d {cfg.d_model}, "
+          f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.norm}, {cfg.dtype}; {n_params} "
+          f"parameters in the tree (config count {cfg.n_params()}: it counts the "
+          f"channel mix as 3·D·d_ff, the tree holds 2·D·d_ff + D²), random from "
+          f"seed 0, made in {time.perf_counter() - t0:.3f} s")
+    sc = serve_loop.ServeConfig(max_new_tokens=SERVE_NEW, prompt_len=SERVE_PROMPT,
+                                cache_len=SERVE_PROMPT + SERVE_NEW + 8)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device="cuda")
+    # warm-up: cuBLAS handles, the kernel's library, the allocator
+    serve_loop.serve_requests(cfg, params, serve_loop.ServeConfig(
+        max_new_tokens=2, prompt_len=SERVE_PROMPT, cache_len=sc.cache_len),
+        prompts)
+    torch.cuda.synchronize()
+
+    # the main path: launches counted from 0
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served, info = serve_loop.serve_requests(cfg, params, sc, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve_rwkv6] serve_requests: {info['decoded']} tokens in {wall:.3f} s "
+          f"({info['decoded'] / wall:.2f} tokens/s end to end); launches "
+          f"{counts}; peak device memory {peak} bytes ({before} allocated "
+          f"before the run, the weights and what earlier phases hold)")
+    if counts["wkv6"] != L * SERVE_NEW:
+        raise SystemExit(f"serve_rwkv6: wkv6 launched {counts['wkv6']} times, "
+                         f"expected {L} + {L} x {SERVE_NEW - 1}")
+    if tuple(served.shape) != (SERVE_BATCH, SERVE_NEW):
+        raise SystemExit(f"serve_rwkv6: output shape {tuple(served.shape)}")
+
+    # kernel path, greedy, and the plain wkv6 path teacher-forced on its
+    # tokens: every step's logits compared
+    greedy_k, logits_k = _greedy_run(torch, fns, cfg, params, prompts,
+                                     sc.cache_len)
+    reproduced = bool(torch.equal(_served_view(torch, greedy_k, sc.eos_id), served))
+    with mock.patch.object(ops, "wkv6", ref.wkv6):
+        greedy_p, logits_p = _greedy_run(torch, fns, cfg, params, prompts,
+                                         sc.cache_len, feed=greedy_k)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits_k.float()).all()):
+        raise SystemExit("serve_rwkv6: non-finite logits on the kernel path")
+    diff = (logits_k.float() - logits_p.float()).abs()
+    step_err = diff.amax(dim=(1, 2)).tolist()
+    agree = float((greedy_k == greedy_p).float().mean())
+    print(f"[serve_rwkv6] kernel vs plain wkv6, teacher-forced: max abs logit "
+          f"difference prefill {step_err[0]:.6f}, decode steps max "
+          f"{max(step_err[1:]):.6f} (tolerance {LOGIT_TOL}); mean abs "
+          f"{float(diff.mean()):.6f}; |logit| max {float(logits_k.abs().max()):.4f}; "
+          f"greedy-token agreement {agree:.6f} over {greedy_k.numel()} tokens; "
+          f"the kernel rerun reproduces the served tokens: {reproduced}")
+    if max(step_err) > LOGIT_TOL:
+        raise SystemExit("serve_rwkv6: kernel path and plain wkv6 path disagree")
+    del logits_k, logits_p, diff
+
+    # rates: prefill, and decode steps fed the greedy tokens; the launches
+    # of each half are asserted on its own
+    def prefill():
+        return fns.prefill(params, cfg, prompts, sc.cache_len)
+
+    def decode(state, pos, n=SERVE_NEW - 1):
+        for i in range(n):
+            _, state, pos = fns.decode_step(params, cfg, greedy_k[:, i].long(),
+                                            state, pos)
+
+    pre_s, dec_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, state, pos = prefill()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_pre = ops.LAUNCHES["wkv6"]
+        decode(state, pos)
+        torch.cuda.synchronize()
+        n_dec = ops.LAUNCHES["wkv6"] - n_pre
+        if (n_pre, n_dec) != (L, L * (SERVE_NEW - 1)):
+            raise SystemExit(f"serve_rwkv6: wkv6 launched {n_pre} times in the "
+                             f"prefill and {n_dec} in the decode steps")
+        pre_s.append(t1 - t0)
+        dec_s.append((time.perf_counter() - t1) / (SERVE_NEW - 1))
+    pre, dec = sorted(pre_s)[1], sorted(dec_s)[1]
+    print(f"[serve_rwkv6] wkv6 launches: {L} in the prefill, {L} x "
+          f"{SERVE_NEW - 1} in the decode steps; prefill {SERVE_BATCH}x"
+          f"{SERVE_PROMPT}: {pre * 1e3:.3f} ms ({SERVE_BATCH * SERVE_PROMPT / pre:.2f} "
+          f"tokens/s); decode {dec * 1e3:.3f} ms/step ({SERVE_BATCH / dec:.2f} "
+          f"tokens/s) at batch {SERVE_BATCH} (median of 3)")
+
+    # where the time goes: one prefill and 16 decode steps under the profiler
+    profiled = {}
+    n_prof = min(16, SERVE_NEW - 1)
+    for what, fn in (("prefill", prefill),
+                     (f"decode x{n_prof}", lambda: decode(state, pos, n_prof))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, n_dev, by_name = _profile(torch, fn)
+        hits = [v for k, v in by_name.items() if "wkv6_kernel" in k]
+        k_ms, k_n = sum(ms for ms, _ in hits), sum(c for _, c in hits)
+        if k_n == 0:
+            raise SystemExit(f"profile of {what}: no wkv6_kernel seen")
+        profiled[what.split()[0]] = k_ms / k_n
+        print(f"[profile] serve_rwkv6 {what}: device busy {busy:.3f} ms of "
+              f"{wall_ms:.3f} ms wall (busy share {busy / wall_ms:.4f}); {n_dev} "
+              f"device activities; wkv6 {k_n}x, {k_ms / k_n * 1e3:.3f} us each, "
+              f"{k_ms / busy:.4f} of the busy time")
+        for kname, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {kname[:90]}")
+    return counts, profiled
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -700,11 +949,16 @@ def main() -> int:
     phase_build(build)
     kern = phase_kernels(torch, np, ops, ref, deque, tasks)
     kern.update(phase_attention(torch, ops, ref))
+    kern.update(phase_wkv6(torch, ops, ref))
     launches, profiled = phase_main_path(torch, np, sim, topo, tasks, ops)
     phase_drained(torch, np, sim, topo, tasks, ops)
     serve_counts, serve_profiled = phase_serve(torch, np, ops, ref)
     launches.update({k: serve_counts[k] for k in serve_profiled})
     profiled.update(serve_profiled)
+    rwkv_counts, rwkv_profiled = phase_serve_rwkv6(torch, np, ops, ref)
+    launches["wkv6"] = rwkv_counts["wkv6"]
+    profiled["wkv6"] = rwkv_profiled["prefill"]
+    kern["wkv6"]["main_path_decode_device_ms"] = rwkv_profiled["decode"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -719,12 +973,14 @@ def main() -> int:
          "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name]["library_ms"],
          "call_ms": kern[name]["call_ms"],
-         "main_path_device_ms": profiled[name]}
+         "main_path_device_ms": profiled[name],
+         **{k: v for k, v in kern[name].items() if k.startswith(("decode_", "main_"))}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),
             ("deque_apply", "src/repro/kernels/deque_apply.py:42"),
             ("flash_attention", "src/repro/kernels/flash_attention.py:79"),
-            ("decode_attention", "src/repro/kernels/decode_attention.py:63"))]}
+            ("decode_attention", "src/repro/kernels/decode_attention.py:63"),
+            ("wkv6", "src/repro/kernels/rwkv6_scan.py:57"))]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ fields and numpy arrays, so both packages run the same thing.
 The simulator has no weights: its inputs are a workload's fields, a mesh's
 ``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields and, for the
 deque layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
-be any enum (or plain string) with the same values. The LM's input is its
-parameter tree (`lm_params`). This module imports nothing of the reference
+be any enum (or plain string) with the same values. A model's input is its
+parameter tree (`lm_params` for the dense transformer, `rwkv6_params` for
+rwkv6). This module imports nothing of the reference
 package.
 """
 
@@ -55,21 +56,15 @@ def deque_state(buf, bot, size, device="cpu") -> dq.DequeState:
     return dq.DequeState(t(buf), t(bot), t(size))
 
 
-def lm_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
-    """The port's transformer parameters from the reference's parameter
-    tree, given as numpy arrays (e.g. `jax.tree.map(np.asarray, params)`).
-
-    The reference stacks every `layers` leaf along a leading n_layers axis;
-    the port keeps one dict per layer. Weights are cast once to cfg.dtype
-    on `device` — the reference casts its fp32 masters to cfg.dtype at
-    every use, so the values are the same — and norm scales stay fp32, as
-    the reference multiplies them in fp32. A tied embedding stays one
-    table."""
+def _lm_tree(cfg: ModelConfig, params: dict, device, fp32_leaves) -> dict:
+    """The reference's parameter tree (numpy arrays, `layers` leaves stacked
+    along a leading n_layers axis) as the port's: one dict per layer, leaves
+    named in `fp32_leaves` in fp32 and every other leaf in cfg.dtype."""
     dt = layers.dtype_of(cfg.dtype)
 
     def leaf(a, path):
         t = torch.from_numpy(np.array(a, np.float32))
-        keep_fp32 = path[-1] == "scale"
+        keep_fp32 = path[-1] in fp32_leaves
         return t.to(device=device, dtype=torch.float32 if keep_fp32 else dt)
 
     def tree(node, path=()):
@@ -87,3 +82,26 @@ def lm_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
     out["layers"] = [tree(layer(i, params["layers"]))
                      for i in range(cfg.n_layers)]
     return out
+
+
+def lm_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
+    """The port's transformer parameters from the reference's parameter
+    tree, given as numpy arrays (e.g. `jax.tree.map(np.asarray, params)`).
+
+    The reference stacks every `layers` leaf along a leading n_layers axis;
+    the port keeps one dict per layer. Weights are cast once to cfg.dtype
+    on `device` — the reference casts its fp32 masters to cfg.dtype at
+    every use, so the values are the same — and norm scales stay fp32, as
+    the reference multiplies them in fp32. A tied embedding stays one
+    table."""
+    return _lm_tree(cfg, params, device, ("scale",))
+
+
+def rwkv6_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
+    """The port's rwkv6 parameters from the reference's tree (numpy arrays),
+    as `lm_params` does for the dense tree. Kept in fp32, because the
+    reference computes with them in fp32: norm scales, the layernorms'
+    `bias`, `w0` (cast to fp32 before the decay LoRA is added) and `u`
+    (cast to fp32 for the scan). The `mu_*` lerp coefficients are cast to
+    the activations' type at use, so cfg.dtype is their value there."""
+    return _lm_tree(cfg, params, device, ("scale", "bias", "w0", "u"))

@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("steal_compact", "deque_apply", "flash_attention", "decode_attention")
+SOURCES = ("steal_compact", "deque_apply", "flash_attention", "decode_attention",
+           "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +46,10 @@ _SIGNATURES = {
         "decode_attention_head_dim": [],
         "decode_attention_max_group": [],
         "decode_attention_chunk": [],
+    },
+    "wkv6": {
+        "wkv6_launch": [_P] * 8 + [_I] * 3 + [_P],
+        "wkv6_head_dim": [],
     },
 }
 

@@ -16,7 +16,7 @@ from ..core import stealing
 from . import build, ref
 
 LAUNCHES = {"steal_compact": 0, "deque_apply": 0, "flash_attention": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "wkv6": 0}
 # the attention kernels' element types, by the code their launch takes
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -162,3 +162,33 @@ def decode_attention(q, k_cache, v_cache, lengths):
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """r, k, v, w (B, S, H, hd), u (H, hd), state (B, H, hd, hd) or None
+    (zeros), all float32 → (out (B, S, H, hd), final state (B, H, hd, hd))
+    float32: the RWKV-6 recurrence of `ref.wkv6`, any S >= 1."""
+    if r.device.type == "cpu":
+        return ref.wkv6(r, k, v, w, u, state)
+    B, S, H, hd = r.shape
+    if S < 1:
+        raise ValueError(f"wkv6: expected S >= 1, got {S}")
+    for nm, t, shp in (("r", r, (B, S, H, hd)), ("k", k, (B, S, H, hd)),
+                       ("v", v, (B, S, H, hd)), ("w", w, (B, S, H, hd)),
+                       ("u", u, (H, hd))):
+        _check(f"wkv6.{nm}", t, shp, torch.float32)
+    if state is not None:
+        _check("wkv6.state", state, (B, H, hd, hd), torch.float32)
+    lib = build.load("wkv6")
+    if hd != lib.wkv6_head_dim():
+        raise ValueError(f"wkv6: the kernel takes head dim {lib.wkv6_head_dim()}, "
+                         f"got {hd}")
+    out = torch.empty_like(r)
+    final = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    err = lib.wkv6_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if state is None else state.data_ptr(), out.data_ptr(),
+        final.data_ptr(), B, S, H, _stream())
+    _raise_on(err, "wkv6")
+    LAUNCHES["wkv6"] += 1
+    return out, final

@@ -2,7 +2,8 @@
 
 Each function computes what its CUDA kernel computes, at the same
 interface: the simulator's kernels exactly, the attention kernels up to the
-order of float sums and where p is rounded to v's type. The wrappers in
+order of float sums and where p is rounded to v's type, `wkv6` up to the
+order of float sums. The wrappers in
 `ops` run these for CPU tensors; on the card they serve only as the
 yardstick `chip_smoke.py` and the `gpu`-marked tests hold each kernel
 against.
@@ -93,3 +94,25 @@ def decode_attention(q, k_cache, v_cache, lengths):
     valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     return _softmax_pv(s, v_cache, "bkgt,bkth->bkgh", q.dtype)
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """The RWKV-6 WKV recurrence, sequential over S in fp32.
+
+    r, k, v, w: (B, S, H, hd) (w the decay, in (0, 1)); u: (H, hd);
+    state: (B, H, hd, hd) [key dim x value dim], or None for zeros. Per
+    step: o_t = r_t . (S + diag(u) k_t^T v_t), then S <- diag(w_t) S +
+    k_t^T v_t. Returns (out (B, S, H, hd) fp32, final state (B, H, hd, hd)
+    fp32) — the reference oracle's interface; with a zero state, `out` is
+    what the TPU kernel returns.
+    """
+    B, S, H, hd = r.shape
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    st = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    outs = []
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], st + u[None, :, :, None] * kv))
+        st = w[:, t, :, :, None] * st + kv
+    return torch.stack(outs, dim=1), st

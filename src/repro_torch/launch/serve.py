@@ -6,15 +6,18 @@ study — the port of `repro.launch.serve`, with the same flags and
       --requests 8 --prompt-len 512 --max-new 64          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --reduced --device cpu                               # plain path
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --reduced --device cpu
 
-Part 1 decodes a batch end to end with random weights (`transformer.init`,
-seed 0). The prompts are drawn by numpy from seed 0, so they are not the
-reference script's prompts, which come from `jax.random`. Part 2 runs
+Part 1 decodes a batch end to end with random weights (the family's
+`init`, seed 0). The prompts are drawn by numpy from seed 0, so they are
+not the reference script's prompts, which come from `jax.random`. Part 2 runs
 `simulate_serving` on the same Pareto request lengths as the reference
 script (numpy, seed 0); with `--strategy global` it runs the neighbor
 rebalancer too, as the reference does, and `none` turns rebalancing off.
-`--reduced` shrinks the model to head dim 8, which the CUDA attention
-kernels (head dim 64) refuse: use it with `--device cpu`.
+`--reduced` shrinks the model to head dim 8 (qwen2-0.5b) or an rwkv head
+dim of 16 (rwkv6-1.6b), which the CUDA kernels (head dim 64) refuse: use
+it with `--device cpu`.
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
-"""The port's LM stack: configuration, registry, layers and the dense
-transformer's serving path (prefill and decode)."""
+"""The port's LM stack: configuration, registry, layers and the serving
+paths (prefill and decode) of the dense transformer and of rwkv6."""

@@ -1,12 +1,13 @@
-"""Building blocks of the dense transformer's serving path, in torch.
+"""Building blocks of the serving paths (dense transformer and rwkv6), in
+torch.
 
 Mirrors `repro.models.layers` function by function, with two differences
 of form:
 
   * parameters are nested dicts of tensors already in the compute type
     (the reference keeps fp32 masters and casts each weight at every use;
-    the values are the same), except norm scales, which stay fp32 as the
-    reference multiplies them in fp32;
+    the values are the same), except norm scales and biases, which stay
+    fp32 as the reference multiplies and adds them in fp32;
   * attention runs through the hand-written kernels (`kernels.ops`):
     `flash_attention` for prefill, `decode_attention` for decode, which on
     CPU tensors run their plain versions. Keys and values come back in the
@@ -42,6 +43,16 @@ def rmsnorm(params, x, eps: float = 1e-6):
     var = (x32 * x32).mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"]).to(x.dtype)
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """Mean and population variance in fp32, `y * scale + bias` in fp32,
+    cast back to x's type (the reference's `layers.layernorm`)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #

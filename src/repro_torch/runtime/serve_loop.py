@@ -4,8 +4,9 @@ Mirrors `repro.runtime.serve_loop`:
 
   * `serve_requests` runs the real model — prefill of every prompt, then
     greedy decode to EOS or `max_new_tokens` — on one device, through the
-    model's `flash_attention` (prefill) and `decode_attention` (decode)
-    kernels;
+    model family's kernels (`registry.get_fns`): for the dense transformer
+    `flash_attention` (prefill) and `decode_attention` (decode), for rwkv6
+    `wkv6` (both);
   * `simulate_serving` is the slot-level serving simulation that measures
     the occupancy won by steal-rebalancing request backlogs between shards
     (`core.balancer`), integer-exact against the reference.
@@ -120,7 +121,8 @@ def serve_requests(arch_cfg, params, serve_cfg: ServeConfig, prompts,
     `max_new_tokens`.
 
     prompts: (N, prompt_len) int (numpy or tensor); `params` must already
-    lie on `device` (default: the CUDA device). Returns (outputs (N,
+    lie on `device` (default: the CUDA device). The model's cache (the KV
+    cache, or rwkv6's fixed-size state) is whatever its `prefill` returns. Returns (outputs (N,
     max_new_tokens) int32 on the device, {"decoded": token count}). Single
     shard: the multi-shard slot logic is `simulate_serving`'s.
     """

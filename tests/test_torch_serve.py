@@ -68,12 +68,12 @@ def test_config_and_registry_mirror_reference():
     full_r, full_p = rreg.get_config("qwen2-0.5b"), preg.get_config("qwen2-0.5b")
     assert dataclasses.asdict(full_r) == dataclasses.asdict(full_p)
     assert full_p.n_params() == full_r.n_params()
-    assert preg.list_archs() == ["qwen2-0.5b"]
+    assert preg.list_archs() == ["qwen2-0.5b", "rwkv6-1.6b"]
     assert set(preg._ARCH_ITEMS) | set(preg.list_archs()) == set(rreg.list_archs())
     for arch in preg._ARCH_ITEMS:
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 15\.\d"):
             preg.get_config(arch)
-    for family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    for family in ("moe", "hybrid", "encdec", "vlm"):
         with pytest.raises(NotImplementedError, match=r"Queue 1 item 15\.\d"):
             preg.get_fns(dataclasses.replace(full_p, family=family))
 
