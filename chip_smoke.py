@@ -8,18 +8,24 @@ toolkit):
 
 Phases — any failure exits non-zero:
 
-  1. build the five hand-written kernels with nvcc (one process per source,
+  1. build the six hand-written kernels with nvcc (one process per source,
      all started together);
   2. hold each simulator kernel against its plain PyTorch version at the
      main path's shapes (W=4096 rings of capacity 64) — outputs must be
      exactly equal — and time kernel, plain version and library call on the
      device (CUDA graph replay, CUDA events), plus the kernel's eager
      wrapper call; then the same for the attention kernels at the serving
-     path's shapes and a few more (ragged, windowed, long, an empty row),
-     within a stated bf16 tolerance; then `wkv6` at rwkv6 serving's prefill
-     (B=8, S=512, H=32, hd=64) and decode (S=1, carried state) shapes and at
-     S=7 and S=1000, from zero and given states, output and final state
-     within a stated fp32 tolerance;
+     paths' shapes — head dim 64 with 7 query heads per KV head (qwen2) and
+     head dim 256 with 16 over one (recurrentgemma: prefill S=2560 with a
+     2048-token window, decode against a full 2048-slot ring) — and a few
+     more (ragged, windowed, long, an empty row), within a stated bf16
+     tolerance, with SDPA as the library yardstick; then `wkv6` at rwkv6
+     serving's prefill (B=8, S=512, H=32, hd=64) and decode (S=1, carried
+     state) shapes and at S=7 and S=1000, from zero and given states, output
+     and final state within a stated fp32 tolerance; then `rglru` at
+     recurrentgemma serving's prefill (B=8, S=2560, W=4096, bf16, zero state)
+     and decode (S=1, carried state) shapes, a ragged S, a long one and fp32
+     inputs, output and final state within a stated fp32 tolerance;
   3. run the main path at constellation scale: W=4096 (64x64 mesh), FIB
      n=48 cutoff=28 max_leaf_cost=2048, NEIGHBOR, τ=5, capacity 64, 1500
      ticks — leap/staged (the CUDA default, `deque_apply`), leap/loop
@@ -33,32 +39,37 @@ Phases — any failure exits non-zero:
      its kernel, be exact and equal the port's own CPU run of the same input
      (the CPU runs go in worker processes beside the card runs; every worker
      is joined before the phase ends);
-  5. serve qwen2-0.5b at full width (24 layers, d 896, vocab 151936, bf16,
-     random weights from seed 0): 8 requests, prompt 512, 64 new tokens
-     through `serve_loop.serve_requests` — `flash_attention` must launch 24
-     times and `decode_attention` 24 x 63 times; the same inputs then run
-     teacher-forced through the plain attention versions and every step's
-     logits must agree within a stated tolerance; prefill and decode rates,
-     peak device memory and the device's busy share are measured; and
-     `simulate_serving` on the launcher's request lengths must give the
-     same stats on the card and on the CPU;
-  6. serve rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64,
-     d_ff 7168, vocab 65536, layernorm, bf16, random weights from seed 0):
-     8 requests, prompt 512, 64 new tokens through
-     `serve_loop.serve_requests` — `wkv6` must launch 24 times in the
-     prefill and 24 times in each of the 63 decode steps; the same inputs
-     then run teacher-forced through the plain `wkv6` and every step's
-     logits must agree within the same tolerance as phase 5; prefill and
-     decode rates, peak device memory and the device's busy share are
-     measured.
+  5-7. serve three models through `serve_loop.serve_requests` (one phase,
+     `phase_serve`, each model in turn, random weights from seed 0, bf16):
+     8 requests and 64 new tokens each; the path's kernels must launch
+     exactly as its blocks say (an attention block `flash_attention` once in
+     the prefill and `decode_attention` once a decode step, a recurrent
+     block `rglru` and an rwkv block `wkv6` once in each); the same inputs
+     then run teacher-forced through the plain versions of the path's
+     kernels and every step's logits must agree within a stated tolerance;
+     prefill and decode rates, peak device memory and the device's busy
+     share are measured. The models: qwen2-0.5b at full width (24 layers,
+     d 896, vocab 151936; prompt 512: 24 `flash_attention`, 24 x 63
+     `decode_attention`), followed by `simulate_serving` on the launcher's
+     request lengths, which must give the same stats on the card and on the
+     CPU; rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64, d_ff
+     7168, vocab 65536, layernorm; prompt 512: 24 + 24 x 63 `wkv6`);
+     recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU blocks
+     and 12 MQA attention blocks with a 2048-token window, d 4096, 16 heads
+     of 256 over 1 KV head, d_ff 12288, vocab 256000; prompt 2560, cache_len
+     2632, a ring of 2048 that prefill writes past and decode wraps: 12
+     `flash_attention`, 12 x 63 `decode_attention`, 26 + 26 x 63 `rglru`).
 
 It prints the card's name and power limit, then one JSON line with each
-kernel's launches on the main path, error, times and bound, and last
+kernel's launches on the paths that run it (each path's counts set to 0
+just before it and read just after), error, times and bound (the attention
+kernels' hd-256 numbers under `hd256_*`), and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -87,6 +98,11 @@ LOGIT_TOL = 0.25
 # tensor — the same recurrence with its sums in another order (fmaf, four
 # partial sums), the error growing with the values the state accumulates
 WKV_RTOL, WKV_ATOL = 1e-4, 1e-5
+# rglru against its plain version on the card, fp32 outputs and states:
+# |kernel - plain| <= RGLRU_RTOL * max|plain| + RGLRU_ATOL over each compared
+# tensor — the same operations in the same order, each rounded as the plain
+# version rounds it; only expf and log1pf may differ from torch's by an ulp
+RGLRU_RTOL, RGLRU_ATOL = 1e-5, 1e-6
 
 
 def _bound_ms(nbytes: float, nops: float,
@@ -268,14 +284,17 @@ def _decode_work(KV, G, hd, lengths, elt):
 
 def phase_attention(torch, ops, ref):
     """The attention kernels against their plain versions on the card, in
-    bf16. The first case of each kernel is the serving path's shape; it is
-    also timed (kernel, plain version, eager call, library call)."""
+    bf16: at head dim 64 (qwen2 serving) and at head dim 256 with 16 query
+    heads over one KV head (recurrentgemma serving). The first case of each
+    kernel at each head dim is that serving path's shape; it is also timed
+    (kernel, plain version, eager call, library call). The hd-64 numbers
+    keep their keys; the hd-256 ones go under `hd256_*`."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261017)
-    bf16, HD = torch.bfloat16, 64
+    bf16 = torch.bfloat16
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -293,72 +312,114 @@ def phase_attention(torch, ops, ref):
             raise SystemExit(f"{name} {what} disagrees with its plain version")
         return err
 
-    out = {}
-    # flash attention: (B, S, G, causal, window); the first is the path's
-    flash_cases = [(8, 512, 7, True, 0), (1, 2048, 7, True, 0),
-                   (2, 500, 7, True, 0), (2, 500, 7, True, 128),
-                   (1, 333, 7, False, 0)]
-    errs = []
-    for i, (B, S, G, causal, window) in enumerate(flash_cases):
-        q, k, v = rnd(B, 2, G, S, HD), rnd(B, 2, S, HD), rnd(B, 2, S, HD)
+    def band(Sq, Sk, causal, window):
+        qp = torch.arange(Sq, device=dev)[:, None]
+        kp = torch.arange(Sk, device=dev)[None, :]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qp >= kp
+        if window:
+            mask &= (qp - kp) < window
+        return mask
+
+    out = {"flash_attention": {}, "decode_attention": {}}
+    # flash attention: (B, KV, G, S, hd, causal, window); the first of each
+    # head dim is its serving path's prefill (timed)
+    flash_cases = [(8, 2, 7, 512, 64, True, 0), (1, 2, 7, 2048, 64, True, 0),
+                   (2, 2, 7, 500, 64, True, 0), (2, 2, 7, 500, 64, True, 128),
+                   (1, 2, 7, 333, 64, False, 0),
+                   (8, 1, 16, 2560, 256, True, 2048), (2, 1, 16, 777, 256, True, 100),
+                   (1, 1, 16, 300, 256, False, 0), (1, 2, 7, 250, 256, True, 0)]
+    errs, timed = [], set()
+    for B, KV, G, S, hd, causal, window in flash_cases:
+        q, k, v = rnd(B, KV, G, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd)
         errs.append(check("flash_attention",
-                          f"B={B} KV=2 G={G} S={S} causal={causal} window={window}",
+                          f"B={B} KV={KV} G={G} S={S} hd={hd} causal={causal} "
+                          f"window={window}",
                           ops.flash_attention(q, k, v, causal=causal, window=window),
                           ref.flash_attention(q, k, v, causal=causal, window=window)))
-        if i == 0:
-            nbytes, nops = _flash_work(B, 2, G, S, HD, causal, window, 2)
-            qh = q.view(B, 2 * G, S, HD)
-            r = {"ms": _device_ms(torch, lambda: ops.flash_attention(q, k, v)),
-                 "call_ms": _call_ms(torch, lambda: ops.flash_attention(q, k, v)),
-                 "plain_ms": _device_ms(torch, lambda: ref.flash_attention(q, k, v)),
-                 "library_ms": _device_ms(torch, lambda: F.scaled_dot_product_attention(
-                     qh, k, v, is_causal=True, enable_gqa=True)),
-                 "bytes": nbytes, "ops": nops}
-            r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
-            lib = F.scaled_dot_product_attention(qh, k, v, is_causal=True,
-                                                 enable_gqa=True)
-            check("flash_attention", "library call (SDPA) vs plain",
-                  lib.view_as(q), ref.flash_attention(q, k, v), required=False)
-            out["flash_attention"] = r
+        if hd in timed:
+            continue
+        timed.add(hd)
+        nbytes, nops = _flash_work(B, KV, G, S, hd, causal, window, 2)
+        qh = q.view(B, KV * G, S, hd)
+        mask = band(S, S, causal, window)
+
+        def lib():
+            if window:
+                return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(qh, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+        def kern():
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain():
+            return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+        # the hd-256 shape takes tens of ms a launch: fewer calls a graph
+        few = dict(calls=3, reps=5) if hd == 256 else {}
+        r = {"ms": _device_ms(torch, kern, **few),
+             "call_ms": _call_ms(torch, kern, **(dict(reps=5, inner=3) if few else {})),
+             "plain_ms": _device_ms(torch, plain, **(dict(calls=1, reps=3) if few else {})),
+             "library_ms": _device_ms(torch, lib, **few),
+             "bytes": nbytes, "ops": nops}
+        r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
+        check("flash_attention", f"hd={hd} library call (SDPA) vs plain",
+              lib().view_as(q), plain(), required=False)
+        out["flash_attention"].update(
+            r if hd == 64 else {f"hd256_{key}": val for key, val in r.items()})
     out["flash_attention"]["max_abs_err"] = max(errs)
 
-    # decode attention: (B, T, lengths); the first is the path's (ragged,
-    # 512..575 written positions of a 584-slot cache)
+    # decode attention: (B, KV, G, T, hd, lengths); the first of each head
+    # dim is its serving path's decode (timed): qwen2's ragged 512..575
+    # written positions of a 584-slot cache, recurrentgemma's full ring of
+    # 2048 slots
     g2 = torch.Generator().manual_seed(7)
-    decode_cases = [(8, 584, torch.randint(512, 576, (8,), generator=g2).tolist()),
-                    (4, 4096, [0, 4096, 1, 2500]), (3, 100, [64, 65, 100])]
-    errs = []
-    for i, (B, T, lengths) in enumerate(decode_cases):
-        q, kc, vc = rnd(B, 2, 7, HD), rnd(B, 2, T, HD), rnd(B, 2, T, HD)
+    decode_cases = [(8, 2, 7, 584, 64, torch.randint(512, 576, (8,), generator=g2).tolist()),
+                    (4, 2, 7, 4096, 64, [0, 4096, 1, 2500]), (3, 2, 7, 100, 64, [64, 65, 100]),
+                    (8, 1, 16, 2048, 256, [2048] * 8),
+                    (4, 1, 16, 2048, 256, [0, 1, 1000, 2047]), (3, 2, 7, 100, 256, [31, 33, 100])]
+    errs, timed = [], set()
+    for B, KV, G, T, hd, lengths in decode_cases:
+        q, kc, vc = rnd(B, KV, G, hd), rnd(B, KV, T, hd), rnd(B, KV, T, hd)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         got = ops.decode_attention(q, kc, vc, ln)
-        errs.append(check("decode_attention", f"B={B} KV=2 G=7 T={T} lengths={lengths}",
+        errs.append(check("decode_attention",
+                          f"B={B} KV={KV} G={G} T={T} hd={hd} lengths={lengths}",
                           got, ref.decode_attention(q, kc, vc, ln)))
         if 0 in lengths and not bool((got[lengths.index(0)] == 0).all()):
             raise SystemExit("decode_attention: a row of length 0 is not 0")
-        if i == 0:
-            nbytes, nops = _decode_work(2, 7, HD, lengths, 2)
-            mask = (torch.arange(T, device=dev)[None, :] < ln[:, None])[:, None, None, :]
-            qh = q.view(B, 14, 1, HD)
-            r = {"ms": _device_ms(torch, lambda: ops.decode_attention(q, kc, vc, ln)),
-                 "call_ms": _call_ms(torch, lambda: ops.decode_attention(q, kc, vc, ln)),
-                 "plain_ms": _device_ms(torch, lambda: ref.decode_attention(q, kc, vc, ln)),
-                 "library_ms": _device_ms(torch, lambda: F.scaled_dot_product_attention(
-                     qh, kc, vc, attn_mask=mask, enable_gqa=True)),
-                 "bytes": nbytes, "ops": nops}
-            r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
-            lib = F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask,
-                                                 enable_gqa=True)
-            check("decode_attention", "library call (SDPA) vs plain",
-                  lib.view_as(q), ref.decode_attention(q, kc, vc, ln), required=False)
-            out["decode_attention"] = r
+        if hd in timed:
+            continue
+        timed.add(hd)
+        nbytes, nops = _decode_work(KV, G, hd, lengths, 2)
+        mask = (torch.arange(T, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+        qh = q.view(B, KV * G, 1, hd)
+
+        def lib():
+            return F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        r = {"ms": _device_ms(torch, lambda: ops.decode_attention(q, kc, vc, ln)),
+             "call_ms": _call_ms(torch, lambda: ops.decode_attention(q, kc, vc, ln)),
+             "plain_ms": _device_ms(torch, lambda: ref.decode_attention(q, kc, vc, ln)),
+             "library_ms": _device_ms(torch, lib), "bytes": nbytes, "ops": nops}
+        r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
+        check("decode_attention", f"hd={hd} library call (SDPA) vs plain",
+              lib().view_as(q), ref.decode_attention(q, kc, vc, ln), required=False)
+        out["decode_attention"].update(
+            r if hd == 64 else {f"hd256_{key}": val for key, val in r.items()})
     out["decode_attention"]["max_abs_err"] = max(errs)
     for name, r in out.items():
-        print(f"[kernels] {name}: device per launch at the serving shape: kernel "
-              f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
-              f"{r['library_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']}; {r['bytes']} bytes, {r['ops']} FLOP); eager "
-              f"wrapper call {r['call_ms']:.6f} ms")
+        for hd, pre in ((64, ""), (256, "hd256_")):
+            print(f"[kernels] {name}: device per launch at the hd-{hd} serving "
+                  f"shape: kernel {r[pre + 'ms']:.6f} ms, plain "
+                  f"{r[pre + 'plain_ms']:.6f} ms, library {r[pre + 'library_ms']:.6f} "
+                  f"ms, bound {r[pre + 'bound_ms']:.6f} ms ({r[pre + 'bound_by']}; "
+                  f"{r[pre + 'bytes']} bytes, {r[pre + 'ops']} FLOP); eager wrapper "
+                  f"call {r[pre + 'call_ms']:.6f} ms")
     return out
 
 
@@ -455,6 +516,82 @@ def phase_wkv6(torch, ops, ref):
     out["decode_plain_ms"] = timed["decode"]["plain_ms"]
     out["decode_bound_ms"] = timed["decode"]["bound_ms"]
     return {"wkv6": out}
+
+
+def _rglru_work(B, S, W, elt, h0: bool):
+    """(bytes, operations) of the RG-LRU recurrence: x, r and i read once
+    (element size `elt`), lam and a given h0 read once, h (fp32) and the
+    final h written once; per element ~12 operations (the decay's two
+    exponentials, the gate's square root, the products and sums)."""
+    n = B * S * W
+    nbytes = 3 * n * elt + W * 4 + B * W * 4 * (2 if h0 else 1) + n * 4
+    return nbytes, 12 * n
+
+
+def phase_rglru(torch, ops, ref):
+    """`rglru` against its plain version on the card. The first case is
+    recurrentgemma serving's prefill (bf16 inputs, a zero h0 tensor given,
+    as the model passes it), the second its decode (S=1, a carried h0);
+    both are timed (kernel, plain version, eager call). Then a ragged S, a
+    long one and fp32 inputs."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261019)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 2560, 4096, bf16, "zeros"), (8, 1, 4096, bf16, "random"),
+             (2, 7, 4096, bf16, None), (1, 8192, 512, bf16, "random"),
+             (2, 300, 4096, f32, "random"), (3, 1, 96, f32, None)]
+    errs, timed = [], {}
+    for n, (B, S, W, dt, state) in enumerate(cases):
+        # as the recurrent block makes them: x a conv output, r and i
+        # sigmoid gates; lam ~ N(0, 1.5^2) spans fast and slow decays
+        x = torch.randn((B, S, W), generator=gen, device=dev).to(dt)
+        r = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev)).to(dt)
+        i = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev)).to(dt)
+        lam = torch.randn((W,), generator=gen, device=dev) * 1.5
+        h0 = (None if state is None else torch.zeros((B, W), device=dev)
+              if state == "zeros" else torch.randn((B, W), generator=gen, device=dev))
+        got = ops.rglru(x, r, i, lam, h0)
+        want = ref.rglru(x, r, i, lam, h0)
+        torch.cuda.synchronize()
+        for what, g, pl in (("h", got[0], want[0]), ("final h", got[1], want[1])):
+            err = float((g - pl).abs().max())
+            allowed = RGLRU_RTOL * float(pl.abs().max()) + RGLRU_ATOL
+            errs.append(err)
+            print(f"[kernels] rglru B={B} S={S} W={W} {str(dt)[6:]} h0 "
+                  f"{state or 'none'}, {what}: max abs err {err:.3e}, max |plain| "
+                  f"{float(pl.abs().max()):.4f}, allowed {allowed:.3e} "
+                  f"({RGLRU_RTOL} x max|plain| + {RGLRU_ATOL})")
+            if not err <= allowed or not bool(torch.isfinite(g).all()):
+                raise SystemExit(f"rglru B={B} S={S} {what} disagrees with its "
+                                 f"plain version")
+        if n < 2:
+            nbytes, nops = _rglru_work(B, S, W, x.element_size(), h0 is not None)
+
+            def kern():
+                return ops.rglru(x, r, i, lam, h0)
+
+            def plain():
+                return ref.rglru(x, r, i, lam, h0)
+
+            t = {"ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+                 # the plain version launches ~2 kernels a step: few calls a graph
+                 "plain_ms": _device_ms(torch, plain, calls=1 if S > 1 else 50,
+                                        reps=3 if S > 1 else 15),
+                 "library_ms": None, "bytes": nbytes, "ops": nops}
+            t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, nops)
+            timed["prefill" if n == 0 else "decode"] = t
+            print(f"[kernels] rglru at the serving {'prefill' if n == 0 else 'decode'} "
+                  f"shape B={B} S={S} W={W}: kernel {t['ms']:.6f} ms, plain "
+                  f"{t['plain_ms']:.6f} ms, library none (no single PyTorch call), "
+                  f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}; {nbytes} bytes, "
+                  f"{nops} operations); eager wrapper call {t['call_ms']:.6f} ms")
+    out = dict(timed["prefill"])
+    out["max_abs_err"] = max(errs)
+    out["decode_ms"] = timed["decode"]["ms"]
+    out["decode_plain_ms"] = timed["decode"]["plain_ms"]
+    out["decode_bound_ms"] = timed["decode"]["bound_ms"]
+    return {"rglru": out}
 
 
 def _assert_equal(np, a, b, skip=(), what=""):
@@ -615,12 +752,18 @@ def phase_drained(torch, np, sim, topo, tasks, ops):
                   f"card == cpu")
 
 
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64
+SERVE_BATCH, SERVE_NEW = 8, 64
+# the kernels' symbols in a profile, by wrapper name (a launch of
+# `decode_attention` runs two kernels; `flash_attention` has one kernel per
+# head-dim design)
+KERNEL_SYMBOLS = {"flash_attention": ("flash_attention_kernel", "flash_attention_wide_kernel"),
+                  "decode_attention": ("decode_partial_kernel", "decode_combine_kernel"),
+                  "wkv6": ("wkv6_kernel",), "rglru": ("rglru_kernel",)}
 
 
 def _greedy_run(torch, model, cfg, params, prompts, cache_len, feed=None):
     """Prefill `prompts`, then SERVE_NEW - 1 decode steps of `model` (a
-    module or `ModelFns` with `prefill` and `decode_step`). Step i is fed `feed[:, i]`,
+    `ModelFns` with `prefill` and `decode_step`). Step i is fed `feed[:, i]`,
     or the greedy token of the step before when `feed` is None. Returns
     (greedy tokens (B, SERVE_NEW), logits (SERVE_NEW, B, V))."""
     logits, cache, pos = model.prefill(params, cfg, prompts, cache_len)
@@ -641,180 +784,62 @@ def _served_view(torch, greedy, eos: int):
     return torch.cat([greedy[:, :1], torch.where(alive, later, eos)], dim=1)
 
 
-def phase_serve(torch, np, ops, ref):
-    """qwen2-0.5b at full width on the card through the serving entry
-    point; kernel path against the plain attention path; rates, memory,
-    busy share; the serving simulation card == CPU."""
-    from unittest import mock
-
-    from repro_torch.models import registry, transformer
-    from repro_torch.runtime import serve_loop
-
-    cfg = registry.get_config("qwen2-0.5b")
-    t0 = time.perf_counter()
-    params = transformer.init(cfg, seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} kv, hd {cfg.hd}, vocab {cfg.vocab}, "
-          f"{cfg.dtype}; {n_params} parameters (config count "
-          f"{cfg.n_params()}), random from seed 0, made in "
-          f"{time.perf_counter() - t0:.3f} s")
-    sc = serve_loop.ServeConfig(max_new_tokens=SERVE_NEW, prompt_len=SERVE_PROMPT,
-                                cache_len=SERVE_PROMPT + SERVE_NEW + 8)
-    prompts = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device="cuda")
-    # warm-up: cuBLAS handles, the kernels' libraries, the allocator
-    serve_loop.serve_requests(cfg, params, serve_loop.ServeConfig(
-        max_new_tokens=2, prompt_len=SERVE_PROMPT, cache_len=sc.cache_len),
-        prompts)
-    torch.cuda.synchronize()
-
-    # the main path: launches counted from 0
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    served, info = serve_loop.serve_requests(cfg, params, sc, prompts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (SERVE_NEW - 1)}
-    print(f"[serve] serve_requests: {info['decoded']} tokens in {wall:.3f} s "
-          f"({info['decoded'] / wall:.2f} tokens/s end to end); launches "
-          f"{counts}; peak device memory {peak} bytes")
-    for name, n in want.items():
-        if counts[name] != n:
-            raise SystemExit(f"serve: {name} launched {counts[name]} times, "
-                             f"expected {n}")
-    if tuple(served.shape) != (SERVE_BATCH, SERVE_NEW):
-        raise SystemExit(f"serve: output shape {tuple(served.shape)}")
-
-    # kernel path, greedy, and the plain attention path teacher-forced on
-    # its tokens: every step's logits compared
-    greedy_k, logits_k = _greedy_run(torch, transformer, cfg, params, prompts,
-                                     sc.cache_len)
-    reproduced = bool(torch.equal(_served_view(torch, greedy_k, sc.eos_id), served))
-    with mock.patch.object(ops, "flash_attention", ref.flash_attention), \
-            mock.patch.object(ops, "decode_attention", ref.decode_attention):
-        greedy_p, logits_p = _greedy_run(torch, transformer, cfg, params, prompts,
-                                         sc.cache_len, feed=greedy_k)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(logits_k.float()).all()):
-        raise SystemExit("serve: non-finite logits on the kernel path")
-    diff = (logits_k.float() - logits_p.float()).abs()
-    step_err = diff.amax(dim=(1, 2)).tolist()
-    agree = float((greedy_k == greedy_p).float().mean())
-    print(f"[serve] kernel vs plain attention, teacher-forced: max abs logit "
-          f"difference prefill {step_err[0]:.6f}, decode steps max "
-          f"{max(step_err[1:]):.6f} (tolerance {LOGIT_TOL}); mean abs "
-          f"{float(diff.mean()):.6f}; |logit| max {float(logits_k.abs().max()):.4f}; "
-          f"greedy-token agreement {agree:.6f} over {greedy_k.numel()} tokens; "
-          f"the kernel rerun reproduces the served tokens: {reproduced}")
-    if max(step_err) > LOGIT_TOL:
-        raise SystemExit("serve: kernel path and plain attention path disagree")
-    del logits_k, logits_p, diff
-
-    # rates: prefill, and decode steps fed the greedy tokens
-    def prefill():
-        return transformer.prefill(params, cfg, prompts, sc.cache_len)
-
-    def decode(cache, pos, n=SERVE_NEW - 1):
-        for i in range(n):
-            transformer.decode_step(params, cfg, greedy_k[:, i].long(), cache, pos + i)
-
-    pre_s, dec_s = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, cache, pos = prefill()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        decode(cache, pos)
-        torch.cuda.synchronize()
-        pre_s.append(t1 - t0)
-        dec_s.append((time.perf_counter() - t1) / (SERVE_NEW - 1))
-    pre, dec = sorted(pre_s)[1], sorted(dec_s)[1]
-    print(f"[serve] prefill {SERVE_BATCH}x{SERVE_PROMPT}: {pre * 1e3:.3f} ms "
-          f"({SERVE_BATCH * SERVE_PROMPT / pre:.2f} tokens/s); decode "
-          f"{dec * 1e3:.3f} ms/step ({SERVE_BATCH / dec:.2f} tokens/s) at batch "
-          f"{SERVE_BATCH}, cache {sc.cache_len} (median of 3)")
-
-    # where the time goes: one prefill and 16 decode steps under the profiler
-    profiled = {}
-    n_prof = min(16, SERVE_NEW - 1)
-    for what, fn, kernel in (
-            ("prefill", prefill, ("flash_attention_kernel",)),
-            (f"decode x{n_prof}", lambda: decode(cache, pos, n_prof),
-             ("decode_partial_kernel", "decode_combine_kernel"))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        busy, n_dev, by_name = _profile(torch, fn)
-        hits = [(k, v) for k, v in by_name.items() if any(n in k for n in kernel)]
-        k_ms = sum(ms for _, (ms, _) in hits)
-        k_n = max(c for k, (_, c) in hits if kernel[0] in k) if hits else 0
-        if k_n == 0:
-            raise SystemExit(f"profile of {what}: no {kernel[0]} seen")
-        name = "flash_attention" if what == "prefill" else "decode_attention"
-        profiled[name] = k_ms / k_n
-        print(f"[profile] serve {what}: device busy {busy:.3f} ms of {wall_ms:.3f} "
-              f"ms wall (busy share {busy / wall_ms:.4f}); {n_dev} device "
-              f"activities; {name} {k_n}x, {k_ms / k_n * 1e3:.3f} us each, "
-              f"{k_ms / busy:.4f} of the busy time")
-        for kname, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-            print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {kname[:90]}")
-
-    # the serving simulation: card == CPU on the launcher's request lengths
-    rng = np.random.default_rng(0)
-    lens = np.minimum((rng.pareto(1.2, (4, 8 * 4)) * 16 + 4), 64).astype(np.int32)
-    sim_cfg = serve_loop.ServeConfig(batch_slots=8, n_shards=4)
-    t0 = time.perf_counter()
-    on_card = serve_loop.simulate_serving(cfg, sim_cfg, lens)
-    t_card = time.perf_counter() - t0
-    on_cpu = serve_loop.simulate_serving(cfg, sim_cfg, lens, device="cpu")
-    if on_card != on_cpu:
-        raise SystemExit(f"simulate_serving: card {on_card} != cpu {on_cpu}")
-    print(f"[serve] simulate_serving card == cpu: occupancy "
-          f"{on_card.occupancy:.6f} moved={on_card.moved} steps={on_card.steps} "
-          f"completed={on_card.completed} (card {t_card:.3f} s)")
-    return counts, profiled
+def _path_launches(cfg):
+    """(launches in one prefill, launches in one decode step) by kernel,
+    from the model's blocks: an attention block runs `flash_attention` in
+    prefill and `decode_attention` in decode, a recurrent block `rglru` and
+    an rwkv block `wkv6` in both."""
+    kinds = cfg.block_kinds()
+    n_att, n_rec, n_rwkv = (kinds.count(k) for k in ("attn", "rec", "rwkv"))
+    prefill = {"flash_attention": n_att, "rglru": n_rec, "wkv6": n_rwkv}
+    step = {"decode_attention": n_att, "rglru": n_rec, "wkv6": n_rwkv}
+    return ({k: n for k, n in prefill.items() if n},
+            {k: n for k, n in step.items() if n})
 
 
-def phase_serve_rwkv6(torch, np, ops, ref):
-    """rwkv6-1.6b at full width on the card through the serving entry
-    point; kernel path against the plain `wkv6` path; rates, memory, busy
-    share. Returns (main-path launches, per-launch device ms of `wkv6` in
-    the profiled prefill and decode)."""
+def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note: str = ""):
+    """Serve `arch` at full width and depth on the card through the serving
+    entry point (random weights from seed 0): SERVE_BATCH requests of
+    `prompt_len` tokens and SERVE_NEW new tokens, counting every kernel's
+    launches from 0 and requiring exactly the model's (`_path_launches`);
+    the same inputs then run teacher-forced through the plain versions of
+    the path's kernels, every step's logits within LOGIT_TOL; prefill and
+    decode rates (the launches of each half asserted on their own), peak
+    device memory beside the allocation before the run, and the device's
+    busy share and top kinds of device time from a profile. Returns
+    (main-path launches, {(kernel, "prefill" or "decode"): device ms per
+    launch in the profile})."""
     from unittest import mock
 
     from repro_torch.models import registry
     from repro_torch.runtime import serve_loop
 
-    cfg = registry.get_config("rwkv6-1.6b")
+    cfg = registry.get_config(arch)
     fns = registry.get_fns(cfg)
-    L = cfg.n_layers
+    per_prefill, per_step = _path_launches(cfg)
+    kernels = sorted(set(per_prefill) | set(per_step))
+    kinds = cfg.block_kinds()
     t0 = time.perf_counter()
     params = fns.init(cfg, seed=0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[serve_rwkv6] {cfg.name}: {L} layers, d {cfg.d_model}, "
-          f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.norm}, {cfg.dtype}; {n_params} "
-          f"parameters in the tree (config count {cfg.n_params()}: it counts the "
-          f"channel mix as 3·D·d_ff, the tree holds 2·D·d_ff + D²), random from "
-          f"seed 0, made in {time.perf_counter() - t0:.3f} s")
-    sc = serve_loop.ServeConfig(max_new_tokens=SERVE_NEW, prompt_len=SERVE_PROMPT,
-                                cache_len=SERVE_PROMPT + SERVE_NEW + 8)
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers "
+          f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}), "
+          f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} kv, hd {cfg.hd}, "
+          f"window {cfg.window}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.norm}, "
+          f"{cfg.dtype}; {n_params} parameters in the tree (config count "
+          f"{cfg.n_params()}{note}), random from seed 0, made in "
+          f"{time.perf_counter() - t0:.3f} s")
+    sc = serve_loop.ServeConfig(max_new_tokens=SERVE_NEW, prompt_len=prompt_len,
+                                cache_len=prompt_len + SERVE_NEW + 8)
+    ring = min(sc.cache_len, cfg.window) if cfg.window else sc.cache_len
+    holds = (f"{ring} cache slots" if "decode_attention" in per_step
+             else "a fixed-size state")
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device="cuda")
-    # warm-up: cuBLAS handles, the kernel's library, the allocator
+        0, cfg.vocab, (SERVE_BATCH, prompt_len)), device="cuda")
+    # warm-up: cuBLAS handles, the kernels' libraries, the allocator
     serve_loop.serve_requests(cfg, params, serve_loop.ServeConfig(
-        max_new_tokens=2, prompt_len=SERVE_PROMPT, cache_len=sc.cache_len),
-        prompts)
+        max_new_tokens=2, prompt_len=prompt_len, cache_len=sc.cache_len), prompts)
     torch.cuda.synchronize()
 
     # the main path: launches counted from 0
@@ -827,97 +852,125 @@ def phase_serve_rwkv6(torch, np, ops, ref):
     wall = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[serve_rwkv6] serve_requests: {info['decoded']} tokens in {wall:.3f} s "
-          f"({info['decoded'] / wall:.2f} tokens/s end to end); launches "
-          f"{counts}; peak device memory {peak} bytes ({before} allocated "
-          f"before the run, the weights and what earlier phases hold)")
-    if counts["wkv6"] != L * SERVE_NEW:
-        raise SystemExit(f"serve_rwkv6: wkv6 launched {counts['wkv6']} times, "
-                         f"expected {L} + {L} x {SERVE_NEW - 1}")
+    want = {k: per_prefill.get(k, 0) + per_step.get(k, 0) * (SERVE_NEW - 1)
+            for k in kernels}
+    print(f"[{tag}] serve_requests: {SERVE_BATCH} x {prompt_len}-token prompts, "
+          f"cache_len {sc.cache_len} ({holds}), {info['decoded']} tokens in "
+          f"{wall:.3f} s ({info['decoded'] / wall:.2f} tokens/s end to end); launches "
+          f"{counts}; peak device memory {peak} bytes ({before} allocated before "
+          f"the run, the weights and what earlier phases hold)")
+    for name in ops.LAUNCHES:
+        if counts[name] != want.get(name, 0):
+            raise SystemExit(f"{tag}: {name} launched {counts[name]} times, "
+                             f"expected {want.get(name, 0)}")
     if tuple(served.shape) != (SERVE_BATCH, SERVE_NEW):
-        raise SystemExit(f"serve_rwkv6: output shape {tuple(served.shape)}")
+        raise SystemExit(f"{tag}: output shape {tuple(served.shape)}")
 
-    # kernel path, greedy, and the plain wkv6 path teacher-forced on its
-    # tokens: every step's logits compared
-    greedy_k, logits_k = _greedy_run(torch, fns, cfg, params, prompts,
-                                     sc.cache_len)
+    # kernel path, greedy, and the plain versions of the path's kernels
+    # teacher-forced on its tokens: every step's logits compared
+    greedy_k, logits_k = _greedy_run(torch, fns, cfg, params, prompts, sc.cache_len)
     reproduced = bool(torch.equal(_served_view(torch, greedy_k, sc.eos_id), served))
-    with mock.patch.object(ops, "wkv6", ref.wkv6):
+    with contextlib.ExitStack() as plain:
+        for name in kernels:
+            plain.enter_context(mock.patch.object(ops, name, getattr(ref, name)))
         greedy_p, logits_p = _greedy_run(torch, fns, cfg, params, prompts,
                                          sc.cache_len, feed=greedy_k)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(logits_k.float()).all()):
-        raise SystemExit("serve_rwkv6: non-finite logits on the kernel path")
+        raise SystemExit(f"{tag}: non-finite logits on the kernel path")
     diff = (logits_k.float() - logits_p.float()).abs()
     step_err = diff.amax(dim=(1, 2)).tolist()
     agree = float((greedy_k == greedy_p).float().mean())
-    print(f"[serve_rwkv6] kernel vs plain wkv6, teacher-forced: max abs logit "
-          f"difference prefill {step_err[0]:.6f}, decode steps max "
+    print(f"[{tag}] kernel vs plain path ({', '.join(kernels)}), teacher-forced: "
+          f"max abs logit difference prefill {step_err[0]:.6f}, decode steps max "
           f"{max(step_err[1:]):.6f} (tolerance {LOGIT_TOL}); mean abs "
           f"{float(diff.mean()):.6f}; |logit| max {float(logits_k.abs().max()):.4f}; "
           f"greedy-token agreement {agree:.6f} over {greedy_k.numel()} tokens; "
           f"the kernel rerun reproduces the served tokens: {reproduced}")
     if max(step_err) > LOGIT_TOL:
-        raise SystemExit("serve_rwkv6: kernel path and plain wkv6 path disagree")
+        raise SystemExit(f"{tag}: kernel path and plain path disagree")
     del logits_k, logits_p, diff
 
-    # rates: prefill, and decode steps fed the greedy tokens; the launches
-    # of each half are asserted on its own
+    # rates: prefill, and decode steps fed the greedy tokens
     def prefill():
         return fns.prefill(params, cfg, prompts, sc.cache_len)
 
-    def decode(state, pos, n=SERVE_NEW - 1):
+    def decode(cache, pos, n=SERVE_NEW - 1):
         for i in range(n):
-            _, state, pos = fns.decode_step(params, cfg, greedy_k[:, i].long(),
-                                            state, pos)
+            _, cache, pos = fns.decode_step(params, cfg, greedy_k[:, i].long(),
+                                            cache, pos)
 
     pre_s, dec_s = [], []
     for _ in range(3):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        _, state, pos = prefill()
+        _, cache, pos = prefill()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        n_pre = ops.LAUNCHES["wkv6"]
-        decode(state, pos)
+        n_pre = dict(ops.LAUNCHES)
+        decode(cache, pos)
         torch.cuda.synchronize()
-        n_dec = ops.LAUNCHES["wkv6"] - n_pre
-        if (n_pre, n_dec) != (L, L * (SERVE_NEW - 1)):
-            raise SystemExit(f"serve_rwkv6: wkv6 launched {n_pre} times in the "
-                             f"prefill and {n_dec} in the decode steps")
+        n_dec = {k: ops.LAUNCHES[k] - n_pre[k] for k in kernels}
+        if (n_pre != {k: per_prefill.get(k, 0) for k in ops.LAUNCHES}
+                or n_dec != {k: per_step.get(k, 0) * (SERVE_NEW - 1) for k in kernels}):
+            raise SystemExit(f"{tag}: launches {n_pre} in the prefill, {n_dec} in "
+                             f"the decode steps")
         pre_s.append(t1 - t0)
         dec_s.append((time.perf_counter() - t1) / (SERVE_NEW - 1))
     pre, dec = sorted(pre_s)[1], sorted(dec_s)[1]
-    print(f"[serve_rwkv6] wkv6 launches: {L} in the prefill, {L} x "
-          f"{SERVE_NEW - 1} in the decode steps; prefill {SERVE_BATCH}x"
-          f"{SERVE_PROMPT}: {pre * 1e3:.3f} ms ({SERVE_BATCH * SERVE_PROMPT / pre:.2f} "
-          f"tokens/s); decode {dec * 1e3:.3f} ms/step ({SERVE_BATCH / dec:.2f} "
-          f"tokens/s) at batch {SERVE_BATCH} (median of 3)")
+    print(f"[{tag}] launches {per_prefill} in the prefill, {per_step} in each of the "
+          f"{SERVE_NEW - 1} decode steps; prefill {SERVE_BATCH}x{prompt_len}: "
+          f"{pre * 1e3:.3f} ms ({SERVE_BATCH * prompt_len / pre:.2f} tokens/s); decode "
+          f"{dec * 1e3:.3f} ms/step ({SERVE_BATCH / dec:.2f} tokens/s) at batch "
+          f"{SERVE_BATCH}, {holds} (median of 3)")
 
     # where the time goes: one prefill and 16 decode steps under the profiler
     profiled = {}
     n_prof = min(16, SERVE_NEW - 1)
     for what, fn in (("prefill", prefill),
-                     (f"decode x{n_prof}", lambda: decode(state, pos, n_prof))):
+                     ("decode", lambda: decode(cache, pos, n_prof))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         busy, n_dev, by_name = _profile(torch, fn)
-        hits = [v for k, v in by_name.items() if "wkv6_kernel" in k]
-        k_ms, k_n = sum(ms for ms, _ in hits), sum(c for _, c in hits)
-        if k_n == 0:
-            raise SystemExit(f"profile of {what}: no wkv6_kernel seen")
-        profiled[what.split()[0]] = k_ms / k_n
-        print(f"[profile] serve_rwkv6 {what}: device busy {busy:.3f} ms of "
-              f"{wall_ms:.3f} ms wall (busy share {busy / wall_ms:.4f}); {n_dev} "
-              f"device activities; wkv6 {k_n}x, {k_ms / k_n * 1e3:.3f} us each, "
-              f"{k_ms / busy:.4f} of the busy time")
+        shares = []
+        for name in (per_prefill if what == "prefill" else per_step):
+            hits = [v for k, v in by_name.items()
+                    if any(sym + "<" in k or sym + "(" in k for sym in KERNEL_SYMBOLS[name])]
+            if not hits:
+                raise SystemExit(f"profile of {tag} {what}: no {name} kernel seen")
+            k_ms, k_n = sum(ms for ms, _ in hits), max(c for _, c in hits)
+            profiled[(name, what)] = k_ms / k_n
+            shares.append(f"{name} {k_n}x, {k_ms / k_n * 1e3:.3f} us each, "
+                          f"{k_ms / busy:.4f} of the busy time")
+        print(f"[profile] {tag} {what}{f' x{n_prof}' if what == 'decode' else ''}: "
+              f"device busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+              f"{busy / wall_ms:.4f}); {n_dev} device activities; " + "; ".join(shares))
         for kname, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
             print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {kname[:90]}")
     return counts, profiled
+
+
+def phase_simulate_serving(np):
+    """The slot-level serving simulation: card == CPU on the launcher's
+    request lengths."""
+    from repro_torch.runtime import serve_loop
+
+    rng = np.random.default_rng(0)
+    lens = np.minimum((rng.pareto(1.2, (4, 8 * 4)) * 16 + 4), 64).astype(np.int32)
+    sim_cfg = serve_loop.ServeConfig(batch_slots=8, n_shards=4)
+    t0 = time.perf_counter()
+    on_card = serve_loop.simulate_serving(None, sim_cfg, lens)
+    t_card = time.perf_counter() - t0
+    on_cpu = serve_loop.simulate_serving(None, sim_cfg, lens, device="cpu")
+    if on_card != on_cpu:
+        raise SystemExit(f"simulate_serving: card {on_card} != cpu {on_cpu}")
+    print(f"[serve] simulate_serving card == cpu: occupancy "
+          f"{on_card.occupancy:.6f} moved={on_card.moved} steps={on_card.steps} "
+          f"completed={on_card.completed} (card {t_card:.3f} s)")
 
 
 def _leaves(tree):
@@ -932,6 +985,8 @@ def _leaves(tree):
 
 
 def main() -> int:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -950,15 +1005,37 @@ def main() -> int:
     kern = phase_kernels(torch, np, ops, ref, deque, tasks)
     kern.update(phase_attention(torch, ops, ref))
     kern.update(phase_wkv6(torch, ops, ref))
+    kern.update(phase_rglru(torch, ops, ref))
+    # main-path launches by kernel and path, each path's counts read just
+    # after it ran from counts set to 0 just before it
     launches, profiled = phase_main_path(torch, np, sim, topo, tasks, ops)
+    by_path = {k: {"main": n} for k, n in launches.items()}
     phase_drained(torch, np, sim, topo, tasks, ops)
-    serve_counts, serve_profiled = phase_serve(torch, np, ops, ref)
-    launches.update({k: serve_counts[k] for k in serve_profiled})
-    profiled.update(serve_profiled)
-    rwkv_counts, rwkv_profiled = phase_serve_rwkv6(torch, np, ops, ref)
-    launches["wkv6"] = rwkv_counts["wkv6"]
-    profiled["wkv6"] = rwkv_profiled["prefill"]
-    kern["wkv6"]["main_path_decode_device_ms"] = rwkv_profiled["decode"]
+    # the serving paths, one model at a time (each frees its weights)
+    serving = {}
+    for tag, arch, prompt_len, note in (
+            ("serve", "qwen2-0.5b", 512, ""),
+            ("serve_rwkv6", "rwkv6-1.6b", 512,
+             ": it counts the channel mix as 3·D·d_ff, the tree holds 2·D·d_ff + D²"),
+            ("serve_hybrid", "recurrentgemma-9b", 2560,
+             ": it leaves out the gates' wa and wx")):
+        counts, prof = phase_serve(torch, np, ops, ref, tag, arch, prompt_len, note)
+        serving[tag] = prof
+        for name, _ in prof:
+            by_path.setdefault(name, {})[tag] = counts[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        if tag == "serve":
+            phase_simulate_serving(np)
+    profiled["flash_attention"] = serving["serve"][("flash_attention", "prefill")]
+    profiled["decode_attention"] = serving["serve"][("decode_attention", "decode")]
+    profiled["wkv6"] = serving["serve_rwkv6"][("wkv6", "prefill")]
+    kern["wkv6"]["main_path_decode_device_ms"] = serving["serve_rwkv6"][("wkv6", "decode")]
+    hybrid = serving["serve_hybrid"]
+    kern["flash_attention"]["hd256_main_path_device_ms"] = hybrid[("flash_attention", "prefill")]
+    kern["decode_attention"]["hd256_main_path_device_ms"] = hybrid[("decode_attention", "decode")]
+    profiled["rglru"] = hybrid[("rglru", "prefill")]
+    kern["rglru"]["main_path_decode_device_ms"] = hybrid[("rglru", "decode")]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -967,20 +1044,24 @@ def main() -> int:
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-         "replaces": replaces, "launches": launches[name],
+         "replaces": replaces, "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name]["library_ms"],
          "call_ms": kern[name]["call_ms"],
          "main_path_device_ms": profiled[name],
-         **{k: v for k, v in kern[name].items() if k.startswith(("decode_", "main_"))}}
+         **{k: v for k, v in kern[name].items()
+            if k.startswith(("decode_", "main_", "hd256_"))
+            and k not in ("hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),
             ("deque_apply", "src/repro/kernels/deque_apply.py:42"),
             ("flash_attention", "src/repro/kernels/flash_attention.py:79"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:63"),
-            ("wkv6", "src/repro/kernels/rwkv6_scan.py:57"))]}
+            ("wkv6", "src/repro/kernels/rwkv6_scan.py:57"),
+            ("rglru", "src/repro/kernels/rglru_scan.py:55"))]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ The simulator has no weights: its inputs are a workload's fields, a mesh's
 deque layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
 be any enum (or plain string) with the same values. A model's input is its
 parameter tree (`lm_params` for the dense transformer, `rwkv6_params` for
-rwkv6). This module imports nothing of the reference
-package.
+rwkv6, `rglru_params` for the RG-LRU hybrid). This module imports nothing
+of the reference package.
 """
 
 from __future__ import annotations
@@ -56,30 +56,29 @@ def deque_state(buf, bot, size, device="cpu") -> dq.DequeState:
     return dq.DequeState(t(buf), t(bot), t(size))
 
 
+def _tensors(cfg: ModelConfig, node, device, fp32_leaves, name=""):
+    """A tree of numpy arrays as tensors on `device`: leaves named in
+    `fp32_leaves` in fp32, every other leaf in cfg.dtype."""
+    if isinstance(node, dict):
+        return {k: _tensors(cfg, v, device, fp32_leaves, k) for k, v in node.items()}
+    dt = torch.float32 if name in fp32_leaves else layers.dtype_of(cfg.dtype)
+    return torch.from_numpy(np.array(node, np.float32)).to(device=device, dtype=dt)
+
+
+def _index(node, *idx):
+    """Every leaf of a tree of stacked arrays at index `idx`."""
+    if isinstance(node, dict):
+        return {k: _index(v, *idx) for k, v in node.items()}
+    return np.asarray(node)[idx]
+
+
 def _lm_tree(cfg: ModelConfig, params: dict, device, fp32_leaves) -> dict:
     """The reference's parameter tree (numpy arrays, `layers` leaves stacked
     along a leading n_layers axis) as the port's: one dict per layer, leaves
     named in `fp32_leaves` in fp32 and every other leaf in cfg.dtype."""
-    dt = layers.dtype_of(cfg.dtype)
-
-    def leaf(a, path):
-        t = torch.from_numpy(np.array(a, np.float32))
-        keep_fp32 = path[-1] in fp32_leaves
-        return t.to(device=device, dtype=torch.float32 if keep_fp32 else dt)
-
-    def tree(node, path=()):
-        if isinstance(node, dict):
-            return {k: tree(v, path + (k,)) for k, v in node.items()}
-        return leaf(node, path)
-
-    out = {k: tree(v, (k,)) for k, v in params.items() if k != "layers"}
-
-    def layer(i, node):
-        if isinstance(node, dict):
-            return {k: layer(i, v) for k, v in node.items()}
-        return np.asarray(node)[i]
-
-    out["layers"] = [tree(layer(i, params["layers"]))
+    out = {k: _tensors(cfg, v, device, fp32_leaves)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = [_tensors(cfg, _index(params["layers"], i), device, fp32_leaves)
                      for i in range(cfg.n_layers)]
     return out
 
@@ -105,3 +104,31 @@ def rwkv6_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
     (cast to fp32 for the scan). The `mu_*` lerp coefficients are cast to
     the activations' type at use, so cfg.dtype is their value there."""
     return _lm_tree(cfg, params, device, ("scale", "bias", "w0", "u"))
+
+
+def rglru_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
+    """The port's RG-LRU hybrid parameters from the reference's tree (numpy
+    arrays). The reference groups the layers: `rec` and `attn` leaves are
+    stacked (n_groups, per_group, ...) over the whole groups of the
+    pattern, and `rem` lists the remainder layers; the port keeps one dict
+    per layer in `cfg.block_kinds()` order (layer li of the reference's
+    `_layer_params`). Norm scales and `lam` stay fp32, as the reference
+    computes with them in fp32; every other leaf is cast to cfg.dtype, the
+    type the reference casts it to at use (`conv_w`, `conv_b`, `ba` and
+    `bx` to the activations' type)."""
+    fp32 = ("scale", "lam")
+    p = len(cfg.pattern)
+    n_groups = cfg.n_layers // p
+    per_layer = []
+    for li in range(cfg.n_layers):
+        g, off = divmod(li, p)
+        if g >= n_groups:
+            per_layer.append(params["rem"][li - n_groups * p])
+            continue
+        kind = cfg.pattern[off]
+        idx = cfg.pattern[:off].count(kind)
+        per_layer.append(_index(params[kind], g, idx))
+    out = {k: _tensors(cfg, params[k], device, fp32)
+           for k in ("embed", "final_norm", "head")}
+    out["layers"] = [_tensors(cfg, lp, device, fp32) for lp in per_layer]
+    return out

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("steal_compact", "deque_apply", "flash_attention", "decode_attention",
-           "wkv6")
+           "wkv6", "rglru")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,19 +37,20 @@ _SIGNATURES = {
         "deque_apply_launch": [_P] * 5 + [_I, _I, _I, _P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_P],
-        "flash_attention_head_dim": [],
-        "flash_attention_max_group": [],
+        "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_P],
+        "flash_attention_max_group": [_I],
     },
     "decode_attention": {
-        "decode_attention_launch": [_P] * 8 + [_I] * 5 + [_P],
-        "decode_attention_head_dim": [],
-        "decode_attention_max_group": [],
-        "decode_attention_chunk": [],
+        "decode_attention_launch": [_P] * 8 + [_I] * 6 + [_P],
+        "decode_attention_max_group": [_I],
+        "decode_attention_chunk": [_I],
     },
     "wkv6": {
         "wkv6_launch": [_P] * 8 + [_I] * 3 + [_P],
         "wkv6_head_dim": [],
+    },
+    "rglru": {
+        "rglru_launch": [_P] * 7 + [_I] * 4 + [_P],
     },
 }
 

@@ -11,11 +11,13 @@
 // before the PV product; output = acc / max(l, 1e-30), so a row that sees no
 // key gives 0.
 //
-// Bound on the card: bytes at the serving path's prefill shape, operations
-// at longer sequences. At B=8, Sq=Sk=512, 14 heads, hd=64, causal it must
-// move ~17 MB of q, k, v and output (~5.0 us at 3.35 TB/s) and do ~3.8
+// Bound on the card: bytes at qwen2 serving's prefill shape, operations
+// at longer sequences and wider heads. At B=8, Sq=Sk=512, 14 heads, hd=64,
+// causal it must move ~17 MB of q, k, v and output (~5.0 us at 3.35 TB/s) and do ~3.8
 // GFLOP of QK and PV products (~3.8 us at the bf16 tensor-core rate); at
-// B=1, S=2048 the products (~7.5 GFLOP) dominate. This first version does
+// B=1, S=2048 the products (~7.5 GFLOP) dominate; at recurrentgemma's
+// prefill (B=8, KV=1, G=16, hd=256, S=2560, window 2048) the products are
+// ~413 GFLOP (~0.42 ms) against ~357 MB (~0.11 ms). This first version does
 // its products in fp32 on the CUDA cores (67 TFLOP/s peak), so it stays
 // well above either bound. Design (simple first; wgmma and TMA come later): one
 // thread block per (b*KV + kv, tile of BLOCK_Q query positions) holding the
@@ -26,8 +28,25 @@
 // tile's scores in registers and runs the online softmax with fp32 FMAs
 // (CUDA cores, not tensor cores). Tiles wholly outside the causal or
 // window band are skipped (exact: such a tile changes neither m, l nor acc).
-// Ragged Sq and Sk are masked in the tail tiles. hd is fixed at 64; the
-// wrapper refuses other head dims and groups above MAX_GROUP.
+// Ragged Sq and Sk are masked in the tail tiles.
+//
+// Two instantiations, by head dim. hd 64 (qwen2) keeps the design above,
+// with groups up to MAX_GROUP = 8. At hd 256 (recurrentgemma: MQA, 16 query
+// heads over one KV head, a 2048-token window) a thread cannot hold a
+// 256-wide q row and accumulator (512 floats), so the wide kernel splits
+// each row over WIDE_LANES = 8 neighbouring threads of a warp: thread `lane`
+// holds dims lane*4 + 32*c (c < 8) of q and of the accumulator, so the eight
+// float4 reads of a K or V row by one row's threads fall on distinct banks;
+// the QK dot product is summed over the 8 threads by three xor shuffles,
+// which leave the same sum in each. Each thread holds two rows (the K and V
+// values it reads serve both), a block of 256 threads holds 64 rows: the G
+// query heads of one KV head times 64 / G query positions (4 at G = 16), so
+// each K/V tile is read once for all G heads. K and V tiles of
+// WIDE_BLOCK_K = 16 keys go through 32 KB of static shared memory as fp32.
+// With a window, only the key tiles that intersect the band of the block's
+// queries are visited (at S = 2560 and window 2048 the last 512 queries
+// skip their first tiles). The wrapper refuses other head dims and groups
+// above the instantiation's maximum (`flash_attention_max_group`).
 //
 // Built with nvcc into a shared library with a plain C interface (see
 // kernels/build.py) and called through ctypes from kernels/ops.py.
@@ -42,6 +61,12 @@
 #define BLOCK_Q 32
 #define BLOCK_K 32
 #define MAX_GROUP 8  // G * BLOCK_Q threads per block, at most 256
+#define WIDE_HEAD_DIM 256
+#define WIDE_LANES 8       // threads per row
+#define WIDE_THREADS 256
+#define WIDE_ROWS 64       // (head, query) rows per block: 2 per thread
+#define WIDE_BLOCK_K 16
+#define WIDE_MAX_GROUP 16  // at least 4 query positions per block
 
 namespace {
 
@@ -158,33 +183,199 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+template <typename T, int HD>
+__global__ void __launch_bounds__(WIDE_THREADS)
+flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ out,
+                            int G, int Sq, int Sk, int causal, int window,
+                            float scale) {
+    constexpr int NC = HD / (WIDE_LANES * 4);             // float4s per row slice
+    constexpr int DPT = NC * 4;                           // dims per thread
+    constexpr int RPT = WIDE_ROWS * WIDE_LANES / WIDE_THREADS;  // rows per thread
+    constexpr int ROW_STEP = WIDE_THREADS / WIDE_LANES;
+    __shared__ __align__(16) float ks[WIDE_BLOCK_K][HD];
+    __shared__ __align__(16) float vs[WIDE_BLOCK_K][HD];
+
+    const int bh = blockIdx.y;
+    const int BQ = WIDE_ROWS / G;  // query positions per block
+    const int q0 = blockIdx.x * BQ;
+    const int tid = threadIdx.x;
+    const int lane = tid % WIDE_LANES;
+    const int rg = tid / WIDE_LANES;
+
+    float qr[RPT][DPT];
+    float acc[RPT][DPT];
+    float m[RPT];
+    float l[RPT];
+    int qpos[RPT];
+    bool row_ok[RPT];
+    size_t row_off[RPT];
+#pragma unroll
+    for (int rr = 0; rr < RPT; ++rr) {
+        const int row = rg + rr * ROW_STEP;
+        const int g = row / BQ;
+        qpos[rr] = q0 + row % BQ;
+        row_ok[rr] = g < G && qpos[rr] < Sq;
+        row_off[rr] = (((size_t)bh * G + (row_ok[rr] ? g : 0)) * Sq +
+                       (row_ok[rr] ? qpos[rr] : 0)) * HD;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int d = c * WIDE_LANES * 4 + lane * 4 + e;
+                qr[rr][c * 4 + e] = row_ok[rr] ? load_f(q + row_off[rr] + d) : 0.f;
+                acc[rr][c * 4 + e] = 0.f;
+            }
+        }
+        m[rr] = kNegInf;
+        l[rr] = 0.f;
+    }
+
+    // the keys this block's queries can see at all
+    const int q_last = min(q0 + BQ, Sq) - 1;
+    const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+    const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int k_begin = (k_first / WIDE_BLOCK_K) * WIDE_BLOCK_K;
+    const T* kb = k + (size_t)bh * Sk * HD;
+    const T* vb = v + (size_t)bh * Sk * HD;
+
+    for (int kt = k_begin; kt < k_end; kt += WIDE_BLOCK_K) {
+        __syncthreads();  // the previous tile is consumed
+        for (int i = tid; i < WIDE_BLOCK_K * HD; i += WIDE_THREADS) {
+            const int r = i / HD;
+            const int c = i - r * HD;
+            const int key = kt + r;
+            const bool in = key < Sk;
+            ks[r][c] = in ? load_f(kb + (size_t)key * HD + c) : 0.f;
+            vs[r][c] = in ? load_f(vb + (size_t)key * HD + c) : 0.f;
+        }
+        __syncthreads();
+
+        float s[RPT][WIDE_BLOCK_K];
+#pragma unroll
+        for (int j = 0; j < WIDE_BLOCK_K; ++j) {
+            float d0[RPT], d1[RPT];
+#pragma unroll
+            for (int rr = 0; rr < RPT; ++rr) d0[rr] = d1[rr] = 0.f;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                const float4 kk = *reinterpret_cast<const float4*>(
+                    &ks[j][c * WIDE_LANES * 4 + lane * 4]);
+#pragma unroll
+                for (int rr = 0; rr < RPT; ++rr) {
+                    d0[rr] = fmaf(qr[rr][c * 4], kk.x, d0[rr]);
+                    d1[rr] = fmaf(qr[rr][c * 4 + 1], kk.y, d1[rr]);
+                    d0[rr] = fmaf(qr[rr][c * 4 + 2], kk.z, d0[rr]);
+                    d1[rr] = fmaf(qr[rr][c * 4 + 3], kk.w, d1[rr]);
+                }
+            }
+            const int key = kt + j;
+#pragma unroll
+            for (int rr = 0; rr < RPT; ++rr) {
+                float dot = d0[rr] + d1[rr];
+#pragma unroll
+                for (int o = 1; o < WIDE_LANES; o <<= 1) {
+                    dot += __shfl_xor_sync(0xffffffffu, dot, o);
+                }
+                bool ok = row_ok[rr] && key < Sk;
+                if (causal) ok = ok && key <= qpos[rr];
+                if (window > 0) ok = ok && qpos[rr] - key < window;
+                s[rr][j] = ok ? dot * scale : kNegInf;
+            }
+        }
+        // online softmax per row; s becomes p rounded to v's type
+#pragma unroll
+        for (int rr = 0; rr < RPT; ++rr) {
+            float m_new = m[rr];
+#pragma unroll
+            for (int j = 0; j < WIDE_BLOCK_K; ++j) m_new = fmaxf(m_new, s[rr][j]);
+            const float alpha = expf(fmaxf(m[rr] - m_new, -80.f));
+#pragma unroll
+            for (int d = 0; d < DPT; ++d) acc[rr][d] *= alpha;
+            float psum = 0.f;
+#pragma unroll
+            for (int j = 0; j < WIDE_BLOCK_K; ++j) {
+                const float p = s[rr][j] > 0.5f * kNegInf ? expf(s[rr][j] - m_new) : 0.f;
+                psum += p;
+                s[rr][j] = round_as(p, v);
+            }
+            l[rr] = l[rr] * alpha + psum;
+            m[rr] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < WIDE_BLOCK_K; ++j) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                const float4 vv = *reinterpret_cast<const float4*>(
+                    &vs[j][c * WIDE_LANES * 4 + lane * 4]);
+#pragma unroll
+                for (int rr = 0; rr < RPT; ++rr) {
+                    acc[rr][c * 4] = fmaf(s[rr][j], vv.x, acc[rr][c * 4]);
+                    acc[rr][c * 4 + 1] = fmaf(s[rr][j], vv.y, acc[rr][c * 4 + 1]);
+                    acc[rr][c * 4 + 2] = fmaf(s[rr][j], vv.z, acc[rr][c * 4 + 2]);
+                    acc[rr][c * 4 + 3] = fmaf(s[rr][j], vv.w, acc[rr][c * 4 + 3]);
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < RPT; ++rr) {
+        if (!row_ok[rr]) continue;
+        const float denom = fmaxf(l[rr], 1e-30f);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int d = c * WIDE_LANES * 4 + lane * 4 + e;
+                store_f(out + row_off[rr] + d, acc[rr][c * 4 + e] / denom);
+            }
+        }
+    }
+}
+
+template <typename T>
+void launch(const void* q, const void* k, const void* v, void* out, int BH,
+            int G, int Sq, int Sk, int causal, int window, int hd,
+            cudaStream_t st) {
+    const float scale = 1.0f / sqrtf((float)hd);
+    if (hd == HEAD_DIM) {
+        const dim3 grid((Sq + BLOCK_Q - 1) / BLOCK_Q, BH);
+        flash_attention_kernel<T><<<grid, G * BLOCK_Q, 0, st>>>(
+            (const T*)q, (const T*)k, (const T*)v, (T*)out, G, Sq, Sk, causal,
+            window, scale);
+    } else {
+        const int bq = WIDE_ROWS / G;
+        const dim3 grid((Sq + bq - 1) / bq, BH);
+        flash_attention_wide_kernel<T, WIDE_HEAD_DIM><<<grid, WIDE_THREADS, 0, st>>>(
+            (const T*)q, (const T*)k, (const T*)v, (T*)out, G, Sq, Sk, causal,
+            window, scale);
+    }
+}
+
 }  // namespace
 
-extern "C" int flash_attention_head_dim() { return HEAD_DIM; }
-extern "C" int flash_attention_max_group() { return MAX_GROUP; }
+// The largest group (query heads per KV head) the kernel takes at head dim
+// `hd`; 0 if it was not built for that head dim.
+extern "C" int flash_attention_max_group(int hd) {
+    return hd == HEAD_DIM ? MAX_GROUP : hd == WIDE_HEAD_DIM ? WIDE_MAX_GROUP : 0;
+}
 
-// q (BH, G, Sq, 64), k and v (BH, Sk, 64), out like q; bf16 != 0 selects
-// bfloat16, else float32. Launches on `stream`; returns cudaGetLastError()
-// (0 on success).
+// q (BH, G, Sq, hd), k and v (BH, Sk, hd), out like q, hd 64 or 256; bf16
+// != 0 selects bfloat16, else float32. Launches on `stream`; returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BH, int G,
                                       int Sq, int Sk, int causal, int window,
-                                      int bf16, void* stream) {
-    if (G < 1 || G > MAX_GROUP || BH > 65535) return (int)cudaErrorInvalidValue;
+                                      int hd, int bf16, void* stream) {
+    const int max_g = flash_attention_max_group(hd);
+    if (G < 1 || G > max_g || BH > 65535) return (int)cudaErrorInvalidValue;
     if (BH > 0 && Sq > 0) {
-        const float scale = 1.0f / sqrtf((float)HEAD_DIM);
-        const dim3 grid((Sq + BLOCK_Q - 1) / BLOCK_Q, BH);
-        const dim3 block(G * BLOCK_Q);
         cudaStream_t st = (cudaStream_t)stream;
         if (bf16) {
-            flash_attention_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-                (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                (const __nv_bfloat16*)v, (__nv_bfloat16*)out, G, Sq, Sk,
-                causal, window, scale);
+            launch<__nv_bfloat16>(q, k, v, out, BH, G, Sq, Sk, causal, window, hd, st);
         } else {
-            flash_attention_kernel<float><<<grid, block, 0, st>>>(
-                (const float*)q, (const float*)k, (const float*)v, (float*)out,
-                G, Sq, Sk, causal, window, scale);
+            launch<float>(q, k, v, out, BH, G, Sq, Sk, causal, window, hd, st);
         }
     }
     return (int)cudaGetLastError();

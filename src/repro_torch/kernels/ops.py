@@ -16,8 +16,8 @@ from ..core import stealing
 from . import build, ref
 
 LAUNCHES = {"steal_compact": 0, "deque_apply": 0, "flash_attention": 0,
-            "decode_attention": 0, "wkv6": 0}
-# the attention kernels' element types, by the code their launch takes
+            "decode_attention": 0, "wkv6": 0, "rglru": 0}
+# the attention and rglru kernels' element types, by the code their launch takes
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,13 +98,14 @@ def deque_apply(buf, slot, rec, n):
 
 
 def _check_attention(name: str, lib, q: torch.Tensor, G: int):
-    """The element type, head dim and group size the kernel `name` takes."""
+    """The element type, head dim and group size the kernel `name` takes:
+    each head dim the library was built for, with its largest group."""
     if q.dtype not in _FLOAT_CODES:
         raise ValueError(f"{name}: expected float32 or bfloat16, got {q.dtype}")
-    hd = getattr(lib, f"{name}_head_dim")()
-    if q.shape[-1] != hd:
-        raise ValueError(f"{name}: the kernel takes head dim {hd}, got {q.shape[-1]}")
-    max_g = getattr(lib, f"{name}_max_group")()
+    hd = q.shape[-1]
+    max_g = getattr(lib, f"{name}_max_group")(hd)
+    if max_g == 0:
+        raise ValueError(f"{name}: the kernel was not built for head dim {hd}")
     if not 1 <= G <= max_g:
         raise ValueError(f"{name}: the kernel takes 1..{max_g} query heads per "
                          f"KV head, got {G}")
@@ -128,7 +129,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     out = torch.empty_like(q)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * KV, G,
-        Sq, Sk, int(causal), int(window), _FLOAT_CODES[q.dtype], _stream())
+        Sq, Sk, int(causal), int(window), hd, _FLOAT_CODES[q.dtype], _stream())
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
@@ -148,7 +149,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     _check("decode_attention.lengths", lengths, (B,))
     lib = build.load("decode_attention")
     _check_attention("decode_attention", lib, q, G)
-    n_chunks = -(-T // lib.decode_attention_chunk())
+    n_chunks = -(-T // lib.decode_attention_chunk(hd))
     part_acc = torch.empty((B * KV * n_chunks * G * hd,), dtype=torch.float32,
                            device=q.device)
     part_m = torch.empty((B * KV * n_chunks * G,), dtype=torch.float32,
@@ -158,7 +159,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(),
-        B, KV, G, T, _FLOAT_CODES[q.dtype], _stream())
+        B, KV, G, T, hd, _FLOAT_CODES[q.dtype], _stream())
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
@@ -192,3 +193,31 @@ def wkv6(r, k, v, w, u, state=None):
     _raise_on(err, "wkv6")
     LAUNCHES["wkv6"] += 1
     return out, final
+
+
+def rglru(x, r, i, lam, h0=None):
+    """x, r, i (B, S, W) of one type (float32 or bfloat16), lam (W,) float32,
+    h0 (B, W) float32 or None (zeros) → (h (B, S, W), final h (B, W)) float32:
+    the RG-LRU recurrence of `ref.rglru`, any S >= 1."""
+    if x.device.type == "cpu":
+        return ref.rglru(x, r, i, lam, h0)
+    B, S, W = x.shape
+    if S < 1:
+        raise ValueError(f"rglru: expected S >= 1, got {S}")
+    for nm, t in (("x", x), ("r", r), ("i", i)):
+        _check(f"rglru.{nm}", t, (B, S, W), x.dtype)
+    if x.dtype not in _FLOAT_CODES:
+        raise ValueError(f"rglru: expected float32 or bfloat16, got {x.dtype}")
+    _check("rglru.lam", lam, (W,), torch.float32)
+    if h0 is not None:
+        _check("rglru.h0", h0, (B, W), torch.float32)
+    lib = build.load("rglru")
+    out = torch.empty((B, S, W), dtype=torch.float32, device=x.device)
+    h_out = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    err = lib.rglru_launch(
+        x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(),
+        None if h0 is None else h0.data_ptr(), out.data_ptr(), h_out.data_ptr(),
+        B, S, W, _FLOAT_CODES[x.dtype], _stream())
+    _raise_on(err, "rglru")
+    LAUNCHES["rglru"] += 1
+    return out, h_out

@@ -3,7 +3,8 @@
 Each function computes what its CUDA kernel computes, at the same
 interface: the simulator's kernels exactly, the attention kernels up to the
 order of float sums and where p is rounded to v's type, `wkv6` up to the
-order of float sums. The wrappers in
+order of float sums, `rglru` up to the last ulp of `exp` and `log1p`. The
+wrappers in
 `ops` run these for CPU tensors; on the card they serve only as the
 yardstick `chip_smoke.py` and the `gpu`-marked tests hold each kernel
 against.
@@ -116,3 +117,35 @@ def wkv6(r, k, v, w, u, state=None):
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], st + u[None, :, :, None] * kv))
         st = w[:, t, :, :, None] * st + kv
     return torch.stack(outs, dim=1), st
+
+
+RGLRU_C = 8.0
+
+
+def softplus(x):
+    """max(x, 0) + log1p(exp(-|x|)): `jax.nn.softplus`'s `logaddexp(x, 0)`
+    at every x (`F.softplus` switches to the identity above 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def rglru(x, r, i, lam, h0=None):
+    """The RG-LRU recurrence, sequential over S in fp32.
+
+    x, r, i: (B, S, W), one type; lam: (W,); h0: (B, W) or None for zeros.
+    With log a_t = -8 softplus(lam) r_t: h_t = a_t h_{t-1} + sqrt(max(1 -
+    exp(2 log a_t), 1e-12)) (i_t x_t). The product i_t x_t is taken in the
+    inputs' type and rounded there before it goes to fp32, as the
+    reference's model and oracle do (`ref.rglru_ref`). Returns (h (B, S,
+    W) fp32, final h (B, W) fp32).
+    """
+    log_a = -RGLRU_C * softplus(lam.float()) * r.float()
+    a = torch.exp(log_a)
+    gated = (i * x).float() * torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                                     min=1e-12))
+    h = (torch.zeros(x.shape[0], x.shape[2], dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    outs = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + gated[:, t]
+        outs.append(h)
+    return torch.stack(outs, dim=1), h

@@ -8,6 +8,8 @@ study — the port of `repro.launch.serve`, with the same flags and
       --reduced --device cpu                               # plain path
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
+      --reduced --device cpu
 
 Part 1 decodes a batch end to end with random weights (the family's
 `init`, seed 0). The prompts are drawn by numpy from seed 0, so they are
@@ -15,8 +17,9 @@ not the reference script's prompts, which come from `jax.random`. Part 2 runs
 `simulate_serving` on the same Pareto request lengths as the reference
 script (numpy, seed 0); with `--strategy global` it runs the neighbor
 rebalancer too, as the reference does, and `none` turns rebalancing off.
-`--reduced` shrinks the model to head dim 8 (qwen2-0.5b) or an rwkv head
-dim of 16 (rwkv6-1.6b), which the CUDA kernels (head dim 64) refuse: use
+`--reduced` shrinks the model to head dim 8 (qwen2-0.5b), an rwkv head
+dim of 16 (rwkv6-1.6b) or head dim 16 (recurrentgemma-9b), which the CUDA
+attention and `wkv6` kernels (head dims 64 and 256; `wkv6` 64) refuse: use
 it with `--device cpu`.
 """
 

@@ -4,7 +4,8 @@
 One frozen dataclass describes every family (dense / MoE / SSM / hybrid /
 enc-dec / VLM); the per-arch instances live in `repro_torch.configs.<id>`
 and are resolved by `repro_torch.models.registry`. The port serves the
-dense and ssm (rwkv6) families; the other fields are kept so
+dense, ssm (rwkv6) and hybrid (recurrentgemma) families; the other fields
+are kept so
 configurations carry across unchanged.
 """
 

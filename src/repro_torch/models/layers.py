@@ -1,5 +1,5 @@
-"""Building blocks of the serving paths (dense transformer and rwkv6), in
-torch.
+"""Building blocks of the serving paths (dense transformer, rwkv6 and the
+RG-LRU hybrid), in torch.
 
 Mirrors `repro.models.layers` function by function, with two differences
 of form:
@@ -12,6 +12,8 @@ of form:
     `flash_attention` for prefill, `decode_attention` for decode, which on
     CPU tensors run their plain versions. Keys and values come back in the
     kernels' layout (B, KV, S, hd), which is also the KV cache's layout.
+    With a sliding window the cache is a ring of T = min(cache_len,
+    window) slots (`ring_len`): position p lives in slot p % T.
 
 The large projections, the MLP and the unembedding are `torch.matmul`, as
 the reference leaves them to XLA.
@@ -124,15 +126,39 @@ def attention_apply(params, dims: AttnDims, x, rope_theta: Optional[float],
     return dense(params["wo"], o), (k, v)
 
 
+def ring_len(cache_len: int, window: Optional[int]) -> int:
+    """Slots of a KV cache: min(cache_len, window) with a sliding window (a
+    ring, position p in slot p % T), else cache_len (the reference's T)."""
+    return min(cache_len, window) if window else cache_len
+
+
+def write_prefill(cache_k, cache_v, k, v) -> None:
+    """Write a prefill's keys and values (B, KV, S, hd) into one layer's
+    (B, KV, T, hd) caches IN PLACE: all S at slots 0..S-1 when S <= T, else
+    the last T positions, position p at slot p % T (the reference's
+    prefill placement)."""
+    S, T = k.shape[2], cache_k.shape[2]
+    if S <= T:
+        cache_k[:, :, :S] = k
+        cache_v[:, :, :S] = v
+    else:
+        slots = torch.arange(S - T, S, device=k.device) % T
+        cache_k[:, :, slots] = k[:, :, S - T:]
+        cache_v[:, :, slots] = v[:, :, S - T:]
+
+
 def attention_decode(params, dims: AttnDims, x, cache_k, cache_v, pos,
                      rope_theta: Optional[float]):
     """Single-token decode against a (B, KV, T, hd) cache.
 
     `pos` is the current position (B,) int; the new key and value are
     written at slot pos % T of the caches IN PLACE, then the token attends
-    to slots < min(pos + 1, T) through `kernels.ops.decode_attention` — the
-    reference's mask `slot <= pos` on a full (not windowed) cache. Returns
-    (out (B, 1, D), cache_k, cache_v).
+    to slots < min(pos + 1, T) through `kernels.ops.decode_attention`. On a
+    full cache (pos < T) that is the reference's mask `slot <= pos`; on a
+    ring of T = min(cache_len, window) slots it is the same set of
+    positions as the reference's window mask, pos - window < p <= pos, in
+    slot order rather than position order (softmax does not care).
+    Returns (out (B, 1, D), cache_k, cache_v).
     """
     B = x.shape[0]
     T = cache_k.shape[2]

@@ -1,0 +1,255 @@
+"""RecurrentGemma-style hybrid (the hybrid family): RG-LRU recurrent blocks
+and local attention, init, forward and the serving path (prefill +
+single-token decode), in torch.
+
+Mirrors `repro.models.rglru`. The layer pattern cycles ("rec", "rec",
+"attn"):
+
+  * recurrent block — rmsnorm, an input projection to `lru_width` twice (a
+    value branch and a gate branch through tanh-approximated GeLU, which is
+    `jax.nn.gelu`'s default); the value branch goes through a short causal
+    conv1d (width 4) and the RG-LRU, whose recurrence runs in the
+    hand-written `rglru` kernel (`kernels.ops.rglru`, its plain version for
+    CPU tensors), in prefill from zeros and in decode from the carried
+    state; merged with the gate branch and projected back to d_model;
+  * attention block — MQA with a sliding window and RoPE, prefill through
+    `flash_attention` with the window, decode through `decode_attention`
+    against a ring KV cache of T = min(cache_len, window) slots (`layers`);
+  * every block is followed by a swiglu MLP block (the reference's
+    docstring says GeGLU; its code builds and applies swiglu, which the port
+    copies).
+
+The embedding is not scaled and the head is a table of its own, as in the
+reference's code. The layer stack is a Python list of per-layer parameter
+dicts in `cfg.block_kinds()` order (the reference groups them into
+(n_groups, per_group, ...) stacks plus a `rem` list; `convert.rglru_params`
+carries its tree across). Weights are stored in cfg.dtype; norm scales and
+`lam` stay fp32, as the reference computes with them in fp32.
+
+The decode state is {"h": (n_rec, B, W) fp32, "conv": (n_rec, B, K-1, W)
+in cfg.dtype, "k", "v": (n_att, B, KV, T, hd) in cfg.dtype}: each recurrent
+layer's RG-LRU state and last K-1 conv inputs, each attention layer's ring
+cache (the reference's k/v are (n_att, B, T, KV, hd), the same values
+permuted). `decode_step` updates it IN PLACE and returns it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from . import layers as L
+from .config import ModelConfig
+from .transformer import not_ported, resolve_device
+
+
+def _lru_width(cfg: ModelConfig) -> int:
+    return cfg.lru_width or cfg.d_model
+
+
+def _dims(cfg: ModelConfig) -> L.AttnDims:
+    return L.AttnDims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, False)
+
+
+def check_config(cfg: ModelConfig) -> None:
+    """Raise for any part of `cfg` this port does not serve as the hybrid."""
+    if cfg.dtype not in L.DTYPES:
+        raise ValueError(f"dtype {cfg.dtype!r}: the port computes in "
+                         f"{sorted(L.DTYPES)}")
+    if any(k not in ("rec", "attn") for k in cfg.pattern):
+        raise ValueError(f"block pattern {cfg.pattern}: the hybrid family has "
+                         f"'rec' and 'attn' blocks")
+    if cfg.n_layers < len(cfg.pattern):
+        raise ValueError(f"{cfg.n_layers} layers hold no whole group of the "
+                         f"pattern {cfg.pattern}")
+    if cfg.rope_theta <= 0:
+        raise not_ported("sinusoidal positions", "15.6")
+
+
+# --------------------------------------------------------------------------- #
+# Init
+# --------------------------------------------------------------------------- #
+def init(cfg: ModelConfig, seed: int = 0, device=None):
+    """Random weights on `device` (default: the CUDA device; raises if there
+    is none): normal(0, 0.02) from a seeded `torch.Generator` on that device
+    for the matrices and tables, and the reference's constants for the rest
+    (norm scales 1, biases 0, lam 2) — the reference's distributions, not its
+    `jax.random` draws (`convert.rglru_params` carries the reference's own
+    weights across)."""
+    check_config(cfg)
+    dev = resolve_device(device)
+    dt = L.dtype_of(cfg.dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D, W, K = cfg.d_model, _lru_width(cfg), cfg.conv1d_width
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def normal(*shape):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * 0.02).to(dt)
+
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    def norm_p():
+        return {"scale": full((D,), 1.0, torch.float32)}
+
+    def mlp_p():
+        return {"wg": {"w": normal(D, cfg.d_ff)}, "wu": {"w": normal(D, cfg.d_ff)},
+                "wd": {"w": normal(cfg.d_ff, D)}}
+
+    def rec():
+        return {"ln1": norm_p(), "in_x": normal(D, W), "in_g": normal(D, W),
+                "conv_w": normal(K, W), "conv_b": full((W,), 0.0),
+                "wa": normal(W, W), "ba": full((W,), 0.0),
+                "wx": normal(W, W), "bx": full((W,), 0.0),
+                "lam": full((W,), 2.0, torch.float32), "out": normal(W, D),
+                "ln2": norm_p(), "mlp": mlp_p()}
+
+    def attn():
+        return {"ln1": norm_p(),
+                "attn": {"wq": {"w": normal(D, H * hd)}, "wk": {"w": normal(D, KV * hd)},
+                         "wv": {"w": normal(D, KV * hd)}, "wo": {"w": normal(H * hd, D)}},
+                "ln2": norm_p(), "mlp": mlp_p()}
+
+    return {"embed": {"table": normal(cfg.vocab, D)},
+            "layers": [rec() if k == "rec" else attn() for k in cfg.block_kinds()],
+            "final_norm": norm_p(), "head": {"table": normal(cfg.vocab, D)}}
+
+
+# --------------------------------------------------------------------------- #
+# Blocks
+# --------------------------------------------------------------------------- #
+def rglru_scan(x, r, i, lam, h0):
+    """x, r, i: (B, S, W); lam: (W,) fp32; h0: (B, W) fp32 → (h (B, S, W) in
+    x's type, final h (B, W) fp32), through `kernels.ops.rglru`."""
+    h, hT = ops.rglru(x, r, i, lam, h0)
+    return h.to(x.dtype), hT
+
+
+def _causal_conv(x, w, b, state):
+    """Short causal conv along S, as the reference sums it: the K products
+    in x's type, added one by one in k order (each add rounded), then + b.
+    x: (B, S, W); w: (K, W); b: (W,); state: (B, K-1, W), the K-1 inputs
+    before x. Returns (y (B, S, W), new state: the last K-1 rows of the
+    concatenation)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = xp[:, 0:S] * w[0].to(x.dtype)
+    for k in range(1, K):
+        y = y + xp[:, k:k + S] * w[k].to(x.dtype)
+    return y + b.to(x.dtype), xp[:, xp.shape[1] - (K - 1):]
+
+
+def _rec_block(lp, x, cfg: ModelConfig, h0, conv_state):
+    """x: (B, S, D); h0: (B, W) fp32; conv_state (B, K-1, W). Returns (x,
+    final h, new conv state)."""
+    y = L.rmsnorm(lp["ln1"], x)
+    vx = y @ lp["in_x"]
+    g = F.gelu(y @ lp["in_g"], approximate="tanh")
+    vx, conv_state = _causal_conv(vx, lp["conv_w"], lp["conv_b"], conv_state)
+    r = torch.sigmoid(vx @ lp["wa"] + lp["ba"])
+    i = torch.sigmoid(vx @ lp["wx"] + lp["bx"])
+    h, hT = rglru_scan(vx, r, i, lp["lam"], h0)
+    x = x + (h * g) @ lp["out"]
+    x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+    return x, hT, conv_state
+
+
+def _attn_block(lp, x, cfg: ModelConfig):
+    """x: (B, S, D) at positions 0..S-1. Returns (x, (k, v)) with k, v of
+    shape (B, KV, S, hd)."""
+    a, kv = L.attention_apply(lp["attn"], _dims(cfg), L.rmsnorm(lp["ln1"], x),
+                              cfg.rope_theta, causal=True, window=cfg.window)
+    x = x + a
+    x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+    return x, kv
+
+
+def make_state(cfg: ModelConfig, batch: int, cache_len: int, device=None):
+    """The decode state of a batch, zeros (see the module docstring)."""
+    check_config(cfg)
+    kinds = cfg.block_kinds()
+    n_rec, n_att = kinds.count("rec"), kinds.count("attn")
+    W, dt = _lru_width(cfg), L.dtype_of(cfg.dtype)
+    kv = (n_att, batch, cfg.n_kv_heads, L.ring_len(cache_len, cfg.window), cfg.hd)
+    return {
+        "h": torch.zeros((n_rec, batch, W), dtype=torch.float32, device=device),
+        "conv": torch.zeros((n_rec, batch, cfg.conv1d_width - 1, W), dtype=dt,
+                            device=device),
+        "k": torch.zeros(kv, dtype=dt, device=device),
+        "v": torch.zeros(kv, dtype=dt, device=device),
+    }
+
+
+def _trunk(params, cfg: ModelConfig, tokens, state=None):
+    """Embedding, the layer stack and the final norm over positions 0..S-1,
+    every recurrent layer from zeros; fills `state` (in place) when one is
+    given. Returns the final hidden states (B, S, D)."""
+    check_config(cfg)
+    x = L.embed(params["embed"], tokens)
+    B = x.shape[0]
+    W, K = _lru_width(cfg), cfg.conv1d_width
+    h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+    conv0 = torch.zeros((B, K - 1, W), dtype=x.dtype, device=x.device)
+    ri = ai = 0
+    for lp, kind in zip(params["layers"], cfg.block_kinds()):
+        if kind == "rec":
+            x, hT, conv = _rec_block(lp, x, cfg, h0, conv0)
+            if state is not None:
+                state["h"][ri] = hT
+                state["conv"][ri] = conv
+            ri += 1
+        else:
+            x, (k, v) = _attn_block(lp, x, cfg)
+            if state is not None:
+                L.write_prefill(state["k"][ai], state["v"][ai], k, v)
+            ai += 1
+    return L.rmsnorm(params["final_norm"], x)
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """tokens (B, S) → logits (B, S, V)."""
+    return L.unembed(params["head"], _trunk(params, cfg, tokens))
+
+
+# --------------------------------------------------------------------------- #
+# Serving: prefill fills the recurrent states and the ring caches; decode
+# carries them one token at a time
+# --------------------------------------------------------------------------- #
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int):
+    """Run the prompt from position 0; return (last-token logits (B, V),
+    decode state, next_pos (B,) int32). The ring caches keep the prompt's
+    last T = min(cache_len, window) positions, position p at slot p % T.
+    Only the last position is unembedded (the reference unembeds it
+    alone too)."""
+    B, S = tokens.shape
+    state = make_state(cfg, B, cache_len, device=tokens.device)
+    x = _trunk(params, cfg, tokens, state)
+    logits = L.unembed(params["head"], x[:, -1])
+    return logits, state, torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+
+
+def decode_step(params, cfg: ModelConfig, token, state, pos):
+    """token (B,) int, pos (B,) int32 → (logits (B, V), state, pos + 1). The
+    state is updated in place (and returned, as the reference returns its
+    new state)."""
+    dims = _dims(cfg)
+    x = L.embed(params["embed"], token[:, None])             # (B, 1, D)
+    ri = ai = 0
+    for lp, kind in zip(params["layers"], cfg.block_kinds()):
+        if kind == "rec":
+            x, hT, conv = _rec_block(lp, x, cfg, state["h"][ri], state["conv"][ri])
+            state["h"][ri] = hT
+            state["conv"][ri] = conv
+            ri += 1
+        else:
+            a, _, _ = L.attention_decode(lp["attn"], dims, L.rmsnorm(lp["ln1"], x),
+                                         state["k"][ai], state["v"][ai], pos,
+                                         cfg.rope_theta)
+            x = x + a
+            x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+            ai += 1
+    x = L.rmsnorm(params["final_norm"], x)
+    return L.unembed(params["head"], x)[:, 0], state, pos + 1

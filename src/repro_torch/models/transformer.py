@@ -9,11 +9,14 @@ Prefill attention runs the `flash_attention` kernel, decode attention the
 `decode_attention` kernel (`layers`). The KV cache is (L, B, KV, T, hd), so
 one layer's slice is the decode kernel's (B, KV, T, hd) operand without a
 copy; the reference's cache is (L, B, T, KV, hd), the same values permuted.
+With a sliding window the cache is a ring of T = min(cache_len, window)
+slots, as the reference's is.
 
 What the port does not serve yet raises `NotImplementedError` naming its
 ROADMAP item: MoE FFNs, VLM prefix embeddings, cross-attention decoders,
-sliding windows, and norms, activations and positions other than
-rmsnorm / swiglu / RoPE.
+and norms, activations and positions other than rmsnorm / swiglu / RoPE.
+A block pattern other than attention layers is not this family's: the
+hybrid family (`rglru`) serves it.
 """
 
 from __future__ import annotations
@@ -38,13 +41,12 @@ def check_config(cfg: ModelConfig) -> None:
         raise not_ported("MoE FFN", "15.4")
     if cfg.cross_attention or cfg.n_encoder_layers:
         raise not_ported("encoder-decoder cross-attention", "15.6")
-    if cfg.window:
-        raise not_ported("sliding-window attention and its ring cache", "15.2")
     if cfg.norm != "rmsnorm" or cfg.act != "swiglu" or cfg.rope_theta <= 0:
         raise not_ported(f"norm={cfg.norm!r}, act={cfg.act!r}, "
                          f"rope_theta={cfg.rope_theta}", "15.6")
     if any(k != "attn" for k in cfg.block_kinds()):
-        raise not_ported(f"block pattern {cfg.pattern}", "15.2")
+        raise ValueError(f"block pattern {cfg.pattern} is not the dense "
+                         f"family's (the hybrid family serves it)")
 
 
 def resolve_device(device) -> torch.device:
@@ -116,14 +118,13 @@ def _trunk(params, cfg: ModelConfig, tokens, cache=None):
     when one is given. Returns the final hidden states (B, S, D)."""
     dims = _dims(cfg)
     x = L.embed(params["embed"], tokens)
-    S = x.shape[1]
     for i, lp in enumerate(params["layers"]):
         a, (k, v) = L.attention_apply(lp["attn"], dims, L.rmsnorm(lp["ln1"], x),
-                                      cfg.rope_theta, causal=True)
+                                      cfg.rope_theta, causal=True,
+                                      window=cfg.window)
         x = x + a
         if cache is not None:
-            cache["k"][i, :, :, :S] = k
-            cache["v"][i, :, :, :S] = v
+            L.write_prefill(cache["k"][i], cache["v"][i], k, v)
         x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
     return L.rmsnorm(params["final_norm"], x)
 
@@ -146,9 +147,11 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None, enc_out=None):
 # Serving: prefill + single-token decode with KV cache
 # --------------------------------------------------------------------------- #
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """KV cache: k/v (L, B, KV, T, hd) zeros in cfg.dtype."""
+    """KV cache: k/v (L, B, KV, T, hd) zeros in cfg.dtype, T =
+    `layers.ring_len(cache_len, cfg.window)`."""
     check_config(cfg)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.hd)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, L.ring_len(cache_len, cfg.window),
+             cfg.hd)
     dt = L.dtype_of(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -158,14 +161,16 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int,
             prefix_embeds=None, enc_out=None):
     """Run the prompt from position 0; return (last-token logits (B, V),
     populated cache, next_pos (B,) int32). Only the last position is
-    unembedded (the reference unembeds all and keeps the last)."""
+    unembedded (the reference unembeds all and keeps the last). With a
+    window the prompt may be longer than the ring: its last T positions
+    are kept."""
     check_config(cfg)
     if prefix_embeds is not None:
         raise not_ported("VLM prefix embeddings", "15.5")
     if enc_out is not None:
         raise not_ported("encoder output for cross-attention", "15.6")
     B, S = tokens.shape
-    if S > cache_len:
+    if S > cache_len and not cfg.window:
         raise ValueError(f"prompt length {S} exceeds cache_len {cache_len}")
     cache = make_cache(cfg, B, cache_len, device=tokens.device)
     x = _trunk(params, cfg, tokens, cache)

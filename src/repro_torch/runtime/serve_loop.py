@@ -6,7 +6,9 @@ Mirrors `repro.runtime.serve_loop`:
     greedy decode to EOS or `max_new_tokens` — on one device, through the
     model family's kernels (`registry.get_fns`): for the dense transformer
     `flash_attention` (prefill) and `decode_attention` (decode), for rwkv6
-    `wkv6` (both);
+    `wkv6` (both), for the RG-LRU hybrid (recurrentgemma) `rglru` (both)
+    with windowed `flash_attention` and `decode_attention` on a ring KV
+    cache;
   * `simulate_serving` is the slot-level serving simulation that measures
     the occupancy won by steal-rebalancing request backlogs between shards
     (`core.balancer`), integer-exact against the reference.
@@ -122,7 +124,8 @@ def serve_requests(arch_cfg, params, serve_cfg: ServeConfig, prompts,
 
     prompts: (N, prompt_len) int (numpy or tensor); `params` must already
     lie on `device` (default: the CUDA device). The model's cache (the KV
-    cache, or rwkv6's fixed-size state) is whatever its `prefill` returns. Returns (outputs (N,
+    cache, rwkv6's fixed-size state, or the hybrid's recurrent states and
+    ring caches) is whatever its `prefill` returns. Returns (outputs (N,
     max_new_tokens) int32 on the device, {"decoded": token count}). Single
     shard: the multi-shard slot logic is `simulate_serving`'s.
     """

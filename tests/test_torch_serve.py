@@ -35,6 +35,7 @@ from repro_torch import convert
 from repro_torch.core import balancer as pbal
 from repro_torch.models import layers as pL
 from repro_torch.models import registry as preg
+from repro_torch.models import rglru as prglru
 from repro_torch.models import transformer as ptf
 from repro_torch.runtime import serve_loop as pserve
 
@@ -68,22 +69,30 @@ def test_config_and_registry_mirror_reference():
     full_r, full_p = rreg.get_config("qwen2-0.5b"), preg.get_config("qwen2-0.5b")
     assert dataclasses.asdict(full_r) == dataclasses.asdict(full_p)
     assert full_p.n_params() == full_r.n_params()
-    assert preg.list_archs() == ["qwen2-0.5b", "rwkv6-1.6b"]
+    assert preg.list_archs() == ["qwen2-0.5b", "rwkv6-1.6b", "recurrentgemma-9b"]
     assert set(preg._ARCH_ITEMS) | set(preg.list_archs()) == set(rreg.list_archs())
     for arch in preg._ARCH_ITEMS:
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 15\.\d"):
             preg.get_config(arch)
-    for family in ("moe", "hybrid", "encdec", "vlm"):
+    for family in ("moe", "encdec", "vlm"):
         with pytest.raises(NotImplementedError, match=r"Queue 1 item 15\.\d"):
             preg.get_fns(dataclasses.replace(full_p, family=family))
+    # the hybrid family is served (recurrentgemma, `models.rglru`)
+    assert preg.get_fns(dataclasses.replace(full_p, family="hybrid")).prefill is prglru.prefill
 
 
-@pytest.mark.parametrize("change", [
-    {"window": 16}, {"cross_attention": True}, {"act": "gelu"},
-    {"norm": "layernorm"}, {"pattern": ("rec", "attn")}])
-def test_unported_configs_raise(change):
+@pytest.mark.parametrize("change,error", [
+    ({"cross_attention": True}, NotImplementedError),
+    ({"act": "gelu"}, NotImplementedError), ({"norm": "layernorm"}, NotImplementedError),
+    ({"pattern": ("rec", "attn")}, ValueError)])
+def test_unported_configs_raise(change, error):
+    """What the port does not serve names its ROADMAP item; a block pattern
+    with recurrent layers is not the dense family's (the hybrid family,
+    test_torch_recurrentgemma.py, serves it). A sliding window is served:
+    `test_windowed_dense_matches_reference`."""
     cfg = dataclasses.replace(preg.reduced(preg.get_config("qwen2-0.5b")), **change)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 15\.\d"):
+    match = r"Queue 1 item 15\.\d" if error is NotImplementedError else "hybrid"
+    with pytest.raises(error, match=match):
         ptf.init(cfg, device="cpu")
 
 
@@ -177,6 +186,40 @@ def test_prefill_and_decode_match_reference(model):
     for name in ("k", "v"):
         _close(np.asarray(cr[name], np.float32).transpose(0, 1, 3, 2, 4),
                cp[name], dtype, f"decoded cache {name}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_windowed_dense_matches_reference(dtype):
+    """The dense transformer with a sliding window of 16 and cache_len 40,
+    so a ring of T = 16 slots: prefill of 24 tokens (past the window: the
+    ring keeps the last 16, position p at slot p % 16) and 12 teacher-forced
+    decode steps (positions 24..35) against the reference, logits and ring
+    caches after each."""
+    rc = dataclasses.replace(rreg.reduced(rreg.get_config("qwen2-0.5b")), dtype=dtype,
+                             window=16)
+    pc = dataclasses.replace(preg.reduced(preg.get_config("qwen2-0.5b")), dtype=dtype,
+                             window=16)
+    rp = rtf.init(jax.random.PRNGKey(1), rc)
+    pp = convert.lm_params(pc, jax.tree.map(np.asarray, rp))
+    rs = np_rng(13)
+    B, S, cache_len = 3, 24, 40
+    toks = rs.integers(0, pc.vocab, (B, S))
+    _close(rtf.forward(rp, rc, jnp.asarray(toks))[0],
+           ptf.forward(pp, pc, torch.as_tensor(toks)), dtype, "forward")
+    lr, cr, pos_r = rtf.prefill(rp, rc, jnp.asarray(toks), cache_len)
+    lp, cp, pos_p = ptf.prefill(pp, pc, torch.as_tensor(toks), cache_len)
+    assert tuple(cp["k"].shape) == (pc.n_layers, B, pc.n_kv_heads, 16, pc.hd)
+    _close(lr, lp, dtype, "prefill logits")
+    forced = rs.integers(0, pc.vocab, (B, 12))
+    for i in range(12):
+        for name in ("k", "v"):
+            _close(np.asarray(cr[name], np.float32).transpose(0, 1, 3, 2, 4),
+                   cp[name], dtype, f"ring {name} before step {i}")
+        lr, cr, pos_r = rtf.decode_step(rp, rc, jnp.asarray(forced[:, i], jnp.int32),
+                                        cr, pos_r)
+        lp, cp, pos_p = ptf.decode_step(pp, pc, torch.as_tensor(forced[:, i]), cp, pos_p)
+        _close(lr, lp, dtype, f"decode step {i} logits")
+        assert_same(pos_r, pos_p, f"decode step {i} pos")
 
 
 def test_serve_requests_token_equal_in_fp32():
