@@ -9,7 +9,8 @@ toolkit):
 Phases — any failure exits non-zero:
 
   1. build the six hand-written kernels with nvcc (one process per source,
-     all started together);
+     all started together), print their `ptxas -v` lines and count the
+     HGMMA (wgmma) instructions in `flash_attention`'s machine code;
   2. hold each simulator kernel against its plain PyTorch version at the
      main path's shapes (W=4096 rings of capacity 64) — outputs must be
      exactly equal — and time kernel, plain version and library call on the
@@ -18,8 +19,9 @@ Phases — any failure exits non-zero:
      paths' shapes — head dim 64 with 7 query heads per KV head (qwen2) and
      head dim 256 with 16 over one (recurrentgemma: prefill S=2560 with a
      2048-token window, decode against a full 2048-slot ring) — and a few
-     more (ragged, windowed, long, an empty row), within a stated bf16
-     tolerance, with SDPA as the library yardstick; then `wkv6` at rwkv6
+     more (ragged, windowed, long, an empty row, shorter than a key tile,
+     window 1, one past a row tile, scores spread by q x 8), within a stated
+     bf16 tolerance, with SDPA as the library yardstick; then `wkv6` at rwkv6
      serving's prefill (B=8, S=512, H=32, hd=64) and decode (S=1, carried
      state) shapes and at S=7 and S=1000, from zero and given states, output
      and final state within a stated fp32 tolerance; then `rglru` at
@@ -174,8 +176,26 @@ def phase_build(build):
           f"{time.perf_counter() - t0:.3f} s")
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "C75" in line):
                 print(f"[build] {name}: {line.strip()}")
+    # the tensor-core instructions in flash_attention's machine code, by kernel
+    sass = subprocess.run(
+        [str(Path(build.nvcc_path()).with_name("cuobjdump")), "--dump-sass",
+         str(build.lib_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line:
+            shape = line.split("HGMMA.")[1].split()[0]
+            hgmma.setdefault(fn, {}).setdefault(shape, 0)
+            hgmma[fn][shape] += 1
+    if not any("flash_attention_wgmma_kernel" in f for f in hgmma):
+        raise SystemExit("flash_attention: no HGMMA instruction in the wgmma kernel")
+    for fn, shapes in hgmma.items():
+        print(f"[build] flash_attention SASS: {fn}: HGMMA {shapes}")
 
 
 def phase_kernels(torch, np, ops, ref, deque, tasks):
@@ -323,19 +343,26 @@ def phase_attention(torch, ops, ref):
         return mask
 
     out = {"flash_attention": {}, "decode_attention": {}}
-    # flash attention: (B, KV, G, S, hd, causal, window); the first of each
-    # head dim is its serving path's prefill (timed)
-    flash_cases = [(8, 2, 7, 512, 64, True, 0), (1, 2, 7, 2048, 64, True, 0),
-                   (2, 2, 7, 500, 64, True, 0), (2, 2, 7, 500, 64, True, 128),
-                   (1, 2, 7, 333, 64, False, 0),
-                   (8, 1, 16, 2560, 256, True, 2048), (2, 1, 16, 777, 256, True, 100),
-                   (1, 1, 16, 300, 256, False, 0), (1, 2, 7, 250, 256, True, 0)]
+    # flash attention: (B, KV, G, S, hd, causal, window, q scale); the first
+    # of each head dim is its serving path's prefill (timed). Besides: S
+    # shorter than a key tile, window 1 at one past a 128-row tile, one past
+    # the hd-256 window, and scores spread wide (q x 8: the running max
+    # moves by large steps, so alpha and p's rounding against a stale max
+    # are exercised)
+    flash_cases = [(8, 2, 7, 512, 64, True, 0, 1), (1, 2, 7, 2048, 64, True, 0, 1),
+                   (2, 2, 7, 500, 64, True, 0, 1), (2, 2, 7, 500, 64, True, 128, 1),
+                   (1, 2, 7, 333, 64, False, 0, 1), (1, 2, 7, 40, 64, True, 0, 1),
+                   (2, 2, 7, 129, 64, True, 1, 1), (2, 2, 7, 700, 64, True, 0, 8),
+                   (8, 1, 16, 2560, 256, True, 2048, 1), (2, 1, 16, 777, 256, True, 100, 1),
+                   (1, 1, 16, 300, 256, False, 0, 1), (1, 2, 7, 250, 256, True, 0, 1),
+                   (2, 1, 16, 2049, 256, True, 2048, 1), (1, 1, 16, 600, 256, False, 0, 8)]
     errs, timed = [], set()
-    for B, KV, G, S, hd, causal, window in flash_cases:
-        q, k, v = rnd(B, KV, G, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd)
+    for B, KV, G, S, hd, causal, window, qscale in flash_cases:
+        q = (rnd(B, KV, G, S, hd).float() * qscale).to(bf16)
+        k, v = rnd(B, KV, S, hd), rnd(B, KV, S, hd)
         errs.append(check("flash_attention",
                           f"B={B} KV={KV} G={G} S={S} hd={hd} causal={causal} "
-                          f"window={window}",
+                          f"window={window} q x {qscale}",
                           ops.flash_attention(q, k, v, causal=causal, window=window),
                           ref.flash_attention(q, k, v, causal=causal, window=window)))
         if hd in timed:
@@ -358,13 +385,12 @@ def phase_attention(torch, ops, ref):
         def plain():
             return ref.flash_attention(q, k, v, causal=causal, window=window)
 
-        # the hd-256 shape takes tens of ms a launch: fewer calls a graph
-        few = dict(calls=3, reps=5) if hd == 256 else {}
-        r = {"ms": _device_ms(torch, kern, **few),
-             "call_ms": _call_ms(torch, kern, **(dict(reps=5, inner=3) if few else {})),
-             "plain_ms": _device_ms(torch, plain, **(dict(calls=1, reps=3) if few else {})),
-             "library_ms": _device_ms(torch, lib, **few),
-             "bytes": nbytes, "ops": nops}
+        # the plain version takes tens of ms a call at the hd-256 shape:
+        # fewer calls a graph there
+        few = dict(calls=1, reps=3) if hd == 256 else {}
+        r = {"ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+             "plain_ms": _device_ms(torch, plain, **few),
+             "library_ms": _device_ms(torch, lib), "bytes": nbytes, "ops": nops}
         r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
         check("flash_attention", f"hd={hd} library call (SDPA) vs plain",
               lib().view_as(q), plain(), required=False)
@@ -754,9 +780,9 @@ def phase_drained(torch, np, sim, topo, tasks, ops):
 
 SERVE_BATCH, SERVE_NEW = 8, 64
 # the kernels' symbols in a profile, by wrapper name (a launch of
-# `decode_attention` runs two kernels; `flash_attention` has one kernel per
-# head-dim design)
-KERNEL_SYMBOLS = {"flash_attention": ("flash_attention_kernel", "flash_attention_wide_kernel"),
+# `decode_attention` runs two kernels; the serving paths run `flash_attention`
+# in bf16, through its tensor-core kernel)
+KERNEL_SYMBOLS = {"flash_attention": ("flash_attention_wgmma_kernel",),
                   "decode_attention": ("decode_partial_kernel", "decode_combine_kernel"),
                   "wkv6": ("wkv6_kernel",), "rglru": ("rglru_kernel",)}
 

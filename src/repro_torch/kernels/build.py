@@ -77,7 +77,8 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of kernel `name` is (or would be) built."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
@@ -86,7 +87,7 @@ def _lib_path(name: str) -> Path:
 def build(names=SOURCES) -> float:
     """Compile every missing library of `names` in parallel; returns the
     wall seconds spent. Raises with nvcc's output if any build fails."""
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return 0.0
     out_dir = build_dir()
@@ -95,7 +96,7 @@ def build(names=SOURCES) -> float:
     t0 = time.perf_counter()
     procs = {}
     for n in todo:
-        tmp = out_dir / f"{_lib_path(n).name}.{os.getpid()}.tmp"
+        tmp = out_dir / f"{lib_path(n).name}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
@@ -106,7 +107,7 @@ def build(names=SOURCES) -> float:
         if proc.returncode != 0:
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
         else:
-            os.replace(tmp, _lib_path(n))
+            os.replace(tmp, lib_path(n))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
@@ -117,7 +118,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

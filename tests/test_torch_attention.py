@@ -138,12 +138,24 @@ def test_cuda_attention_kernels_match_plain_versions(cuda_device, dtype):
         return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
 
     ops.reset_launch_counts()
-    for B, S, G, causal, window in ((2, 500, 7, True, 0), (1, 130, 7, False, 0),
-                                    (2, 300, 7, True, 128), (1, 64, 1, True, 0)):
-        q, k, v = rnd(B, 2, G, S, HD), rnd(B, 2, S, HD), rnd(B, 2, S, HD)
+    # the last three: shorter than a 128-key tile, window 1 one past a
+    # 128-row tile, scores spread wide (q x 8)
+    for B, S, G, causal, window, qscale in (
+            (2, 500, 7, True, 0, 1), (1, 130, 7, False, 0, 1), (2, 300, 7, True, 128, 1),
+            (1, 64, 1, True, 0, 1), (1, 40, 7, True, 0, 1), (2, 129, 7, True, 1, 1),
+            (1, 257, 7, False, 0, 8)):
+        q = (rnd(B, 2, G, S, HD).float() * qscale).to(dtype)
+        k, v = rnd(B, 2, S, HD), rnd(B, 2, S, HD)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    # 60 keys under 200 queries, window 50: queries from 109 on see no key
+    # and give exactly 0
+    q, k, v = rnd(2, 2, 7, 200, HD), rnd(2, 2, 60, HD), rnd(2, 2, 60, HD)
+    got = ops.flash_attention(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, window=50).float(),
+                               atol=atol, rtol=rtol)
+    assert torch.all(got[..., 109:, :] == 0) and torch.all(got[..., :109, :].abs().sum(-1) > 0)
     for B, T, lengths in ((8, 584, [512, 530, 575, 560, 513, 544, 571, 520]),
                           (2, 4096, [0, 4000])):
         q = rnd(B, 2, 7, HD)
@@ -153,5 +165,5 @@ def test_cuda_attention_kernels_match_plain_versions(cuda_device, dtype):
         want = ref.decode_attention(q, kc, vc, ln)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == 4
+    assert ops.LAUNCHES["flash_attention"] == 8
     assert ops.LAUNCHES["decode_attention"] == 2

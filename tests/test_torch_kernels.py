@@ -98,7 +98,7 @@ def test_build_layout():
     directory, and nothing is built at import."""
     assert {p.stem for p in build.CSRC.glob("*.cu")} == set(build.SOURCES)
     for name in build.SOURCES:
-        path = build._lib_path(name)
+        path = build.lib_path(name)
         assert path.parent == build.build_dir()
         assert re.fullmatch(rf"lib{name}-[0-9a-f]{{16}}\.so", path.name)
     root = Path(__file__).resolve().parents[1]

@@ -161,12 +161,24 @@ def test_cuda_attention_hd256_matches_plain_versions(cuda_device, dtype):
         return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
 
     ops.reset_launch_counts()
-    for B, S, causal, window in ((2, 300, True, 0), (1, 333, True, 64),
-                                 (1, 130, False, 0), (2, 200, False, 50)):
-        q, k, v = rnd(B, KV, G, S, HD), rnd(B, KV, S, HD), rnd(B, KV, S, HD)
+    # the last four: shorter than a 64-key tile, window 1 one past a 128-row
+    # tile, one query head per KV head, scores spread wide (q x 8)
+    for B, S, g, causal, window, qscale in (
+            (2, 300, G, True, 0, 1), (1, 333, G, True, 64, 1), (1, 130, G, False, 0, 1),
+            (2, 200, G, False, 50, 1), (1, 40, G, True, 0, 1), (2, 129, G, True, 1, 1),
+            (2, 257, 1, True, 100, 1), (1, 300, G, False, 0, 8)):
+        q = (rnd(B, KV, g, S, HD).float() * qscale).to(dtype)
+        k, v = rnd(B, KV, S, HD), rnd(B, KV, S, HD)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    # 60 keys under 200 queries, window 50: queries from 109 on see no key
+    # and give exactly 0
+    q, k, v = rnd(1, KV, G, 200, HD), rnd(1, KV, 60, HD), rnd(1, KV, 60, HD)
+    got = ops.flash_attention(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, window=50).float(),
+                               atol=atol, rtol=rtol)
+    assert torch.all(got[..., 109:, :] == 0) and torch.all(got[..., :109, :].abs().sum(-1) > 0)
     for B, T, lengths in ((4, 2048, [2048, 2048, 1, 1500]), (2, 100, [0, 100])):
         q = rnd(B, KV, G, HD)
         kc, vc = rnd(B, KV, T, HD), rnd(B, KV, T, HD)
@@ -175,5 +187,5 @@ def test_cuda_attention_hd256_matches_plain_versions(cuda_device, dtype):
         want = ref.decode_attention(q, kc, vc, ln)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == 4
+    assert ops.LAUNCHES["flash_attention"] == 9
     assert ops.LAUNCHES["decode_attention"] == 2
