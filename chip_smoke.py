@@ -10,7 +10,9 @@ Phases — any failure exits non-zero:
 
   1. build the six hand-written kernels with nvcc (one process per source,
      all started together), print their `ptxas -v` lines and count the
-     HGMMA (wgmma) instructions in `flash_attention`'s machine code;
+     tensor-core instructions in the machine code of the attention kernels'
+     bf16 instantiations: HGMMA (wgmma) in `flash_attention`'s, HMMA
+     (mma.sync) in `decode_attention`'s;
   2. hold each simulator kernel against its plain PyTorch version at the
      main path's shapes (W=4096 rings of capacity 64) — outputs must be
      exactly equal — and time kernel, plain version and library call on the
@@ -20,14 +22,19 @@ Phases — any failure exits non-zero:
      head dim 256 with 16 over one (recurrentgemma: prefill S=2560 with a
      2048-token window, decode against a full 2048-slot ring) — and a few
      more (ragged, windowed, long, an empty row, shorter than a key tile,
-     window 1, one past a row tile, scores spread by q x 8), within a stated
-     bf16 tolerance, with SDPA as the library yardstick; then `wkv6` at rwkv6
+     window 1, one past a row tile, scores spread by q x 8; decode lengths
+     at the edges of a tile, a chunk and a cluster of the bf16 decode
+     kernel, and a repeated call after the timing runs, bit-equal to the
+     first), within a stated bf16 tolerance, with SDPA as the library
+     yardstick; then `wkv6` at rwkv6
      serving's prefill (B=8, S=512, H=32, hd=64) and decode (S=1, carried
      state) shapes and at S=7 and S=1000, from zero and given states, output
      and final state within a stated fp32 tolerance; then `rglru` at
      recurrentgemma serving's prefill (B=8, S=2560, W=4096, bf16, zero state)
-     and decode (S=1, carried state) shapes, a ragged S, a long one and fp32
-     inputs, output and final state within a stated fp32 tolerance;
+     and decode (S=1, carried state) shapes, bit-equal to the plain version,
+     then a ragged S, a long one, fp32 inputs, S at the edges of the
+     sequence kernel's TMA ring and W not a multiple of its block, output
+     and final state within a stated fp32 tolerance;
   3. run the main path at constellation scale: W=4096 (64x64 mesh), FIB
      n=48 cutoff=28 max_leaf_cost=2048, NEIGHBOR, τ=5, capacity 64, 1500
      ticks — leap/staged (the CUDA default, `deque_apply`), leap/loop
@@ -179,23 +186,36 @@ def phase_build(build):
             if ("registers" in line or "spill" in line or "Compiling entry" in line
                     or "C75" in line):
                 print(f"[build] {name}: {line.strip()}")
-    # the tensor-core instructions in flash_attention's machine code, by kernel
+    # the tensor-core instructions in the attention kernels' machine code:
+    # wgmma (HGMMA) in flash_attention's bf16 kernel, mma.sync (HMMA) in both
+    # head dims of decode_attention's
+    for name, op, kernel, n_fns in (
+            ("flash_attention", "HGMMA", "flash_attention_wgmma_kernel", 2),
+            ("decode_attention", "HMMA", "decode_attention_mma_kernel", 2)):
+        found = _sass_ops(build, name, op)
+        if sum(kernel in fn for fn in found) != n_fns:
+            raise SystemExit(f"{name}: {op} in {sorted(found)}, expected it in "
+                             f"{n_fns} instantiations of {kernel}")
+        for fn, shapes in found.items():
+            print(f"[build] {name} SASS: {fn}: {op} {shapes}")
+
+
+def _sass_ops(build, name: str, op: str) -> dict:
+    """{function: {instruction shape: count}} of the SASS instructions `op`
+    in the built library of kernel `name` (cuobjdump)."""
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).with_name("cuobjdump")), "--dump-sass",
-         str(build.lib_path("flash_attention"))],
+         str(build.lib_path(name))],
         capture_output=True, text=True, check=True).stdout
-    hgmma, fn = {}, None
+    found, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif "HGMMA" in line:
-            shape = line.split("HGMMA.")[1].split()[0]
-            hgmma.setdefault(fn, {}).setdefault(shape, 0)
-            hgmma[fn][shape] += 1
-    if not any("flash_attention_wgmma_kernel" in f for f in hgmma):
-        raise SystemExit("flash_attention: no HGMMA instruction in the wgmma kernel")
-    for fn, shapes in hgmma.items():
-        print(f"[build] flash_attention SASS: {fn}: HGMMA {shapes}")
+        elif f" {op}." in line:
+            shape = line.split(f"{op}.")[1].split()[0]
+            found.setdefault(fn, {}).setdefault(shape, 0)
+            found[fn][shape] += 1
+    return found
 
 
 def phase_kernels(torch, np, ops, ref, deque, tasks):
@@ -327,7 +347,8 @@ def phase_attention(torch, ops, ref):
         ok = worst <= 1 and bool(torch.isfinite(got.float()).all())
         print(f"[kernels] {name} {what}: max abs err {err:.6f}, max err / "
               f"allowed {worst:.4f} (allowed {ATTN_ATOL_BF16} + {ATTN_RTOL_BF16} "
-              f"x |plain|{'' if required else '; not required'})")
+              f"x |plain|{'' if required else '; not required'}); equal to the "
+              f"plain version: {bool(torch.equal(got, want))}")
         if required and not ok:
             raise SystemExit(f"{name} {what} disagrees with its plain version")
         return err
@@ -401,12 +422,22 @@ def phase_attention(torch, ops, ref):
     # decode attention: (B, KV, G, T, hd, lengths); the first of each head
     # dim is its serving path's decode (timed): qwen2's ragged 512..575
     # written positions of a 584-slot cache, recurrentgemma's full ring of
-    # 2048 slots
+    # 2048 slots. Besides: lengths at the bf16 kernel's edges, a warp's
+    # 16-position tile, a block's chunk (128 at hd 64, 256 at hd 256) and a
+    # cluster's chunks (16 x 128, 8 x 256) +-1, a cache longer than a
+    # cluster, T not a multiple of a chunk, empty rows, G 16 at hd 64 and G 1
+    # at hd 256
     g2 = torch.Generator().manual_seed(7)
     decode_cases = [(8, 2, 7, 584, 64, torch.randint(512, 576, (8,), generator=g2).tolist()),
                     (4, 2, 7, 4096, 64, [0, 4096, 1, 2500]), (3, 2, 7, 100, 64, [64, 65, 100]),
+                    (8, 2, 7, 584, 64, [1, 15, 16, 17, 127, 128, 129, 584]),
+                    (2, 1, 16, 300, 64, [129, 300]),
+                    (4, 2, 7, 4096, 64, [2047, 2048, 2049, 4096]),
                     (8, 1, 16, 2048, 256, [2048] * 8),
-                    (4, 1, 16, 2048, 256, [0, 1, 1000, 2047]), (3, 2, 7, 100, 256, [31, 33, 100])]
+                    (4, 1, 16, 2048, 256, [0, 1, 1000, 2047]), (3, 2, 7, 100, 256, [31, 33, 100]),
+                    (10, 1, 16, 2048, 256, [1, 16, 17, 63, 64, 65, 255, 256, 257, 2048]),
+                    (4, 1, 16, 2600, 256, [2047, 2048, 2049, 2600]),
+                    (2, 2, 1, 333, 256, [17, 333])]
     errs, timed = [], set()
     for B, KV, G, T, hd, lengths in decode_cases:
         q, kc, vc = rnd(B, KV, G, hd), rnd(B, KV, T, hd), rnd(B, KV, T, hd)
@@ -433,6 +464,15 @@ def phase_attention(torch, ops, ref):
              "plain_ms": _device_ms(torch, lambda: ref.decode_attention(q, kc, vc, ln)),
              "library_ms": _device_ms(torch, lib), "bytes": nbytes, "ops": nops}
         r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, BF16_OPS_PER_S)
+        # after hundreds of launches (graph replays included) the tickets
+        # must be back at 0: the same inputs give the same bits
+        again = ops.decode_attention(q, kc, vc, ln)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            raise SystemExit(f"decode_attention hd={hd}: a repeated call differs from "
+                             f"the first")
+        print(f"[kernels] decode_attention hd={hd}: repeated call after the timing "
+              f"runs equals the first, bit for bit")
         check("decode_attention", f"hd={hd} library call (SDPA) vs plain",
               lib().view_as(q), ref.decode_attention(q, kc, vc, ln), required=False)
         out["decode_attention"].update(
@@ -554,19 +594,27 @@ def _rglru_work(B, S, W, elt, h0: bool):
     return nbytes, 12 * n
 
 
-def phase_rglru(torch, ops, ref):
+def phase_rglru(torch, ops, ref, build):
     """`rglru` against its plain version on the card. The first case is
     recurrentgemma serving's prefill (bf16 inputs, a zero h0 tensor given,
     as the model passes it), the second its decode (S=1, a carried h0);
-    both are timed (kernel, plain version, eager call). Then a ragged S, a
-    long one and fp32 inputs."""
+    both are timed (kernel, plain version, eager call) and must equal the
+    plain version bit for bit. Then a ragged S, a long one, fp32 inputs, S
+    at the TMA ring's edges (a tile of 16 steps, 3 tiles in the ring, +-1),
+    W not a multiple of a block's 32 channels, and a W whose rows are not
+    whole 16-byte units (the per-channel kernel)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261019)
     bf16, f32 = torch.bfloat16, torch.float32
+    lib = build.load("rglru")
     cases = [(8, 2560, 4096, bf16, "zeros"), (8, 1, 4096, bf16, "random"),
              (2, 7, 4096, bf16, None), (1, 8192, 512, bf16, "random"),
-             (2, 300, 4096, f32, "random"), (3, 1, 96, f32, None)]
+             (2, 300, 4096, f32, "random"), (3, 1, 96, f32, None),
+             (2, 15, 1000, bf16, "random"), (2, 16, 1000, bf16, None),
+             (2, 17, 1000, bf16, "random"), (2, 47, 1000, bf16, "zeros"),
+             (2, 48, 1000, bf16, "random"), (2, 49, 1000, bf16, "random"),
+             (3, 33, 100, f32, "random"), (2, 20, 300, bf16, "random")]
     errs, timed = [], {}
     for n, (B, S, W, dt, state) in enumerate(cases):
         # as the recurrent block makes them: x a conv output, r and i
@@ -580,17 +628,24 @@ def phase_rglru(torch, ops, ref):
         got = ops.rglru(x, r, i, lam, h0)
         want = ref.rglru(x, r, i, lam, h0)
         torch.cuda.synchronize()
+        kernel = ("TMA-fed sequence kernel" if lib.rglru_uses_tma(S, W, int(dt == bf16))
+                  else "per-channel kernel")
         for what, g, pl in (("h", got[0], want[0]), ("final h", got[1], want[1])):
             err = float((g - pl).abs().max())
             allowed = RGLRU_RTOL * float(pl.abs().max()) + RGLRU_ATOL
+            exact = bool(torch.equal(g, pl))
             errs.append(err)
             print(f"[kernels] rglru B={B} S={S} W={W} {str(dt)[6:]} h0 "
-                  f"{state or 'none'}, {what}: max abs err {err:.3e}, max |plain| "
-                  f"{float(pl.abs().max()):.4f}, allowed {allowed:.3e} "
-                  f"({RGLRU_RTOL} x max|plain| + {RGLRU_ATOL})")
+                  f"{state or 'none'} ({kernel}), {what}: max abs err {err:.3e}, "
+                  f"max |plain| {float(pl.abs().max()):.4f}, allowed {allowed:.3e} "
+                  f"({RGLRU_RTOL} x max|plain| + {RGLRU_ATOL}); equal to the plain "
+                  f"version: {exact}")
             if not err <= allowed or not bool(torch.isfinite(g).all()):
                 raise SystemExit(f"rglru B={B} S={S} {what} disagrees with its "
                                  f"plain version")
+            if n < 2 and not exact:
+                raise SystemExit(f"rglru at the serving shape B={B} S={S}: {what} is "
+                                 f"not bit-equal to the plain version")
         if n < 2:
             nbytes, nops = _rglru_work(B, S, W, x.element_size(), h0 is not None)
 
@@ -779,12 +834,13 @@ def phase_drained(torch, np, sim, topo, tasks, ops):
 
 
 SERVE_BATCH, SERVE_NEW = 8, 64
-# the kernels' symbols in a profile, by wrapper name (a launch of
-# `decode_attention` runs two kernels; the serving paths run `flash_attention`
-# in bf16, through its tensor-core kernel)
+# the kernels' symbols in a profile, by wrapper name (the serving paths run
+# both attention kernels in bf16, through their tensor-core kernels, and
+# `rglru` through its sequence kernel in prefill and its per-channel kernel
+# in decode)
 KERNEL_SYMBOLS = {"flash_attention": ("flash_attention_wgmma_kernel",),
-                  "decode_attention": ("decode_partial_kernel", "decode_combine_kernel"),
-                  "wkv6": ("wkv6_kernel",), "rglru": ("rglru_kernel",)}
+                  "decode_attention": ("decode_attention_mma_kernel",),
+                  "wkv6": ("wkv6_kernel",), "rglru": ("rglru_tma_kernel", "rglru_kernel")}
 
 
 def _greedy_run(torch, model, cfg, params, prompts, cache_len, feed=None):
@@ -1031,7 +1087,7 @@ def main() -> int:
     kern = phase_kernels(torch, np, ops, ref, deque, tasks)
     kern.update(phase_attention(torch, ops, ref))
     kern.update(phase_wkv6(torch, ops, ref))
-    kern.update(phase_rglru(torch, ops, ref))
+    kern.update(phase_rglru(torch, ops, ref, build))
     # main-path launches by kernel and path, each path's counts read just
     # after it ran from counts set to 0 just before it
     launches, profiled = phase_main_path(torch, np, sim, topo, tasks, ops)

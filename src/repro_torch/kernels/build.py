@@ -41,9 +41,14 @@ _SIGNATURES = {
         "flash_attention_max_group": [_I],
     },
     "decode_attention": {
-        "decode_attention_launch": [_P] * 8 + [_I] * 6 + [_P],
+        "decode_attention_launch": [_P] * 7 + [_I] * 6 + [_P],
         "decode_attention_max_group": [_I],
         "decode_attention_chunk": [_I],
+        "decode_attention_warps": [_I],
+        "decode_attention_tile": [],
+        "decode_attention_cluster": [_I, _I],
+        "decode_attention_scratch_floats": [_I] * 6,
+        "decode_attention_tickets_per_pair": [],
     },
     "wkv6": {
         "wkv6_launch": [_P] * 8 + [_I] * 3 + [_P],
@@ -51,6 +56,7 @@ _SIGNATURES = {
     },
     "rglru": {
         "rglru_launch": [_P] * 7 + [_I] * 4 + [_P],
+        "rglru_uses_tma": [_I] * 3,
     },
 }
 

@@ -19,6 +19,12 @@ LAUNCHES = {"steal_compact": 0, "deque_apply": 0, "flash_attention": 0,
             "decode_attention": 0, "wkv6": 0, "rglru": 0}
 # the attention and rglru kernels' element types, by the code their launch takes
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# decode_attention's tickets, by device: a few counters per (b, kv) pair,
+# zero between launches (the block that takes a counter's last ticket sets
+# it back to 0), so they are allocated once, before any graph capture, for
+# the kernel's largest B * KV
+_MAX_PAIRS = 65535
+_TICKETS: dict[int, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -149,17 +155,26 @@ def decode_attention(q, k_cache, v_cache, lengths):
     _check("decode_attention.lengths", lengths, (B,))
     lib = build.load("decode_attention")
     _check_attention("decode_attention", lib, q, G)
-    n_chunks = -(-T // lib.decode_attention_chunk(hd))
-    part_acc = torch.empty((B * KV * n_chunks * G * hd,), dtype=torch.float32,
-                           device=q.device)
-    part_m = torch.empty((B * KV * n_chunks * G,), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
+    if B * KV > _MAX_PAIRS:
+        raise ValueError(f"decode_attention: at most {_MAX_PAIRS} (b, kv) pairs, "
+                         f"got {B * KV}")
+    code = _FLOAT_CODES[q.dtype]
+    # the partials (acc, then m and l), one allocation
+    n_scratch = lib.decode_attention_scratch_floats(B, KV, G, T, hd, code)
+    if n_scratch < 0:
+        raise ValueError(f"decode_attention: scratch for B={B} KV={KV} G={G} T={T} "
+                         f"does not fit an int")
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=q.device)
+    tickets = _TICKETS.get(q.device.index)
+    if tickets is None:
+        tickets = torch.zeros((_MAX_PAIRS * lib.decode_attention_tickets_per_pair(),),
+                              dtype=torch.int32, device=q.device)
+        _TICKETS[q.device.index] = tickets
     out = torch.empty_like(q)
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(),
-        B, KV, G, T, hd, _FLOAT_CODES[q.dtype], _stream())
+        scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(), B, KV, G, T, hd,
+        code, _stream())
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out

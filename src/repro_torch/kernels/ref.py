@@ -2,9 +2,9 @@
 
 Each function computes what its CUDA kernel computes, at the same
 interface: the simulator's kernels exactly, the attention kernels up to the
-order of float sums and where p is rounded to v's type, `wkv6` up to the
-order of float sums, `rglru` up to the last ulp of `exp` and `log1p`. The
-wrappers in
+order of float sums, where p is rounded to v's type and the last bits of
+`exp`, `wkv6` up to the order of float sums, `rglru` up to the last ulp of
+`exp` and `log1p` (at the serving shapes not even that). The wrappers in
 `ops` run these for CPU tensors; on the card they serve only as the
 yardstick `chip_smoke.py` and the `gpu`-marked tests hold each kernel
 against.

@@ -168,8 +168,10 @@ def _attn_block(lp, x, cfg: ModelConfig):
 
 
 def make_state(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """The decode state of a batch, zeros (see the module docstring)."""
+    """The decode state of a batch, zeros (see the module docstring), on
+    `device` (the card when None, as `init`)."""
     check_config(cfg)
+    device = resolve_device(device)
     kinds = cfg.block_kinds()
     n_rec, n_att = kinds.count("rec"), kinds.count("attn")
     W, dt = _lru_width(cfg), L.dtype_of(cfg.dtype)

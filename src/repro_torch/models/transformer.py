@@ -148,13 +148,15 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None, enc_out=None):
 # --------------------------------------------------------------------------- #
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     """KV cache: k/v (L, B, KV, T, hd) zeros in cfg.dtype, T =
-    `layers.ring_len(cache_len, cfg.window)`."""
+    `layers.ring_len(cache_len, cfg.window)`, on `device` (the card when
+    None, as `init`)."""
     check_config(cfg)
+    dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, L.ring_len(cache_len, cfg.window),
              cfg.hd)
     dt = L.dtype_of(cfg.dtype)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int,

@@ -156,8 +156,12 @@ def test_cuda_attention_kernels_match_plain_versions(cuda_device, dtype):
     torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, window=50).float(),
                                atol=atol, rtol=rtol)
     assert torch.all(got[..., 109:, :] == 0) and torch.all(got[..., :109, :].abs().sum(-1) > 0)
+    # then lengths at the bf16 decode kernel's edges (a 16-position tile, a
+    # 128-position chunk and a cluster of 16 chunks +-1) and a cache that is
+    # not a whole number of chunks
     for B, T, lengths in ((8, 584, [512, 530, 575, 560, 513, 544, 571, 520]),
-                          (2, 4096, [0, 4000])):
+                          (2, 4096, [0, 4000]), (8, 584, [1, 15, 16, 17, 127, 128, 129, 584]),
+                          (2, 300, [129, 300]), (4, 4096, [2047, 2048, 2049, 4096])):
         q = rnd(B, 2, 7, HD)
         kc, vc = rnd(B, 2, T, HD), rnd(B, 2, T, HD)
         ln = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
@@ -166,4 +170,4 @@ def test_cuda_attention_kernels_match_plain_versions(cuda_device, dtype):
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 8
-    assert ops.LAUNCHES["decode_attention"] == 2
+    assert ops.LAUNCHES["decode_attention"] == 5

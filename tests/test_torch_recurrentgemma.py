@@ -285,6 +285,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         pserve.serve_requests(pc, pp, pserve.ServeConfig(), np.zeros((1, 4), np.int64))
 
 
+def test_make_state_defaults_to_cuda_and_builds_on_the_cpu(monkeypatch):
+    """`make_state` resolves device=None as `init` does: to the card, so it
+    raises where there is none; on device="cpu" it builds the zero state of
+    every recurrent and attention block."""
+    pc = preg.reduced(preg.get_config(ARCH))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prg.make_state(pc, 2, 40)
+    state = prg.make_state(pc, 2, 40, device="cpu")
+    kinds = pc.block_kinds()
+    assert state["h"].shape[:2] == (kinds.count("rec"), 2)
+    assert state["k"].shape[:2] == (kinds.count("attn"), 2)
+    for leaf in state.values():
+        assert leaf.device.type == "cpu" and not leaf.any()
+
+
 def test_launch_serve_runs_on_the_cpu():
     root = Path(__file__).resolve().parents[1]
     env = {**os.environ, "PYTHONPATH": str(root / "src")}

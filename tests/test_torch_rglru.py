@@ -162,10 +162,15 @@ def test_cuda_rglru_matches_plain_version(cuda_device):
     """Output and final state within 1e-5 * max|plain| + 1e-6: the same
     operations in the same order, `exp` and `log1p` within an ulp or two
     of torch's; bf16 and fp32 inputs, zero and given states, S = 1, 7 and
-    300."""
+    300, S at the sequence kernel's ring edges (a tile of 16 steps, 3 tiles
+    in the ring, +-1) with W not a multiple of its 32 channels, and W = 300,
+    whose bf16 rows are not whole 16-byte units (the per-channel kernel)."""
     ops.reset_launch_counts()
     n = 0
-    for B, S, W, h0 in ((2, 1, 300, True), (2, 7, 4096, False), (1, 300, 64, True)):
+    for B, S, W, h0 in ((2, 1, 300, True), (2, 7, 4096, False), (1, 300, 64, True),
+                        (2, 15, 1000, True), (2, 16, 1000, False), (2, 17, 1000, True),
+                        (1, 47, 1000, True), (1, 48, 1000, False), (1, 49, 1000, True),
+                        (2, 20, 300, True)):
         for dtype in (torch.float32, torch.bfloat16):
             x, r, i, lam, h = _inputs(800 + S, B, S, W, h0=h0)
             t = [torch.as_tensor(a, device=cuda_device).to(dtype) for a in (x, r, i)]

@@ -179,7 +179,11 @@ def test_cuda_attention_hd256_matches_plain_versions(cuda_device, dtype):
     torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, window=50).float(),
                                atol=atol, rtol=rtol)
     assert torch.all(got[..., 109:, :] == 0) and torch.all(got[..., :109, :].abs().sum(-1) > 0)
-    for B, T, lengths in ((4, 2048, [2048, 2048, 1, 1500]), (2, 100, [0, 100])):
+    # lengths at the bf16 decode kernel's edges: a 16-position tile, a
+    # 256-position chunk and a cluster of 8 chunks +-1
+    for B, T, lengths in ((4, 2048, [2048, 2048, 1, 1500]), (2, 100, [0, 100]),
+                          (10, 2048, [1, 16, 17, 63, 64, 65, 255, 256, 257, 2048]),
+                          (4, 2600, [2047, 2048, 2049, 2600])):
         q = rnd(B, KV, G, HD)
         kc, vc = rnd(B, KV, T, HD), rnd(B, KV, T, HD)
         ln = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
@@ -188,4 +192,4 @@ def test_cuda_attention_hd256_matches_plain_versions(cuda_device, dtype):
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 9
-    assert ops.LAUNCHES["decode_attention"] == 2
+    assert ops.LAUNCHES["decode_attention"] == 4

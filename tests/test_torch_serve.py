@@ -315,6 +315,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, model):
         pserve.simulate_serving(None, pserve.ServeConfig(), np.ones((2, 8), np.int32))
 
 
+def test_make_cache_defaults_to_cuda_and_builds_on_the_cpu(monkeypatch):
+    """`make_cache` resolves device=None as `init` does: to the card, so it
+    raises where there is none; on device="cpu" it builds zeros of the
+    ring's shape."""
+    pc = preg.reduced(preg.get_config("qwen2-0.5b"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptf.make_cache(pc, 2, 40)
+    cache = ptf.make_cache(pc, 2, 40, device="cpu")
+    shape = (pc.n_layers, 2, pc.n_kv_heads, pL.ring_len(40, pc.window), pc.hd)
+    for leaf in cache.values():
+        assert leaf.device.type == "cpu" and tuple(leaf.shape) == shape
+        assert leaf.dtype == pL.dtype_of(pc.dtype) and not leaf.any()
+
+
 def test_init_matches_reference_structure_and_scale():
     """`init` draws the reference's distributions with torch's generator:
     same tree, shapes and types, and normal(0, 0.02) weights."""
