@@ -17,7 +17,8 @@ Phases — any failure exits non-zero:
      main path's shapes (W=4096 rings of capacity 64) — outputs must be
      exactly equal — and time kernel, plain version and library call on the
      device (CUDA graph replay, CUDA events), plus the kernel's eager
-     wrapper call; then the same for the attention kernels at the serving
+     wrapper call, beside the launch floor (a one-element elementwise op in
+     the same harness); then the same for the attention kernels at the serving
      paths' shapes — head dim 64 with 7 query heads per KV head (qwen2) and
      head dim 256 with 16 over one (recurrentgemma: prefill S=2560 with a
      2048-token window, decode against a full 2048-slot ring) — and a few
@@ -28,8 +29,13 @@ Phases — any failure exits non-zero:
      first), within a stated bf16 tolerance, with SDPA as the library
      yardstick; then `wkv6` at rwkv6
      serving's prefill (B=8, S=512, H=32, hd=64) and decode (S=1, carried
-     state) shapes and at S=7 and S=1000, from zero and given states, output
-     and final state within a stated fp32 tolerance; then `rglru` at
+     state) shapes with bf16 r, k, v as the time mix hands them over and
+     with fp32 ones, at S=7, one past the sequence kernel's tile and 1000,
+     from zero and given states, output and final state within a stated
+     fp32 tolerance, and a repeated call bit-equal to the first; at the
+     decode shape also the sequence kernel (a build without the step
+     kernel, WKV6_STEP_KERNEL=0) in turns with the step kernel, the
+     measurement behind the launch's choice by S; then `rglru` at
      recurrentgemma serving's prefill (B=8, S=2560, W=4096, bf16, zero state)
      and decode (S=1, carried state) shapes, bit-equal to the plain version,
      then a ragged S, a long one, fp32 inputs, S at the edges of the
@@ -78,6 +84,7 @@ kernels' hd-256 numbers under `hd256_*`), and last
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import subprocess
@@ -104,8 +111,9 @@ ATTN_ATOL_BF16, ATTN_RTOL_BF16 = 2e-2, 2 ** -7
 LOGIT_TOL = 0.25
 # wkv6 against its plain version on the card, fp32 outputs and states:
 # |kernel - plain| <= WKV_RTOL * max|plain| + WKV_ATOL over each compared
-# tensor — the same recurrence with its sums in another order (fmaf, four
-# partial sums), the error growing with the values the state accumulates
+# tensor — the same recurrence with its sums in another order (fmaf, sums
+# over lanes and warps, steps taken four at a time), the error growing with
+# the values the state accumulates
 WKV_RTOL, WKV_ATOL = 1e-4, 1e-5
 # rglru against its plain version on the card, fp32 outputs and states:
 # |kernel - plain| <= RGLRU_RTOL * max|plain| + RGLRU_ATOL over each compared
@@ -292,6 +300,12 @@ def phase_kernels(torch, np, ops, ref, deque, tasks):
         "library_ms": _device_ms(torch, lambda: buf.index_put((w_idx, s_idx), vals)),
         "max_abs_err": err_da, "bytes": da_bytes, "ops": da_ops}
     da["bound_ms"], da["bound_by"] = _bound_ms(da_bytes, da_ops)
+    # the launch floor: a one-element elementwise op in the same harness, a
+    # yardstick for the tiny kernels (the port never calls it)
+    one = torch.zeros(1, device=dev)
+    floor = _device_ms(torch, lambda: one.add_(1.0))
+    print(f"[kernels] launch floor: a one-element add_ takes {floor:.6f} ms a launch "
+          f"on the device (graph replay, as every kernel time here)")
     for name, r in (("steal_compact", sc), ("deque_apply", da)):
         print(f"[kernels] {name}: exact; device per launch: kernel "
               f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
@@ -489,21 +503,70 @@ def phase_attention(torch, ops, ref):
     return out
 
 
-def _wkv6_work(B, S, H, hd, state: bool):
-    """(bytes, FLOPs) of the WKV6 recurrence: r, k, v, w and u read once,
-    the output written once, the given state read once and the final state
-    written once; per step and (b, h), 5·hd² FLOPs for the r·S product and
-    the rank-1 state update, plus 4·hd for the u bonus term."""
+def _wkv6_work(B, S, H, hd, state: bool, elt: int = 4):
+    """(bytes, FLOPs) of the WKV6 recurrence: r, k and v (element size
+    `elt`), w and u read once, the output written once, the given state read
+    once and the final state written once. FLOPs as the sequence kernel
+    takes the steps: per (b, h) and quad of four steps, 17·hd² (per state
+    element four FMAs for r·S, a product and three FMAs for the sum of
+    k v, one FMA for the state) plus 71·hd (per row the quad's bonus terms,
+    cross terms and decay products, 39; per column the warps' sums, the
+    cross terms' v and the bonus's v, 32); per step left over (S mod 4, and
+    decode's one step), 5·hd² (an FMA for r·S, a product and an FMA for the
+    state) plus 8·hd (bonus 3 a row, the sums and c v 5 a column)."""
     n = B * S * H * hd
     st = B * H * hd * hd * 4
-    nbytes = 5 * n * 4 + H * hd * 4 + st * (2 if state else 1)
-    return nbytes, B * S * H * (5 * hd * hd + 4 * hd)
+    nbytes = 3 * n * elt + 2 * n * 4 + H * hd * 4 + st * (2 if state else 1)
+    quads, single = divmod(S, 4)
+    nops = B * H * (quads * (17 * hd * hd + 71 * hd) + single * (5 * hd * hd + 8 * hd))
+    return nbytes, nops
 
 
-def _wkv6_inputs(torch, gen, B, S, H, hd, state):
+def _start_wkv6_seq_only(build):
+    """Start nvcc on `wkv6.cu` with WKV6_STEP_KERNEL=0 (no step kernel, so
+    S = 1 takes the sequence kernel), beside the build of the six kernels;
+    returns (library path, the nvcc process or None if it is built)."""
+    own = build.lib_path("wkv6")
+    path = own.with_name(own.stem + "-seq-only.so")
+    if path.exists():
+        return path, None
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-DWKV6_STEP_KERNEL=0", "-o", str(tmp),
+           str(build.CSRC / "wkv6.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def stop():  # if a phase before `phase_wkv6` fails
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return path, (tmp, proc)
+
+
+def _load_wkv6_seq_only(build, started):
+    import ctypes
+    path, pending = started
+    if pending is not None:
+        tmp, proc = pending
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"wkv6 without its step kernel: nvcc exited "
+                             f"{proc.returncode}\n{log}")
+        tmp.replace(path)
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in build._SIGNATURES["wkv6"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _wkv6_inputs(torch, gen, B, S, H, hd, state, dtype=None):
     """r, k, v, w, u and a state as rwkv6's time mix makes them: r, k, v
     from bf16 matmuls of unit-scale activations with normal(0, 0.02)
-    weights, cast to fp32; w = exp(-exp(w0 + lora)) with w0 per channel in
+    weights, left in bf16 as the model passes them (dtype bfloat16) or cast
+    to fp32 (the default); w = exp(-exp(w0 + lora)) with w0 per channel in
     (-6, -0.5) (slow to fast decay) and the LoRA of two bf16 matmuls; u ~
     N(0, 0.3^2). `state` is None (none given: the kernel starts from
     zeros), "zeros" (a zero tensor, what prefill passes) or "random" (~
@@ -516,8 +579,8 @@ def _wkv6_inputs(torch, gen, B, S, H, hd, state):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     x = rnd(B, S, D).to(bf16)
-    r, k, v = ((x @ rnd(D, D, scale=0.02).to(bf16)).float().view(B, S, H, hd)
-               for _ in range(3))
+    r, k, v = ((x @ rnd(D, D, scale=0.02).to(bf16)).to(dtype or torch.float32)
+               .view(B, S, H, hd) for _ in range(3))
     w0 = torch.rand((D,), generator=gen, device=dev) * 5.5 - 6.0
     lora = (x @ rnd(D, 64, scale=0.02).to(bf16)) @ rnd(64, D, scale=0.02).to(bf16)
     w = torch.exp(-torch.exp(w0 + lora.float())).view(B, S, H, hd)
@@ -529,35 +592,52 @@ def _wkv6_inputs(torch, gen, B, S, H, hd, state):
     return r, k, v, w, u, rnd(B, H, hd, hd, scale=0.3)
 
 
-def phase_wkv6(torch, ops, ref):
-    """`wkv6` against its plain version on the card, in fp32. The first
-    case is rwkv6 serving's prefill (a zero state tensor given), the second
-    its decode (a carried state); both are timed (kernel, plain version,
-    eager call)."""
+def phase_wkv6(torch, ops, ref, build, seq_only):
+    """`wkv6` against its plain version on the card. The first two cases
+    are rwkv6 serving's prefill (bf16 r, k, v as the time mix hands them
+    over, a zero state tensor given) and decode (a carried state); the next
+    two the same shapes with fp32 r, k, v; all four are timed (kernel, plain
+    version, eager call). Then fp32 and bf16 cases from zero and given
+    states at S = 7 (below a tile of the sequence kernel's ring), one past a
+    tile, 1000 (ragged) and 1; last, the bf16 prefill once more, which must
+    equal the first call bit for bit. One block runs each (b, h), so every
+    B·H is whole blocks. At the bf16 decode shape the sequence kernel
+    (`seq_only`, from `_start_wkv6_seq_only`) is held against the plain
+    version too and timed in turns with the step kernel: step, sequence,
+    step."""
     gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(20261018)
-    cases = [(8, 512, 32, "zeros"), (8, 1, 32, "random"), (8, 512, 32, "random"),
-             (8, 512, 32, None), (2, 7, 32, None), (2, 1000, 4, "random"),
-             (3, 1, 4, None)]
-    errs, timed = [], {}
-    for i, (B, S, H, state) in enumerate(cases):
-        r, k, v, w, u, s0 = _wkv6_inputs(torch, gen, B, S, H, 64, state)
+    bf16 = torch.bfloat16
+    tile = build.load("wkv6").wkv6_tile()
+    cases = [(8, 512, 32, "zeros", bf16), (8, 1, 32, "random", bf16),
+             (8, 512, 32, "zeros", None), (8, 1, 32, "random", None),
+             (8, 512, 32, "random", None), (8, 512, 32, None, None),
+             (2, 7, 32, None, None), (2, 1000, 4, "random", None), (3, 1, 4, None, None),
+             (2, tile + 1, 32, "random", bf16), (3, 1000, 4, None, bf16),
+             (2, 7, 4, "random", bf16)]
+    errs, timed, first = [], {}, None
+    for i, (B, S, H, state, dtype) in enumerate(cases):
+        r, k, v, w, u, s0 = _wkv6_inputs(torch, gen, B, S, H, 64, state, dtype)
         got = ops.wkv6(r, k, v, w, u, s0)
         want = ref.wkv6(r, k, v, w, u, s0)
         torch.cuda.synchronize()
+        kind = "bf16" if dtype is bf16 else "fp32"
         for what, g, p in (("out", got[0], want[0]), ("final state", got[1], want[1])):
             err = float((g - p).abs().max())
             allowed = WKV_RTOL * float(p.abs().max()) + WKV_ATOL
             errs.append(err)
-            print(f"[kernels] wkv6 B={B} S={S} H={H} hd=64 state "
+            print(f"[kernels] wkv6 B={B} S={S} H={H} hd=64 {kind} r, k, v, state "
                   f"{state or 'none'}, {what}: max abs err "
                   f"{err:.3e}, max |plain| {float(p.abs().max()):.4f}, allowed "
                   f"{allowed:.3e} ({WKV_RTOL} x max|plain| + {WKV_ATOL})")
             if not err <= allowed or not bool(torch.isfinite(g).all()):
-                raise SystemExit(f"wkv6 B={B} S={S} {what} disagrees with its "
+                raise SystemExit(f"wkv6 B={B} S={S} {kind} {what} disagrees with its "
                                  f"plain version")
-        if i < 2:
-            nbytes, nops = _wkv6_work(B, S, H, 64, s0 is not None)
+        if i == 0:
+            first = (r, k, v, w, u, s0), got
+        if i < 4:
+            elt = 2 if dtype is bf16 else 4
+            nbytes, nops = _wkv6_work(B, S, H, 64, s0 is not None, elt)
 
             def kern():
                 return ops.wkv6(r, k, v, w, u, s0)
@@ -570,18 +650,64 @@ def phase_wkv6(torch, ops, ref):
                  "plain_ms": _device_ms(torch, plain, calls=2, reps=5),
                  "library_ms": None, "bytes": nbytes, "ops": nops}
             t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, nops)
-            timed["prefill" if i == 0 else "decode"] = t
-            print(f"[kernels] wkv6 at the serving {'prefill' if i == 0 else 'decode'} "
-                  f"shape B={B} S={S} H={H}: kernel {t['ms']:.6f} ms, plain "
-                  f"{t['plain_ms']:.6f} ms, library none (no single PyTorch call), "
-                  f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}; {nbytes} bytes, "
-                  f"{nops} FLOP); eager wrapper call {t['call_ms']:.6f} ms")
-    out = dict(timed["prefill"])
+            what = "prefill" if S > 1 else "decode"
+            timed[(what, kind)] = t
+            if i == 1:
+                t.update(_wkv6_seq_at_decode(torch, ops, build, seq_only, kern, want))
+            print(f"[kernels] wkv6 at the serving {what} shape B={B} S={S} H={H}, {kind} "
+                  f"r, k, v: kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, "
+                  f"library none (no single PyTorch call), bound {t['bound_ms']:.6f} ms "
+                  f"({t['bound_by']}; {nbytes} bytes, {nops} FLOP); eager wrapper call "
+                  f"{t['call_ms']:.6f} ms")
+    again = ops.wkv6(*first[0])
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(again, first[1]))
+    print(f"[kernels] wkv6 bf16 prefill called again after the timing runs: "
+          f"bit-equal to the first call: {same}")
+    if not same:
+        raise SystemExit("wkv6: a repeated call differs from the first")
+    out = dict(timed[("prefill", "bf16")])
     out["max_abs_err"] = max(errs)
-    out["decode_ms"] = timed["decode"]["ms"]
-    out["decode_plain_ms"] = timed["decode"]["plain_ms"]
-    out["decode_bound_ms"] = timed["decode"]["bound_ms"]
+    dec, pre32, dec32 = (timed[("decode", "bf16")], timed[("prefill", "fp32")],
+                         timed[("decode", "fp32")])
+    out["decode_ms"] = dec["ms"]
+    out["decode_plain_ms"] = dec["plain_ms"]
+    out["decode_bound_ms"] = dec["bound_ms"]
+    out["decode_seq_kernel_ms"] = dec["seq_kernel_ms"]
+    out["fp32_ms"] = pre32["ms"]
+    out["fp32_bound_ms"] = pre32["bound_ms"]
+    out["fp32_decode_ms"] = dec32["ms"]
+    out["fp32_decode_bound_ms"] = dec32["bound_ms"]
     return {"wkv6": out}
+
+
+def _wkv6_seq_at_decode(torch, ops, build, seq_only, kern, want):
+    """The sequence kernel at the decode shape, through `ops.wkv6` with the
+    library built without the step kernel swapped in: within the tolerance
+    of the plain version's `want`, then timed, then the step kernel timed
+    again."""
+    lib = _load_wkv6_seq_only(build, seq_only)
+    own = build._LIBS["wkv6"]
+    build._LIBS["wkv6"] = lib
+    try:
+        got = kern()
+        torch.cuda.synchronize()
+        for what, g, p in (("out", got[0], want[0]), ("final state", got[1], want[1])):
+            err = float((g - p).abs().max())
+            allowed = WKV_RTOL * float(p.abs().max()) + WKV_ATOL
+            print(f"[kernels] wkv6 sequence kernel at S=1 (built without the step "
+                  f"kernel), {what}: max abs err {err:.3e}, allowed {allowed:.3e}")
+            if not err <= allowed or not bool(torch.isfinite(g).all()):
+                raise SystemExit(f"wkv6 sequence kernel at S=1: {what} disagrees with "
+                                 f"its plain version")
+        seq_ms = _device_ms(torch, kern)
+    finally:
+        build._LIBS["wkv6"] = own
+    step_ms = _device_ms(torch, kern)
+    print(f"[kernels] wkv6 at the serving decode shape B=8 S=1 H=32, bf16 r, k, v, in "
+          f"turns: step kernel (above), then the sequence kernel {seq_ms:.6f} ms, then "
+          f"the step kernel {step_ms:.6f} ms a launch")
+    return {"seq_kernel_ms": seq_ms, "step_again_ms": step_ms}
 
 
 def _rglru_work(B, S, W, elt, h0: bool):
@@ -836,11 +962,12 @@ def phase_drained(torch, np, sim, topo, tasks, ops):
 SERVE_BATCH, SERVE_NEW = 8, 64
 # the kernels' symbols in a profile, by wrapper name (the serving paths run
 # both attention kernels in bf16, through their tensor-core kernels, and
-# `rglru` through its sequence kernel in prefill and its per-channel kernel
-# in decode)
+# `wkv6` and `rglru` through their sequence kernels in prefill and their
+# per-step or per-channel kernels in decode)
 KERNEL_SYMBOLS = {"flash_attention": ("flash_attention_wgmma_kernel",),
                   "decode_attention": ("decode_attention_mma_kernel",),
-                  "wkv6": ("wkv6_kernel",), "rglru": ("rglru_tma_kernel", "rglru_kernel")}
+                  "wkv6": ("wkv6_seq_kernel", "wkv6_step_kernel"),
+                  "rglru": ("rglru_tma_kernel", "rglru_kernel")}
 
 
 def _greedy_run(torch, model, cfg, params, prompts, cache_len, feed=None):
@@ -1030,7 +1157,9 @@ def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note:
                           f"{k_ms / busy:.4f} of the busy time")
         print(f"[profile] {tag} {what}{f' x{n_prof}' if what == 'decode' else ''}: "
               f"device busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
-              f"{busy / wall_ms:.4f}); {n_dev} device activities; " + "; ".join(shares))
+              f"{busy / wall_ms:.4f}); {n_dev} device activities"
+              f"{f' ({n_dev / n_prof:.1f} a step)' if what == 'decode' else ''}; "
+              + "; ".join(shares))
         for kname, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
             print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {kname[:90]}")
     return counts, profiled
@@ -1083,10 +1212,11 @@ def main() -> int:
     t_start = time.perf_counter()
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    seq_only = _start_wkv6_seq_only(build)
     phase_build(build)
     kern = phase_kernels(torch, np, ops, ref, deque, tasks)
     kern.update(phase_attention(torch, ops, ref))
-    kern.update(phase_wkv6(torch, ops, ref))
+    kern.update(phase_wkv6(torch, ops, ref, build, seq_only))
     kern.update(phase_rglru(torch, ops, ref, build))
     # main-path launches by kernel and path, each path's counts read just
     # after it ran from counts set to 0 just before it
@@ -1135,7 +1265,7 @@ def main() -> int:
          "call_ms": kern[name]["call_ms"],
          "main_path_device_ms": profiled[name],
          **{k: v for k, v in kern[name].items()
-            if k.startswith(("decode_", "main_", "hd256_"))
+            if k.startswith(("decode_", "main_", "hd256_", "fp32_"))
             and k not in ("hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),

@@ -51,8 +51,9 @@ _SIGNATURES = {
         "decode_attention_tickets_per_pair": [],
     },
     "wkv6": {
-        "wkv6_launch": [_P] * 8 + [_I] * 3 + [_P],
+        "wkv6_launch": [_P] * 8 + [_I] * 4 + [_P],
         "wkv6_head_dim": [],
+        "wkv6_tile": [],
     },
     "rglru": {
         "rglru_launch": [_P] * 7 + [_I] * 4 + [_P],

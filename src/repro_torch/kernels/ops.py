@@ -17,7 +17,7 @@ from . import build, ref
 
 LAUNCHES = {"steal_compact": 0, "deque_apply": 0, "flash_attention": 0,
             "decode_attention": 0, "wkv6": 0, "rglru": 0}
-# the attention and rglru kernels' element types, by the code their launch takes
+# the attention, wkv6 and rglru kernels' element types, by the code their launch takes
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # decode_attention's tickets, by device: a few counters per (b, kv) pair,
 # zero between launches (the block that takes a counter's last ticket sets
@@ -181,30 +181,35 @@ def decode_attention(q, k_cache, v_cache, lengths):
 
 
 def wkv6(r, k, v, w, u, state=None):
-    """r, k, v, w (B, S, H, hd), u (H, hd), state (B, H, hd, hd) or None
-    (zeros), all float32 → (out (B, S, H, hd), final state (B, H, hd, hd))
-    float32: the RWKV-6 recurrence of `ref.wkv6`, any S >= 1."""
+    """r, k, v (B, S, H, hd) of one type (float32 or bfloat16), w (B, S, H,
+    hd), u (H, hd), state (B, H, hd, hd) or None (zeros), all float32 →
+    (out (B, S, H, hd), final state (B, H, hd, hd)) float32: the RWKV-6
+    recurrence of `ref.wkv6`, any S >= 1. bf16 r, k, v are taken as they
+    come and converted to fp32 inside the kernel, which is exact."""
     if r.device.type == "cpu":
         return ref.wkv6(r, k, v, w, u, state)
     B, S, H, hd = r.shape
     if S < 1:
         raise ValueError(f"wkv6: expected S >= 1, got {S}")
-    for nm, t, shp in (("r", r, (B, S, H, hd)), ("k", k, (B, S, H, hd)),
-                       ("v", v, (B, S, H, hd)), ("w", w, (B, S, H, hd)),
-                       ("u", u, (H, hd))):
-        _check(f"wkv6.{nm}", t, shp, torch.float32)
+    if r.dtype not in _FLOAT_CODES:
+        raise ValueError(f"wkv6: expected float32 or bfloat16 r, k, v, got {r.dtype}")
+    for nm, t, shp, dt in (("r", r, (B, S, H, hd), r.dtype), ("k", k, (B, S, H, hd), r.dtype),
+                           ("v", v, (B, S, H, hd), r.dtype),
+                           ("w", w, (B, S, H, hd), torch.float32),
+                           ("u", u, (H, hd), torch.float32)):
+        _check(f"wkv6.{nm}", t, shp, dt)
     if state is not None:
         _check("wkv6.state", state, (B, H, hd, hd), torch.float32)
     lib = build.load("wkv6")
     if hd != lib.wkv6_head_dim():
         raise ValueError(f"wkv6: the kernel takes head dim {lib.wkv6_head_dim()}, "
                          f"got {hd}")
-    out = torch.empty_like(r)
+    out = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     final = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     err = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), out.data_ptr(),
-        final.data_ptr(), B, S, H, _stream())
+        final.data_ptr(), B, S, H, _FLOAT_CODES[r.dtype], _stream())
     _raise_on(err, "wkv6")
     LAUNCHES["wkv6"] += 1
     return out, final

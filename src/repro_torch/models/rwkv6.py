@@ -140,8 +140,9 @@ def _time_mix(lp, x, cfg: ModelConfig, shift_state, wkv_state):
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), in fp32
     dlog = lp["w0"] + ((xw @ lp["w_lora_a"]) @ lp["w_lora_b"]).float()
     w = torch.exp(-torch.exp(dlog)).view(B, S, H, hd)
-    out, wkv_state = ops.wkv6(r.float(), k.float(), v.float(), w, lp["u"],
-                              wkv_state)
+    # r, k, v go in as the projections made them (the kernel converts bf16
+    # to fp32 inside, exactly); w, u and the state are fp32
+    out, wkv_state = ops.wkv6(r, k, v, w, lp["u"], wkv_state)
     out = L.rmsnorm(lp["gn"], out.view(B, S, D)).to(x.dtype) * F.silu(g)
     return out @ lp["wo"], new_shift, wkv_state
 
