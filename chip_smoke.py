@@ -43,17 +43,21 @@ Phases — any failure exits non-zero:
      and final state within a stated fp32 tolerance;
   3. run the main path at constellation scale: W=4096 (64x64 mesh), FIB
      n=48 cutoff=28 max_leaf_cost=2048, NEIGHBOR, τ=5, capacity 64, 1500
-     ticks — leap/staged (the CUDA default, `deque_apply`), leap/loop
-     (`steal_compact`) and tick mode; the two backends must agree field for
-     field and tick mode must agree with leap mode except in `events`; a
-     300-tick window of both leap runs is timed, then profiled for the
-     device's busy share and kernel launches per event;
-  4. run drained closed systems at W=100 (FIB n=34 cutoff=18) for all four
-     strategies on the card's staged backend (`deque_apply`), and LIFELINE
-     once more on the loop backend (`steal_compact`); each run must launch
-     its kernel, be exact and equal the port's own CPU run of the same input
-     (the CPU runs go in worker processes beside the card runs; every worker
-     is joined before the phase ends);
+     ticks, each loop iteration a replay of a captured CUDA graph —
+     leap mode with the famine fast path at its default batch of 64 on the
+     loop backend (the default, `steal_compact`) and on the staged backend
+     (`deque_apply`), the same two with the fast path off (famine_batch
+     0), and tick mode (staged); every run must agree field for field
+     except in `events`, and `events` must equal the reference's (287 at
+     64, 667 at 0); a 300-tick window of each run is timed, then profiled
+     for the device's busy share and activities per event;
+  4. run drained closed systems at W=100 (FIB n=34 cutoff=18, the default
+     famine batch) for all four strategies on the staged backend
+     (`deque_apply`), and LIFELINE once more on the loop backend
+     (`steal_compact`); each run must launch its kernel, be exact and equal
+     the port's own CPU run of the same input, `events` included (the CPU
+     runs go in worker processes beside the card runs; every worker is
+     joined before the phase ends);
   5-7. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
@@ -74,6 +78,11 @@ Phases — any failure exits non-zero:
      of 256 over 1 KV head, d_ff 12288, vocab 256000; prompt 2560, cache_len
      2632, a ring of 2048 that prefill writes past and decode wraps: 12
      `flash_attention`, 12 x 63 `decode_attention`, 26 + 26 x 63 `rglru`).
+
+``python3 chip_smoke.py --turns PARENT`` runs only the main-path phase,
+in turns with the checkout at PARENT (another commit's tree): parent, this
+tree, this tree, parent, each in a process of its own, to compare two
+commits on one card.
 
 It prints the card's name and power limit, then one JSON line with each
 kernel's launches on the paths that run it (each path's counts set to 0
@@ -833,17 +842,44 @@ def _profile(torch, fn):
     return busy, sum(c for _, c in by_name.values()), by_name
 
 
-def phase_main_path(torch, np, sim, topo, tasks, ops):
-    """W=4096 Starlink-scale closed run on the card, both deque backends."""
+# the reference's (`repro.core.simulator.simulate`, JAX on a CPU) loop
+# iterations at the main path's configuration, by famine_batch: its default
+# 64 and the fast path off; the port must count the same
+MAIN_EVENTS = {64: 287, 0: 667}
+
+
+def _main_setup(sim, topo, tasks):
     mesh = topo.MeshTopology.square(W_MAIN)
     wl = tasks.FibWorkload(n=48, cutoff=28, max_leaf_cost=2048)
     base = dict(strategy=sim.stealing.Strategy.NEIGHBOR, hop_ticks=5,
                 capacity=CAP_MAIN, max_ticks=1500)
+    return mesh, wl, base
+
+
+# the main path's runs: label, SimConfig fields beyond `base`, the kernel
+# its deque backend launches (the first is the default: the loop backend,
+# famine_batch 64)
+MAIN_RUNS = (("leap/loop", {}, "steal_compact"),
+             ("leap/staged", {"deque_backend": "staged"}, "deque_apply"),
+             ("leap/loop fb=0", {"famine_batch": 0}, "steal_compact"),
+             ("leap/staged fb=0", {"famine_batch": 0, "deque_backend": "staged"},
+              "deque_apply"),
+             ("tick/staged", {"step_mode": "tick", "deque_backend": "staged"},
+              "deque_apply"))
+
+
+def phase_main_path(torch, np, sim, topo, tasks, ops):
+    """W=4096 Starlink-scale closed run on the card: both deque backends at
+    famine_batch 64 (the default) and 0, and tick mode. Every run's fields
+    must agree, `events` aside, and `events` must equal the reference's."""
+    mesh, wl, base = _main_setup(sim, topo, tasks)
     runs, launches, profiled = {}, {}, {}
-    for label, extra, kernel in (
-            ("leap/staged", {}, "deque_apply"),
-            ("leap/loop", {"deque_backend": "loop"}, "steal_compact"),
-            ("tick/staged", {"step_mode": "tick"}, "deque_apply")):
+    # a short run of each backend first, untimed: a process's first capture
+    # and first use of a kernel library cost a few tenths of a second
+    for backend in ("staged", "loop"):
+        sim.simulate(wl, mesh, sim.SimConfig(**{**base, "max_ticks": 20},
+                                             deque_backend=backend))
+    for label, extra, kernel in MAIN_RUNS:
         cfg = sim.SimConfig(**base, **extra)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -861,20 +897,23 @@ def phase_main_path(torch, np, sim, topo, tasks, ops):
               f"events/s={r.events / dt:.2f} ms/event={dt / r.events * 1e3:.3f} "
               f"nodes={r.nodes} overflow={r.overflow} "
               f"hiwater={int(r.per_worker_hiwater.max())} launches={counts}")
-    _assert_equal(np, runs["leap/staged"], runs["leap/loop"],
-                  what="staged vs loop")
-    _assert_equal(np, runs["leap/staged"], runs["tick/staged"],
-                  skip=("events",), what="leap vs tick")
-    r = runs["leap/staged"]
-    if r.ticks != base["max_ticks"] or r.nodes <= 0 or r.overflow != 0:
-        raise SystemExit(f"main path: unexpected result {r.ticks=} "
-                         f"{r.nodes=} {r.overflow=}")
-    print("[main] staged == loop field for field; tick == leap except events")
-    # where the time goes: a 300-tick window of each leap run, timed
-    # unprofiled, then again under the profiler
-    for label, extra, kernel in (
-            ("leap/staged", {}, "deque_apply"),
-            ("leap/loop", {"deque_backend": "loop"}, "steal_compact")):
+    first = runs["leap/loop"]
+    for label, r in runs.items():
+        _assert_equal(np, first, r, skip=("events",),
+                      what=f"leap/loop vs {label}")
+        if label.startswith("leap"):
+            want = MAIN_EVENTS[0 if "fb=0" in label else 64]
+            if r.events != want:
+                raise SystemExit(f"{label}: {r.events} events, the reference "
+                                 f"counts {want}")
+    if first.ticks != base["max_ticks"] or first.nodes <= 0 or first.overflow != 0:
+        raise SystemExit(f"main path: unexpected result {first.ticks=} "
+                         f"{first.nodes=} {first.overflow=}")
+    print(f"[main] every run equal field for field but events; events = the "
+          f"reference's ({MAIN_EVENTS[64]} at famine_batch 64, {MAIN_EVENTS[0]} at 0)")
+    # where the time goes: a 300-tick window of each run, timed unprofiled,
+    # then again under the profiler (the graph replays' kernels)
+    for label, extra, kernel in MAIN_RUNS:
         cfg = sim.SimConfig(**{**base, "max_ticks": 300}, **extra)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -886,7 +925,7 @@ def phase_main_path(torch, np, sim, topo, tasks, ops):
         k_ms, k_n = sum(ms for ms, _ in hits), sum(c for _, c in hits)
         if k_n == 0:
             raise SystemExit(f"profile of {label}: no {kernel} kernel seen")
-        profiled[kernel] = k_ms / k_n
+        profiled.setdefault(kernel, k_ms / k_n)
         print(f"[profile] W={W_MAIN} {label}, 300 ticks, {ev} events: device "
               f"busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
               f"{busy / wall_ms:.4f}); {n_dev} device activities = "
@@ -1195,6 +1234,30 @@ def _leaves(tree):
         yield tree
 
 
+# the main path's phase of a checkout, run in that checkout's directory
+_MAIN_ONLY = ("import sys, numpy as np, torch; sys.path.insert(0, 'src'); "
+              "import chip_smoke as c; "
+              "from repro_torch.core import simulator as sim, tasks, topology as topo; "
+              "from repro_torch.kernels import ops; "
+              "c.phase_main_path(torch, np, sim, topo, tasks, ops)")
+
+
+def main_path_turns(parent: str) -> int:
+    """The main-path phase of the checkout at `parent` and of this one in
+    turns — parent, this, this, parent — each in its own process."""
+    here = Path(__file__).resolve().parent
+    for tag, root in (("parent", parent), ("this", here), ("this", here),
+                      ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", _MAIN_ONLY], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        for line in out.stdout.splitlines():
+            print(f"[turns {tag}] {line}", flush=True)
+        if out.returncode:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+    return 0
+
+
 def main() -> int:
     import gc
 
@@ -1282,4 +1345,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:
+        sys.exit(main_path_turns(sys.argv[2]))
+    if len(sys.argv) > 1:
+        sys.exit(f"usage: {sys.argv[0]} [--turns PARENT_CHECKOUT]")
     sys.exit(main())

@@ -13,10 +13,15 @@ Threefry-2x32 exactly as jax does under ``jax_threefry_partitionable=True``
   * ``uniform = f32((bits >> 9) | 0x3F800000) - 1``;
   * ``randint`` draws hi and lo bits from the two halves of ``split(k)``.
 
-Keys are host tuples of two Python ints: the per-tick key is derived on the
-host, and only the per-worker bit draws run on tensors. uint32 arithmetic is
-carried in int64 and masked with ``& 0xFFFFFFFF`` (CUDA tensors have no
-general uint32 arithmetic); the same functions work on Python ints.
+A key is a pair ``(k0, k1)`` of Python ints or of int64 tensors holding
+uint32 values. `fold_in` takes its data as a Python int or as an integer
+tensor (a 0-d tick on the device, or a column of F ticks), so the
+simulator derives each tick's key on the device with no host round trip.
+The draws broadcast a key against the (n,) counters: a key of shape (F, 1)
+draws an (F, n) block in one threefry pass, whose row j equals the draw of
+the key in row j. uint32 arithmetic is carried in int64 and masked with
+``& 0xFFFFFFFF`` (CUDA tensors have no general uint32 arithmetic); the same
+functions work on Python ints.
 """
 
 from __future__ import annotations
@@ -27,62 +32,78 @@ MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(v, r: int):
-    return ((v << r) | (v >> (32 - r))) & MASK32
-
-
-def _round(x0, x1, rots):
-    for r in rots:
-        x0 = (x0 + x1) & MASK32
-        x1 = _rotl(x1, r) ^ x0
-    return x0, x1
-
-
 def threefry2x32(key, x0, x1):
     """Threefry-2x32 (20 rounds) of the counter pair ``(x0, x1)`` under
     ``key = (k0, k1)``. Counters are Python ints or int64 tensors holding
-    uint32 values; returns the output pair in the same form."""
+    uint32 values; returns the output pair in the same form. Only the low
+    32 bits of x0 matter until the end, so x0 is masked once, at the end
+    (it stays below 2^37), and x1 after each rotation."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & MASK32
+    x0 = x0 + ks[0]
     x1 = (x1 + ks[1]) & MASK32
     for i in range(5):
-        x0, x1 = _round(x0, x1, _ROT[i % 2])
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        for r in _ROT[i % 2]:
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & MASK32
+        x0 = x0 + ks[(i + 1) % 3]
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
-    return x0, x1
+    return x0 & MASK32, x1
 
 
 def PRNGKey(seed: int) -> tuple[int, int]:
     return (0, int(seed) & MASK32)
 
 
-def fold_in(key, data: int) -> tuple[int, int]:
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``. `data` is a Python int (the key
+    comes back as two ints when `key` holds ints) or an integer tensor of
+    any shape (the key comes back as two int64 tensors of that shape)."""
+    if isinstance(data, torch.Tensor):
+        return threefry2x32(key, 0, data.to(torch.int64) & MASK32)
     return threefry2x32(key, 0, int(data) & MASK32)
 
 
-def split(key, num: int = 2) -> list[tuple[int, int]]:
-    return [threefry2x32(key, 0, i) for i in range(num)]
+def split(key, num: int = 2) -> list:
+    """``jax.random.split(key, num)``, for int keys and tensor keys alike (a
+    tensor key is 0-d or has a trailing axis of 1: its subkeys keep its
+    shape, all drawn in one threefry pass)."""
+    k0 = key[0]
+    if not isinstance(k0, torch.Tensor):
+        return [threefry2x32(key, 0, i) for i in range(num)]
+    i = torch.arange(num, dtype=torch.int64, device=k0.device)
+    y0, y1 = threefry2x32(key, torch.zeros_like(i), i)
+    if k0.dim() == 0:
+        return [(y0[j], y1[j]) for j in range(num)]
+    return [(y0[..., j:j + 1], y1[..., j:j + 1]) for j in range(num)]
 
 
 def random_bits(key, n: int, device) -> torch.Tensor:
-    """(n,) int64 tensor of the 32-bit draws ``jax.random.bits(key, (n,))``."""
+    """int64 tensor of the 32-bit draws ``jax.random.bits(key, (n,))``:
+    shape (n,) for a key of ints or of 0-d tensors, (F, n) for a key of
+    (F, 1) tensors (row j drawn with the key in row j)."""
     i = torch.arange(n, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(key, torch.zeros_like(i), i)
     return y0 ^ y1
 
 
 def uniform(key, n: int, device) -> torch.Tensor:
-    """(n,) float32 draws of ``jax.random.uniform(key, (n,))`` in [0, 1)."""
+    """float32 draws of ``jax.random.uniform(key, (n,))`` in [0, 1), shaped
+    as `random_bits`'s."""
     bits = (random_bits(key, n, device) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def randint(key, n: int, minval: int, maxval: int, device) -> torch.Tensor:
-    """(n,) int32 draws of ``jax.random.randint(key, (n,), minval, maxval)``
-    for int32 bounds."""
+    """int32 draws of ``jax.random.randint(key, (n,), minval, maxval)`` for
+    int32 bounds, shaped as `random_bits`'s."""
     k1, k2 = split(key)
-    hi, lo = random_bits(k1, n, device), random_bits(k2, n, device)
+    if isinstance(k1[0], torch.Tensor):  # both halves in one pass
+        pair = tuple(torch.stack([a, b])[..., None] if a.dim() == 0
+                     else torch.stack([a, b]) for a, b in zip(k1, k2))
+        hi, lo = random_bits(pair, n, device).unbind(0)
+    else:
+        hi, lo = random_bits(k1, n, device), random_bits(k2, n, device)
     span = (maxval - minval) & MASK32 if maxval > minval else 1
     mult = (2 ** 16) % span
     mult = ((mult * mult) & MASK32) % span  # uint32 product, wrapping

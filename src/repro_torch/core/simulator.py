@@ -14,23 +14,32 @@ randomness is a pure function of ``(seed, tick)`` (`rng.fold_in`), every
 quantity is int32 with the same wrap-around, and the deque, selection and
 grant logic mirror the reference step by step.
 
-Execution is a host loop over `tick_fn`, one device step per iteration:
+Each loop iteration is one function of device tensors (`iteration`):
 
-  * ``step_mode="tick"`` runs every tick;
-  * ``step_mode="leap"`` runs one full tick, then advances the clock in one
-    fused step to the next tick at which any worker does more than burn
-    down work or wait out a flight (`_next_event`, `leap`). Results equal
-    tick mode's except `events`, the count of loop iterations.
+  * ``step_mode="tick"`` runs one tick;
+  * ``step_mode="leap"`` runs one full tick, then the famine fast path
+    (``famine_batch`` > 0: up to that many ticks of steal probes that
+    provably fail, advanced at once), then advances the clock in one fused
+    step to the next tick at which any worker does more than burn down
+    work or wait out a flight (`_next_event`, `leap`). Results equal tick
+    mode's and do not depend on `famine_batch`, except `events`, the count
+    of loop iterations, which equals the reference's.
 
-The host reads the clock and the liveness flag back once per iteration —
-one device-to-host sync per event, which bounds the card's throughput in
-this version.
+The clock, the liveness flag and the iteration count are 0-d tensors and
+each tick's key is derived on the device, so nothing in an iteration waits
+for the host; an iteration run after the loop's condition ``live & (t <
+max_ticks)`` turned false changes nothing. The host reads that condition
+once every `DONE_EVERY` iterations. On the CPU the iterations run eagerly
+(the plain path); on the card they are captured once as a CUDA graph and
+replayed (`_replay_loop`).
 
 Deque backends: ``deque_backend="loop"`` commits each deque mutation on its
 own, exporting grants through the `steal_compact` kernel; ``"staged"``
 records a tick's mutations in a `deque.DequeOps` delta and commits them once
-through the `deque_apply` kernel. Auto (None) picks staged on a CUDA device
-and loop on the CPU. The kernels' wrappers run their plain versions for CPU
+through the `deque_apply` kernel. Auto (None) picks loop on every device:
+on the card, under the captured loop, it took less time than staged at
+every measured point (PERF.md). The kernels' wrappers run their plain
+versions for CPU
 tensors, so on the card the simulator always runs the kernels, and
 ``use_steal_kernel=False`` there raises. Options beyond the closed system
 raise `NotImplementedError` and name the ROADMAP item that brings them.
@@ -38,6 +47,7 @@ raise `NotImplementedError` and name the ROADMAP item that brings them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from typing import NamedTuple
@@ -64,6 +74,10 @@ _NEVER = 1 << 30
 
 ARRIVAL_K = 8  # request records per accepted arrival candidate (upper bound)
 
+# The run loop reads its done flag once every DONE_EVERY iterations (on the
+# card, one iteration a captured graph: PERF.md has the measurements)
+DONE_EVERY = 8
+
 _I32 = torch.int32
 
 
@@ -75,9 +89,9 @@ class Recovery(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """Simulator knobs; field names and meanings follow the reference's
-    `SimConfig`. `famine_batch` defaults to 0 here: the famine fast path is
-    not ported yet and it changes no result except `events`."""
+    """Simulator knobs; field names, meanings and defaults follow the
+    reference's `SimConfig`. `famine_batch` (leap mode only) changes no
+    result except `events`; 0 turns the famine fast path off."""
 
     strategy: stealing.Strategy = stealing.Strategy.NEIGHBOR
     hop_ticks: int = 5                 # τ in work-unit ticks
@@ -87,12 +101,12 @@ class SimConfig:
     max_ticks: int = 2_000_000
     seed: int = 0
     step_mode: str = "leap"            # "leap" or "tick"
-    famine_batch: int = 0
+    famine_batch: int = 64
     # grant-export (loop backend) / staged-commit (staged backend) kernels:
     # always on the card (False raises there); on the CPU both values run
     # the kernels' plain versions
     use_steal_kernel: bool | None = None
-    # "staged", "loop", or None = auto (staged on CUDA, loop on the CPU)
+    # "staged", "loop", or None = auto (loop)
     deque_backend: str | None = None
     recovery: Recovery = Recovery.NONE
     ckpt_interval: int = 0
@@ -133,7 +147,7 @@ class StaticConfig:
     capacity: int = 1024
     max_ticks: int = 2_000_000
     step_mode: str = "leap"
-    famine_batch: int = 0
+    famine_batch: int = 64
     use_steal_kernel: bool | None = None
     deque_backend: str | None = None
     recovery: Recovery = Recovery.NONE
@@ -315,16 +329,18 @@ class _StagedDeques:
         return dq.apply(self.ops)
 
 
-def _scheduled_horizons(ne: torch.Tensor, t: int, p: SimParams) -> torch.Tensor:
-    """Clip `ne` at the next periodic checkpoint tick (a host-side term).
-    Deaths, wake-ups, epochs and arrivals join with their slices."""
+def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor,
+                        p: SimParams) -> torch.Tensor:
+    """Clip `ne` at the next periodic checkpoint tick. Deaths, wake-ups,
+    epochs and arrivals join with their slices."""
     if p.ckpt_interval > 0:
         ck = p.ckpt_interval
-        ne = ne.clamp(max=t + ((ck - t % ck) % ck))
+        ne = torch.minimum(ne, t + ((ck - t % ck) % ck))
     return ne
 
 
-def _next_event(state: SimState, t: int, p: SimParams, W: int) -> torch.Tensor:
+def _next_event(state: SimState, t: torch.Tensor, p: SimParams,
+                W: int) -> torch.Tensor:
     """First tick >= t at which any worker does more than a bulk decrement
     (0-d int32). Conservative: an early answer costs one loop iteration,
     never correctness."""
@@ -345,6 +361,93 @@ def _next_event(state: SimState, t: int, p: SimParams, W: int) -> torch.Tensor:
     return _scheduled_horizons(ev.amin(), t, p)
 
 
+def _famine_horizon(state: SimState, t: torch.Tensor, p: SimParams, W: int,
+                    window: int, strategy: stealing.Strategy, tbl,
+                    victim_hops: torch.Tensor) -> torch.Tensor:
+    """First tick >= t at which any deque size can change (or a checkpoint
+    fires): the famine window's horizon (0-d int32).
+
+    Within ``[t, horizon)`` no worker with a nonempty deque reaches an
+    expansion, no request arrives at a nonempty victim, no granted loot is
+    delivered, and no thief whose drawable victims could hold work
+    (`stealing.probe_may_succeed`) starts a probe. So every deque size stays
+    frozen and every attempt in the window fails: the stretch reduces to
+    burn-downs, flight timers and failing probe cycles, which the famine
+    replay advances. Probe starts, arrivals and deliveries of those failing
+    cycles are not events here. The closed system this module runs has no
+    failures, stragglers, link state or arrivals: every worker is alive,
+    every tick is an active tick and no worker is retired. `victim_hops` is
+    each worker's hop count to its current victim.
+    """
+    nonempty = state.deque.size > 0
+    risky = stealing.probe_may_succeed(
+        strategy, nonempty, state.fails, tbl["neighbors"], tbl["radius2"],
+        escalate_after=p.escalate_after, window=window,
+        min_cycle=max(2 * p.hop_ticks - 1, 1), num_workers=W)
+    never = torch.full_like(state.work, _NEVER)
+    # holders expand when their burn ends; risky thieves (a drawable victim
+    # may be nonempty) end the window at their next probe opportunity
+    run_ev = torch.where(state.work > 0, t + state.work, t)
+    ev = torch.where((state.phase == PHASE_RUN) & (nonempty | risky), run_ev,
+                     never)
+    # in flight: a request arriving at a nonempty victim may be granted, a
+    # response carrying granted loot delivers into a deque, and a flier whose
+    # own deque is nonempty expands right after its delivery
+    is_req = state.phase == PHASE_REQ
+    v = state.victim.clamp(0, W - 1).long()
+    flight_risky = torch.where(is_req, nonempty[v], state.got) | nonempty
+    arrive = t + (state.timer - 1).clamp(min=0)
+    flight_ev = torch.where(flight_risky, arrive, never)
+    # a risky flier fails its present attempt, but its next draw may hit a
+    # nonempty deque: the window ends before that probe starts
+    back = victim_hops * p.hop_ticks
+    deliver = torch.where(is_req, arrive + (back - 1).clamp(min=0), arrive)
+    flight_ev = torch.minimum(flight_ev, torch.where(risky, deliver + 1, never))
+    ev = torch.where(state.phase != PHASE_RUN, flight_ev, ev)
+    return _scheduled_horizons(ev.amin(), t, p)
+
+
+def _min_draw_hops(mesh: topo.MeshTopology, code: int) -> int:
+    """Fewest hops between a thief and any victim it can draw (host side,
+    once per run): it bounds how many probe cycles fit in a famine window."""
+    if code == stealing.GLOBAL_CODE:
+        return 1  # distinct workers sit on distinct grid slots
+    tables = [stealing.neighbor_list(mesh)]
+    if code == stealing.ADAPTIVE_CODE:
+        tables.append(stealing.radius2_list(mesh))
+    coords = torch.as_tensor(mesh.coords)
+    hops = torch.cat([topo.hop_dist(mesh, coords, col)[col >= 0]
+                      for tab in tables for col in torch.as_tensor(tab).unbind(1)])
+    return int(hops.min()) if hops.numel() else 1
+
+
+def _masked(run: torch.Tensor, new, old):
+    """`new` where `run`, else `old`, leaf by leaf through the state's named
+    tuples; a leaf that is the same tensor on both sides is kept."""
+    if isinstance(old, tuple):
+        leaves = [_masked(run, n, o) for n, o in zip(new, old)]
+        return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
+    if new is old:
+        return old
+    if new.dtype != old.dtype:  # the card's loop writes `new` into `old`
+        raise TypeError(f"an iteration turned a {old.dtype} leaf into {new.dtype}")
+    return torch.where(run, new, old)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [x for sub in tree for x in _leaves(sub)]
+    return [tree]
+
+
+def _clone(tree):
+    """A copy of a tree of tensors, every leaf in its own storage."""
+    if isinstance(tree, tuple):
+        leaves = [_clone(x) for x in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
+    return tree.clone()
+
+
 # options beyond the closed system: what each is, and its ROADMAP Queue 1 item
 _NOT_PORTED = {
     "recovery": ("Recovery.TC / Recovery.SUPERVISION", 9),
@@ -357,7 +460,6 @@ _NOT_PORTED = {
     "routing_backend": ("the link-state routing tables (routing_backend)", 10),
     "trace": ("the flight recorder (trace)", 11),
     "arrivals": ("open-loop arrivals (arrivals, arrival_gap_q8)", 12),
-    "famine_batch": ("the famine fast path (famine_batch > 0 in leap mode)", 7),
 }
 
 
@@ -387,8 +489,6 @@ def _check_cfg(cfg: SimConfig):
         raise _not_ported("trace")
     if cfg.arrival_gap_q8 > 0:
         raise _not_ported("arrivals")
-    if cfg.step_mode == "leap" and cfg.famine_batch > 0:
-        raise _not_ported("famine_batch")
 
 
 def _check_params(p: SimParams):
@@ -424,12 +524,21 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     tables = workload.tables(device)
     S = cfg.supervision_slots
     code, escalate_after = int(p.strategy), int(p.escalate_after)
+    strategy = stealing.CODE_STRATEGIES[code]
     hop_ticks, max_grants = int(p.hop_ticks), int(p.max_grants_per_victim)
     key0 = rng.PRNGKey(p.seed)
     on_cuda = device.type == "cuda"
-    staged = (cfg.deque_backend == "staged"
-              or (cfg.deque_backend is None and on_cuda))
+    staged = cfg.deque_backend == "staged"
     lanes = _lane_budget()
+    leap_mode = cfg.step_mode == "leap"
+    # the famine fast path runs in leap mode; the reference gates it off for
+    # LIFELINE (its thieves park on lifelines: no probe churn to collapse)
+    FB = (cfg.famine_batch
+          if leap_mode and code != stealing.LIFELINE_CODE else 0)
+    # each probe cycle takes >= 2·h·τ − 1 ticks (>= 1), so a famine window of
+    # FB ticks holds at most `rounds` draws per worker
+    min_cycle = max(2 * _min_draw_hops(mesh, code) * hop_ticks - 1, 1)
+    rounds = -(-FB // min_cycle)
 
     deques = dq.make(W, cfg.capacity, device=device)
     T = deques.buf.shape[2]
@@ -463,17 +572,35 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         arr_dropped=scalar(0), arr_done=scalar(0), soj_lo=scalar(0),
         soj_hi=scalar(0))
 
-    def tick_fn(state: SimState, t: int):
-        """One tick with full semantics; returns (state, live)."""
-        key = rng.fold_in(key0, t)
+    def draws(t: torch.Tensor):
+        """All-thieves victim draws of ticks t .. t + FB, one row a tick
+        (`stealing.batched_victim_draws`): row 0 serves this tick, rows
+        1.. the famine replay. (None, None) for LIFELINE, which selects per
+        tick with its own key."""
+        if code == stealing.LIFELINE_CODE:
+            return None, None
+        return stealing.batched_victim_draws(
+            strategy, key0, t, 1 + FB, tbl["neighbors"], tbl["radius2"],
+            num_workers=W)
+
+    def chosen(near, far, fails):
+        """The drawn victim by the fail count (ADAPTIVE escalates)."""
+        if far is None:
+            return near
+        return torch.where(fails >= escalate_after, far, near)
+
+    def tick_fn(state: SimState, t: torch.Tensor, near, far):
+        """One tick with full semantics at tick `t` (0-d tensor), drawing
+        from row 0 of `draws(t)`; returns (state, live)."""
         # No worker dies or wakes in the closed system this module runs
         # (simulate() rejects failure schedules), so `alive` stays all-True.
         alive = state.alive
         ses = session(state.deque)
 
         # ------------- periodic checkpoint counter -------------------------- #
-        if p.ckpt_interval > 0 and t % p.ckpt_interval == 0:
-            state = state._replace(ckpt_count=state.ckpt_count + 1)
+        if p.ckpt_interval > 0:
+            state = state._replace(ckpt_count=state.ckpt_count + (
+                t % p.ckpt_interval == 0).to(_I32))
 
         # ------------- phase RUN: work / expand / start steal -------------- #
         # (no stragglers: every tick is an active tick for every worker)
@@ -494,8 +621,13 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
         # idle workers become thieves: request departs now, arrives in h·τ
         idle = running & ~burning & ~popped & (ses.size == 0)
-        victim_new = _select(code, escalate_after, tbl, key, idle,
-                             state.fails, W)
+        if near is None:
+            victim_new = _select(code, escalate_after, tbl,
+                                 rng.fold_in(key0, t), idle, state.fails, W)
+        else:
+            victim_new = torch.where(
+                idle, chosen(near[0], None if far is None else far[0],
+                             state.fails), topo.NO_NEIGHBOR)
         has_victim = victim_new >= 0
         vhops = torch.where(has_victim, topo.hop_dist(mesh, coords, victim_new), 0)
         req_ticks = vhops * hop_ticks
@@ -562,11 +694,11 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         live = (deque_.size.sum() + work.sum() + got_left.sum()) > 0
         return new_state, live
 
-    def leap(state: SimState, t: int, live: torch.Tensor, ne: torch.Tensor):
+    def leap(state: SimState, t, live, ne):
         """Fused fast-forward over the dead ticks in [t, ne). Returns
-        (state, t, live) with t and live as 0-d tensors. If the window's
-        bulk burn consumes the LAST pending work, land right after the final
-        burn tick (where the one-tick stepper exits) and clear live."""
+        (state, t, live). If the window's bulk burn consumes the LAST
+        pending work, land right after the final burn tick (where the
+        one-tick stepper exits) and clear live."""
         delta = (ne.clamp(max=cfg.max_ticks) - t).clamp(min=0)
         delta = torch.where(live, delta, 0)
         burning = (state.phase == PHASE_RUN) & state.alive & (state.work > 0)
@@ -588,19 +720,226 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             work=state.work - nact, busy=state.busy + nact), \
             t + delta, live & ~drained
 
-    state, t, live, iters = state0, 0, True, 0
-    while live and t < cfg.max_ticks:
-        state, live_d = tick_fn(state, t)
-        t += 1
-        if cfg.step_mode == "leap":
-            ne = _next_event(state, t, p, W)
-            state, t_d, live_d = leap(state, t, live_d, ne)
-            # the one device-to-host sync of the iteration
-            t, live = torch.stack([t_d.to(_I32), live_d.to(_I32)]).tolist()
+    def famine_ff(state: SimState, t, live, ne_all, near, far):
+        """Advance up to FB ticks of deterministically failing probe cycles
+        in this iteration (the famine fast path). Returns (state, t, live,
+        ne), `ne` the `_next_event` horizon of the returned state.
+
+        `_famine_horizon` certifies that deque sizes are frozen over the
+        window, so only burn-downs, probe flights and their counters move.
+        The reference replays the window tick by tick (`lax.scan` over FB
+        ticks under `lax.cond`); here the replay is worked out per worker,
+        with no branch: a worker's window is its flight under way (or its
+        idle start), its burn, then probe cycles — a draw at tick d from
+        row d of `near`/`far` (`stealing.batched_victim_draws`, the same
+        ``fold_in(key0, t)`` keys as the per-tick path), the request
+        arriving at d + max(L − 1, 0) and the empty-handed reply landing
+        max(L − 1, 0) later, L = h·τ, the next draw on the tick after. Each
+        round below takes every worker's next draw at once; `rounds` bounds
+        the draws a window holds. The number of replayed ticks `n` is where
+        the reference's scan stops (its `act = pred & live & (j < delta)`):
+        0 when the gate `pred` is closed, which leaves everything as it was.
+        """
+        # every worker's hops to its current victim (its reply's flight)
+        hv = topo.hop_dist(mesh, coords, state.victim)
+        ne_risky = _famine_horizon(state, t, p, W, FB, strategy, tbl, hv)
+        hi = ne_risky.clamp(max=cfg.max_ticks)
+        delta = (hi - t).clamp(0, FB)
+        # profitable only when probe-cycle events (counted by _next_event
+        # but not by the famine horizon) fall inside the batch range
+        pred = live & (delta > 0) & (ne_all < torch.minimum(hi, t + FB))
+
+        phase, timer, work, fails = (state.phase, state.timer, state.work,
+                                     state.fails)
+        frozen = state.deque.size.sum() + state.got.sum()
+        in_flight = phase != PHASE_RUN
+        is_req = phase == PHASE_REQ
+        # the flight under way: arrival a0 and delivery dv0 (relative ticks;
+        # a reply already in flight arrived before the window, a0 = -1)
+        lv = hv * hop_ticks
+        t_arr = (timer - 1).clamp(min=0)
+        a0 = torch.where(is_req, t_arr, -1)
+        dv0 = torch.where(is_req, t_arr + (lv - 1).clamp(min=0), t_arr)
+        # a worker burns from b0 (after its delivery if in flight) and has
+        # no work left after tick b0 + work - 1
+        b0 = torch.where(in_flight, dv0 + 1, 0)
+        last_burn = torch.where(work > 0, b0 + work, 0).amax()
+        # ticks replayed: the window, cut where the last work burns out
+        # unless frozen deques or loot keep the system live
+        n = torch.where(pred, torch.where(frozen > 0, delta,
+                                          torch.minimum(delta, last_burn)), 0)
+        burned = torch.minimum((n - b0).clamp(min=0), work)
+
+        # the flight under way: its reply, its delivery, where it stands
+        arrived = is_req & (a0 < n)
+        delivered = in_flight & (dv0 < n)
+        hop_w = torch.where(arrived, hv, 0)
+        loot_zero = arrived
+        fails = fails + (delivered & ~state.got).to(_I32)
+        steal_wait = state.steal_wait + torch.where(
+            in_flight, torch.minimum(dv0 + 1, n), 0)
+        resp_len = torch.where(is_req, lv, timer + 1)
+        # (PHASE_RESP = PHASE_REQ + 1: a flight that has arrived replies)
+        phase = torch.where(in_flight, torch.where(
+            delivered, PHASE_RUN, PHASE_REQ + (a0 < n).to(_I32)), phase)
+        timer = torch.where(in_flight, torch.where(
+            delivered, 0, torch.where(a0 < n, resp_len - (n - a0), timer - n)),
+            timer)
+
+        # probe cycles: an idle worker with an empty deque draws at tick d
+        # from row d; a draw of h hops is back 2·max(h·τ − 1, 0) ticks later
+        # and the next draw follows: a cycle of max(2·h·τ − 1, 1) ticks. A
+        # worker whose table row is empty draws no victim all window.
+        def cycles(draw):  # (FB, W, 3): victim, hops, cycle length
+            h = topo.hop_dist(mesh, coords, draw)
+            return torch.stack([draw, h, (2 * h * hop_ticks - 1).clamp(min=1)], -1)
+
+        near_c, has_near = cycles(near), near[0] >= 0
+        idle = state.deque.size == 0
+        if far is None:
+            idle = idle & has_near
         else:
-            live = bool(live_d)
-        iters += 1
-    return state, t, iters
+            far_c, has_far = cycles(far), far[0] >= 0
+        d0 = torch.where(idle, b0 + work, _NEVER)
+        d, attempts, victim = d0, state.attempts, state.victim
+        hops_sum = torch.zeros_like(d)
+        d_last, h_last = d0, hops_sum
+        for r in range(rounds):
+            row = d.clamp(max=FB - 1).long()[None, :, None].expand(1, W, 3)
+            g = near_c.gather(0, row)[0]
+            ok = d < n
+            if far is not None:
+                # every earlier draw was delivered before this one: r more
+                # failures than after the flight under way
+                esc = fails >= escalate_after - r
+                g = torch.where(esc[:, None], far_c.gather(0, row)[0], g)
+                ok = ok & torch.where(esc, has_far, has_near)
+            ch, h, cycle = g.unbind(1)
+            attempts = attempts + ok
+            hops_sum = hops_sum + h * ok
+            victim = torch.where(ok, ch, victim)
+            d_last = torch.where(ok, d, d_last)
+            h_last = torch.where(ok, h, h_last)
+            d = torch.where(ok, d + cycle, _NEVER)
+        # every draw but the last was delivered (the next followed it): the
+        # counters telescope, and the last draw's flight is where it stands
+        draws_n = attempts - state.attempts
+        drew = draws_n > 0
+        length = h_last * hop_ticks
+        wait = (length - 1).clamp(min=0)
+        a = d_last + wait
+        dv = a + wait
+        fails = fails + draws_n - (drew & (dv >= n)).to(_I32)
+        hop_w = hop_w + 2 * hops_sum - torch.where(drew & (a >= n), h_last, 0)
+        loot_zero = loot_zero | (drew & ((draws_n > 1) | (a < n)))
+        steal_wait = steal_wait + torch.where(drew, torch.minimum(dv + 1, n) - d0, 0)
+        phase = torch.where(drew, torch.where(
+            dv < n, PHASE_RUN, PHASE_REQ + (a < n).to(_I32)), phase)
+        timer = torch.where(drew, torch.where(
+            dv < n, 0, length - (n - torch.where(a < n, a, d_last))), timer)
+
+        # hop units: the reference adds each tick's sum to the low lane and
+        # carries; adding the window's sum at once gives the same lanes
+        lo = state.hops_lo.to(torch.int64) + hop_w.sum()
+        new_state = state._replace(
+            phase=phase, timer=timer, victim=victim, fails=fails,
+            work=work - burned, busy=state.busy + burned,
+            loot=torch.where(loot_zero[:, None], 0, state.loot),
+            attempts=attempts, steal_wait=steal_wait,
+            hops_lo=(lo & _HOP_LANE_MASK).to(_I32),
+            hops_hi=state.hops_hi + (lo >> _HOP_LANE_BITS).to(_I32))
+        t_out = t + n
+        live_out = torch.where(n > 0, (frozen > 0) | (n < last_burn), live)
+        return new_state, t_out, live_out, _next_event(new_state, t_out, p, W)
+
+    def iteration(carry):
+        """One loop iteration of device tensors only — tick, next event,
+        famine replay, leap — with no host sync. Returns the carry after it
+        and the flag ``live & (t < max_ticks)`` of the carry before it: the
+        loop keeps the new carry only where the flag is set, so iterations
+        past the end change nothing."""
+        state, t, live, iters = carry
+        run = live & (t < cfg.max_ticks)
+        near, far = draws(t)
+        new, live_n = tick_fn(state, t, near, far)
+        t_n = t + 1
+        if leap_mode:
+            ne = _next_event(new, t_n, p, W)
+            if FB:
+                new, t_n, live_n, ne = famine_ff(
+                    new, t_n, live_n, ne, near[1:],
+                    None if far is None else far[1:])
+            new, t_n, live_n = leap(new, t_n, live_n, ne)
+        return (new, t_n, live_n, iters + 1), run
+
+    carry = (state0, scalar(0), torch.ones((), dtype=torch.bool, device=device),
+             scalar(0))
+    loop = _replay_loop if on_cuda else _eager_loop
+    state, t, _, iters = loop(iteration, carry, cfg.max_ticks)
+    return state, int(t), int(iters)
+
+
+def _loop_done(carry, max_ticks: int) -> bool:
+    """The host's read of the loop's done flag (one device-to-host sync)."""
+    _, t, live, _ = carry
+    return not bool(live & (t < max_ticks))
+
+
+def _eager_loop(body, carry, max_ticks: int):
+    """The plain path: `body` run eagerly, the done flag read every
+    DONE_EVERY iterations."""
+    while True:
+        for _ in range(DONE_EVERY):
+            new, run = body(carry)
+            carry = _masked(run, new, carry)
+        if _loop_done(carry, max_ticks):
+            return carry
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Make any host-device synchronization inside raise (CUDA's sync debug
+    mode)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _replay_loop(body, carry, max_ticks: int):
+    """The card's path: one iteration of `body` captured as a CUDA graph
+    over static buffers (each replay writes its masked outputs back into
+    them) and replayed, the done flag read every DONE_EVERY iterations. One
+    iteration runs eagerly first, to warm up. The warm-up and the replays
+    run with host syncs made errors; a failed capture or replay raises,
+    never falling back to the eager loop."""
+    from ..kernels import ops
+
+    static = _clone(carry)
+
+    def step():  # the masked commit, written into the static buffers
+        new, run = body(static)
+        for src, dst in zip(_leaves(new), _leaves(static)):
+            if src is not dst:
+                torch.where(run, src, dst, out=dst)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), _no_host_sync():
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with ops.recording() as per_replay:
+        with torch.cuda.graph(graph):
+            step()
+    while not _loop_done(static, max_ticks):
+        with _no_host_sync():
+            for _ in range(DONE_EVERY):
+                graph.replay()
+        ops.add_replays(per_replay, DONE_EVERY)
+    return static
 
 
 def _ckpt_state_bytes(mesh: topo.MeshTopology, cfg: StaticConfig) -> int:

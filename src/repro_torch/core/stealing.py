@@ -7,11 +7,13 @@
   * ADAPTIVE — neighbor-only, widening to radius-2 after `escalate_after`
                consecutive failed attempts (paper §6).
 
-Selection is vectorized over workers and keyed by a host-side threefry key
-(`core.rng`), drawing exactly the victims `jax.random` draws. Conflicts are
-resolved by `resolve_grants`: thieves that pick the same victim are ranked
-by (priority, worker id) and served one bottom task each while the victim's
-tasks and per-round budget last.
+Selection is vectorized over workers and keyed by a threefry key
+(`core.rng`, ints or device tensors), drawing exactly the victims
+`jax.random` draws. Conflicts are resolved by `resolve_grants`: thieves
+that pick the same victim are ranked by (priority, worker id) and served one
+bottom task each while the victim's tasks and per-round budget last. The
+famine fast path's support — which workers' probes may succeed, and a batch
+of consecutive ticks' victim draws in one pass — closes the module.
 """
 
 from __future__ import annotations
@@ -120,7 +122,8 @@ def lifeline_list(num_workers: int, degree: int = 0) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------- #
-# Selection (vectorized; `key` is the round's host-side threefry key)
+# Selection (vectorized; `key` is the round's threefry key: a key of (F, 1)
+# tensors draws F rounds at once, giving (F, W) victims)
 # --------------------------------------------------------------------------- #
 def _pick_from_list(key, table: torch.Tensor, is_thief: torch.Tensor):
     """Uniform choice among the valid (!= -1) entries of each worker's row."""
@@ -131,8 +134,8 @@ def _pick_from_list(key, table: torch.Tensor, is_thief: torch.Tensor):
     pick = torch.minimum((r * n_valid).to(torch.int32), n_valid - 1)
     # rank of each valid slot; the pick-th valid entry of each row
     order = torch.cumsum(valid.to(torch.int32), dim=1) - 1
-    hit = valid & (order == pick[:, None])
-    victim = torch.where(hit, table, topo.NO_NEIGHBOR).amax(dim=1)
+    hit = valid & (order == pick[..., None])
+    victim = torch.where(hit, table, topo.NO_NEIGHBOR).amax(dim=-1)
     return torch.where(is_thief & (victim >= 0), victim, topo.NO_NEIGHBOR)
 
 
@@ -260,3 +263,142 @@ def resolve_grants_pairwise(victim: torch.Tensor, sizes: torch.Tensor,
     return StealPlan(victim=torch.where(req, victim, topo.NO_NEIGHBOR),
                      rank=rank, got=got, taken=taken,
                      hops=torch.zeros_like(taken))
+
+
+# --------------------------------------------------------------------------- #
+# Famine fast path support (the simulator's probe-cycle replay)
+# --------------------------------------------------------------------------- #
+def _link_state_not_ported(what: str):
+    return NotImplementedError(
+        f"{what} (link-state masking) is not ported to repro_torch yet "
+        "(ROADMAP.md, Queue 1 item 10)")
+
+
+def _any_nonempty(table: torch.Tensor, nonempty: torch.Tensor) -> torch.Tensor:
+    """Per worker: does any valid (!= NO_NEIGHBOR) entry of `table` index a
+    worker with a nonempty deque?"""
+    W = nonempty.shape[0]
+    valid = table != topo.NO_NEIGHBOR
+    hit = nonempty[table.clamp(0, W - 1).long()] & valid
+    return hit.any(dim=1)
+
+
+def probe_may_succeed(strategy: Strategy, nonempty: torch.Tensor,
+                      fails: torch.Tensor, neighbor_table: torch.Tensor,
+                      radius2_table: torch.Tensor | None, *,
+                      escalate_after, window: int, min_cycle,
+                      num_workers: int, comp_row=None) -> torch.Tensor:
+    """Per worker: could a steal probe drawn within the next `window` ticks
+    land on a victim whose deque is nonempty now? Where it could not, and
+    deque sizes are frozen over the window (the simulator's famine horizon
+    makes sure of that), every probe the worker issues in the window fails,
+    so its probe cycles can be replayed without deque operations.
+
+    GLOBAL: any nonempty deque anywhere keeps every thief risky. NEIGHBOR:
+    a nonempty direct neighbor. ADAPTIVE: a nonempty neighbor, or a
+    nonempty radius-2 worker when the thief can escalate inside the window
+    (each failed attempt takes at least `min_cycle` ticks, so a thief
+    `k` failures short of escalating draws no radius-2 victim before
+    (k - 1)·min_cycle ticks). LIFELINE falls back to global draws and is
+    always risky. `comp_row` (link-state components) belongs to the
+    link-state slice and raises."""
+    if comp_row is not None:
+        raise _link_state_not_ported("probe_may_succeed(comp_row=...)")
+    W = num_workers
+    if strategy == Strategy.GLOBAL:
+        return (nonempty.any() & (W > 1)).expand(W)
+    if strategy == Strategy.LIFELINE:
+        return torch.ones((W,), dtype=torch.bool, device=nonempty.device)
+    near = _any_nonempty(neighbor_table, nonempty)
+    if strategy == Strategy.NEIGHBOR:
+        return near
+    if strategy == Strategy.ADAPTIVE:
+        to_go = escalate_after - fails
+        may_escalate = (to_go - 1) * min_cycle < window
+        return near | (_any_nonempty(radius2_table, nonempty) & may_escalate)
+    raise ValueError(strategy)
+
+
+def probe_may_succeed_code(code, nonempty: torch.Tensor, fails: torch.Tensor,
+                           neighbor_table: torch.Tensor,
+                           radius2_table: torch.Tensor, *, escalate_after,
+                           window: int, min_cycle, num_workers: int,
+                           comp_row=None) -> torch.Tensor:
+    """`probe_may_succeed` by strategy code. An int code dispatches to the
+    enum version; a code tensor computes every strategy's predicate and
+    selects per code, as the reference's traced version does (LIFELINE and
+    unknown codes answer all-True)."""
+    if comp_row is not None:
+        raise _link_state_not_ported("probe_may_succeed_code(comp_row=...)")
+    kw = dict(escalate_after=escalate_after, window=window,
+              min_cycle=min_cycle, num_workers=num_workers)
+    if not isinstance(code, torch.Tensor):
+        return probe_may_succeed(CODE_STRATEGIES[int(code)], nonempty, fails,
+                                 neighbor_table, radius2_table, **kw)
+    glob, near, adapt = (
+        probe_may_succeed(s, nonempty, fails, neighbor_table, radius2_table,
+                          **kw)
+        for s in (Strategy.GLOBAL, Strategy.NEIGHBOR, Strategy.ADAPTIVE))
+    return torch.where(code == GLOBAL_CODE, glob,
+                       torch.where(code == NEIGHBOR_CODE, near,
+                                   torch.where(code == ADAPTIVE_CODE, adapt,
+                                               True)))
+
+
+def batched_victim_draws(strategy: Strategy, key0, t0, count: int,
+                         neighbor_table: torch.Tensor,
+                         radius2_table: torch.Tensor | None, *,
+                         num_workers: int, link_tau_row=None):
+    """The victim draws of `count` consecutive ticks in one pass.
+
+    Returns ``(near, far)`` of shape (count, W): row j holds what the
+    per-tick selection draws at tick ``t0 + j`` (key ``fold_in(key0, t0 +
+    j)``) for an all-thieves mask. `far` is None except for ADAPTIVE, whose
+    caller picks per worker between the near and the escalated draw by its
+    fail count at probe time. `t0` is a Python int or a 0-d device tensor.
+    `link_tau_row` (cheapest live neighbor) belongs to the link-state slice
+    and raises."""
+    if link_tau_row is not None:
+        raise _link_state_not_ported("batched_victim_draws(link_tau_row=...)")
+    W = num_workers
+    dev = neighbor_table.device
+    all_thieves = torch.ones((W,), dtype=torch.bool, device=dev)
+    ticks = t0 + torch.arange(count, dtype=torch.int64, device=dev)
+    keys = rng.fold_in(key0, ticks[:, None])            # (count, 1) each
+    if strategy == Strategy.GLOBAL:
+        return choose_global(keys, W, all_thieves), None
+    if strategy == Strategy.NEIGHBOR:
+        return choose_neighbor(keys, neighbor_table, all_thieves), None
+    if strategy == Strategy.ADAPTIVE:
+        k1, k2 = rng.split(keys)
+        return (_pick_from_list(k1, neighbor_table, all_thieves),
+                _pick_from_list(k2, radius2_table, all_thieves))
+    raise ValueError(f"no batched draws for {strategy}")
+
+
+def batched_victim_draws_code(code, key0, t0, count: int,
+                              neighbor_table: torch.Tensor,
+                              radius2_table: torch.Tensor, *,
+                              num_workers: int, link_tau_row=None):
+    """`batched_victim_draws` by strategy code; always ``(near, far)`` of
+    shape (count, W), `far` a copy of `near` for the single-draw strategies.
+    LIFELINE gives global draws as a placeholder (the famine path is gated
+    off for it). An int code dispatches; a code tensor draws every branch
+    and selects per code, as the reference's switch does under vmap."""
+    kw = dict(num_workers=num_workers, link_tau_row=link_tau_row)
+    branch = {GLOBAL_CODE: Strategy.GLOBAL, NEIGHBOR_CODE: Strategy.NEIGHBOR,
+              LIFELINE_CODE: Strategy.GLOBAL, ADAPTIVE_CODE: Strategy.ADAPTIVE}
+
+    def draw(strategy):
+        near, far = batched_victim_draws(strategy, key0, t0, count,
+                                         neighbor_table, radius2_table, **kw)
+        return near, near if far is None else far
+
+    if not isinstance(code, torch.Tensor):
+        return draw(branch[int(code)])
+    (g, _), (n, _), (an, af) = (draw(s) for s in (
+        Strategy.GLOBAL, Strategy.NEIGHBOR, Strategy.ADAPTIVE))
+    near = torch.where(code == ADAPTIVE_CODE, an,
+                       torch.where(code == NEIGHBOR_CODE, n, g))
+    far = torch.where(code == ADAPTIVE_CODE, af, near)
+    return near, far

@@ -190,18 +190,18 @@ def _uts_child_count(depth: torch.Tensor, seed: torch.Tensor, b0: float,
                      d_max: int) -> torch.Tensor:
     """Vectorized geometric child count with linear decay (float32 math, as
     the reference computes it)."""
-    f32 = torch.float32
     dev = seed.device
+
+    def f32(v):  # a float32 constant made on the device (no host copy)
+        return torch.full((), v, dtype=torch.float32, device=dev)
+
     h = _hash2(seed, 0xFFFF)
-    u = (h.to(f32) + 1.0) * torch.tensor(2.0**-32, dtype=f32, device=dev)
-    dmax_f = torch.tensor(max(float(d_max), 1.0), dtype=f32, device=dev)
-    frac = 1.0 - depth.to(f32) / dmax_f
-    b_d = torch.tensor(b0, dtype=f32, device=dev) * frac
+    u = (h.to(torch.float32) + 1.0) * f32(2.0**-32)
+    frac = 1.0 - depth.to(torch.float32) / f32(max(float(d_max), 1.0))
+    b_d = f32(b0) * frac
     q = b_d / (1.0 + b_d)
-    lo = torch.tensor(1e-9, dtype=f32, device=dev)
-    hi = torch.tensor(1.0 - 1e-9, dtype=f32, device=dev)
-    safe_q = torch.minimum(torch.maximum(q, lo), hi)
-    tiny = torch.tensor(1e-38, dtype=f32, device=dev)
+    safe_q = torch.minimum(torch.maximum(q, f32(1e-9)), f32(1.0 - 1e-9))
+    tiny = f32(1e-38)
     ratio = torch.floor(torch.log(torch.maximum(u, tiny)) / torch.log(safe_q))
     # clamp in float before the cast (the cast of ±inf is undefined in C++);
     # the int clip below gives the reference's values either way
@@ -249,7 +249,7 @@ def expand(task: torch.Tensor, active: torch.Tensor, tables) -> dict:
     start = torch.where(is_chunk, ch_start, 0)
     count = torch.where(is_chunk, ch_count, m)
 
-    emit = torch.minimum(count, torch.tensor(EXPAND_K - 1, dtype=i32, device=dev))
+    emit = count.clamp(max=EXPAND_K - 1)
     ranks = torch.arange(EXPAND_K, dtype=i32, device=dev)[None, :]
     seeds = child_seed(b[:, None], start[:, None] + ranks)       # (W, K)
     zk = torch.zeros((W, EXPAND_K), dtype=i32, device=dev)

@@ -5,10 +5,14 @@ lie on the CPU, and launches the CUDA kernel when they lie on the card —
 raising on a bad input, a failed build or a failed launch, never falling
 back. `LAUNCHES` counts kernel launches by name: a wrapper adds one right
 after its kernel launched, and nowhere else, so a run can show that its
-path really went through the kernels.
+path really went through the kernels. Under CUDA graph capture a wrapper
+only records its kernel: `recording` takes the capture's counts back out,
+and `add_replays` counts the launches of each replay instead.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -30,6 +34,29 @@ _TICKETS: dict[int, torch.Tensor] = {}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Wrap a CUDA graph capture. Wrappers called inside it record their
+    kernels into the graph instead of launching them, so their counts are
+    taken back out of `LAUNCHES` at exit; the yielded dict then holds the
+    launches of each kernel in one replay of the graph (`add_replays`
+    counts the replays)."""
+    before = dict(LAUNCHES)
+    per_replay: dict[str, int] = {}
+    try:
+        yield per_replay
+    finally:
+        per_replay.update({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        LAUNCHES.update(before)
+
+
+def add_replays(per_replay: dict, replays: int) -> None:
+    """Count the kernel launches of `replays` replays of a CUDA graph whose
+    capture recorded `per_replay[name]` launches of each kernel."""
+    for k, n in per_replay.items():
+        LAUNCHES[k] += n * replays
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple,

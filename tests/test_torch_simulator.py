@@ -61,13 +61,17 @@ def test_fib_matches_reference(reference_runs, W, strategy):
 
 def test_overflow_checkpoints_and_truncation_match_reference(reference_runs):
     """Tiny rings that drop tasks, the checkpoint counter, a grant budget of
-    one, and a run cut at max_ticks before it drains."""
+    one, and a run cut at max_ticks before it drains; also with the famine
+    fast path at the reference's default batch, whose windows end at
+    checkpoints and at max_ticks."""
     small = {"capacity": 3, "ckpt_interval": 7, "max_grants_per_victim": 1}
     cut = {"max_ticks": 40, "escalate_after": 1}
     for strategy, kw in ((rst.Strategy.NEIGHBOR, small),
                          (rst.Strategy.ADAPTIVE, cut)):
-        ref, mesh, cfg = reference_runs(FIB, 9, strategy, **kw)
-        check_against_reference(ref, FIB, mesh, cfg)
+        ref, mesh, _ = reference_runs(FIB, 9, strategy, **kw)
+        famine_ref, _, cfg = reference_runs(FIB, 9, strategy, famine_batch=64, **kw)
+        check_against_reference(ref, FIB, mesh, cfg, own_famine_ref=famine_ref)
+        assert famine_ref.events < ref.events
     assert reference_runs(FIB, 9, rst.Strategy.NEIGHBOR, **small)[0].overflow > 0
     assert reference_runs(FIB, 9, rst.Strategy.ADAPTIVE, **cut)[0].ticks == 40
 
@@ -123,7 +127,6 @@ def test_plain_kernels_refused_on_cuda(monkeypatch):
     ({}, {"preshed": True}),
     ({}, {"trace": object()}),
     ({}, {"arrival_gap_q8": 256}),
-    ({}, {"famine_batch": 64}),
     ({"fail_time": np.full(4, -1, np.int32)}, {}),
     ({"wake_time": np.full(4, -1, np.int32)}, {}),
     ({"fail_period": np.full(4, -1, np.int32)}, {}),
@@ -131,7 +134,7 @@ def test_plain_kernels_refused_on_cuda(monkeypatch):
     ({"linkstate": object()}, {}),
     ({"arrivals": object()}, {}),
     ({"routing_backend": "sparse"}, {}),
-], ids=["tc", "supervision", "preshed", "trace", "arrivals_gap", "famine",
+], ids=["tc", "supervision", "preshed", "trace", "arrivals_gap",
         "fail_time", "wake_time", "fail_period", "speed", "linkstate", "arrivals",
         "routing_backend"])
 def test_unported_options_raise(kwargs, cfg_kw):
@@ -139,11 +142,6 @@ def test_unported_options_raise(kwargs, cfg_kw):
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item \d+"):
         psim.simulate(ptasks.FibWorkload(n=10, cutoff=5),
                       ptopo.MeshTopology.square(4), cfg, device="cpu", **kwargs)
-    # famine_batch is accepted in tick mode, where the reference ignores it
-    if cfg_kw == {"famine_batch": 64}:
-        psim.simulate(ptasks.FibWorkload(n=10, cutoff=5),
-                      ptopo.MeshTopology.square(4),
-                      dataclasses.replace(cfg, step_mode="tick"), device="cpu")
 
 
 def test_config_split_mirrors_reference():

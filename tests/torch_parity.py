@@ -71,10 +71,13 @@ PORT_MODES = [("tick", "loop", False), ("tick", "staged", True),
               ("leap", "loop", True), ("leap", "staged", False)]
 
 
-def check_against_reference(ref_result, workload, mesh, cfg):
+def check_against_reference(ref_result, workload, mesh, cfg,
+                            own_famine_ref=None):
     """Every port mode equals the reference run (leap, famine_batch=0) in
     every field; `events` equals it in leap mode and equals `ticks` in tick
-    mode."""
+    mode. Where the caller passes `own_famine_ref`, the reference run of
+    `cfg` at its own `famine_batch`, the port in leap mode at that
+    `famine_batch` equals it too, `events` included, on both backends."""
     for mode, backend, kernel in PORT_MODES:
         got = port_simulate(workload, mesh, cfg, step_mode=mode,
                             deque_backend=backend, use_steal_kernel=kernel,
@@ -84,3 +87,8 @@ def check_against_reference(ref_result, workload, mesh, cfg):
             assert got.events == ref_result.events, (mode, backend)
         else:
             assert got.events == got.ticks
+    if own_famine_ref is not None:
+        for backend in ("loop", "staged"):
+            got = port_simulate(workload, mesh, cfg, step_mode="leap",
+                                deque_backend=backend)
+            assert_results_equal(own_famine_ref, got)
