@@ -14,7 +14,8 @@ Phases — any failure exits non-zero:
      bf16 instantiations: HGMMA (wgmma) in `flash_attention`'s, HMMA
      (mma.sync) in `decode_attention`'s;
   2. hold each simulator kernel against its plain PyTorch version at the
-     main path's shapes (W=4096 rings of capacity 64) — outputs must be
+     main path's shapes (W=4096 rings of capacity 64) and at the sweep's
+     (18 x 4096 = 73,728 rings) — outputs must be
      exactly equal — and time kernel, plain version and library call on the
      device (CUDA graph replay, CUDA events), plus the kernel's eager
      wrapper call, beside the launch floor (a one-element elementwise op in
@@ -58,7 +59,18 @@ Phases — any failure exits non-zero:
      the port's own CPU run of the same input, `events` included (the CPU
      runs go in worker processes beside the card runs; every worker is
      joined before the phase ends);
-  5-7. serve three models through `serve_loop.serve_requests` (one phase,
+  5. run the crossover's axes over the main path's configuration as one
+     grid: strategy {neighbor, global} x tau {2, 5, 10} x seed {0, 1, 2}, 18
+     points (73,728 workers) in one `simulate_sweep` — one core call, one
+     captured graph; every point must equal the port's own `simulate` of it
+     on the card, `events` included, and the (neighbor, 5, 0) point the
+     main path's run; the grid's wall against the 18 runs', a profiled
+     300-tick window of the grid, and a staged-backend sweep of the 6
+     seed-0 points (`deque_apply` at 24,576 rows) equal to the loop sweep;
+  6. run the port's crossover benchmark (`repro_torch.benchmarks.sweep`) at
+     BENCH_crossover.json's settings, one grid a size; every point's ticks
+     must equal the reference's, pinned in CROSSOVER_TICKS;
+  7-9. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
      exactly as its blocks say (an attention block `flash_attention` once in
@@ -235,11 +247,11 @@ def _sass_ops(build, name: str, op: str) -> dict:
     return found
 
 
-def phase_kernels(torch, np, ops, ref, deque, tasks):
-    """Kernels against their plain versions at W=4096, C=64."""
+def _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W):
+    """`steal_compact` and `deque_apply` against their plain versions at W
+    rows of capacity CAP_MAIN (exactly equal), timed with their bounds."""
     dev = torch.device("cuda")
-    rs = np.random.default_rng(20261016)
-    W, C, T = W_MAIN, CAP_MAIN, 4
+    C, T = CAP_MAIN, 4
     G = ref.GRANT_WIDTH
     L = tasks.EXPAND_K + 1
 
@@ -260,8 +272,8 @@ def phase_kernels(torch, np, ops, ref, deque, tasks):
     torch.cuda.synchronize()
     err_sc = _max_abs_err(zip(out_k, out_p))
     if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
-        raise SystemExit(f"steal_compact disagrees with its plain version "
-                         f"(max abs err {err_sc})")
+        raise SystemExit(f"steal_compact disagrees with its plain version at "
+                         f"W={W} (max abs err {err_sc})")
     g = torch.minimum(grants, size).clamp(min=0)
     sc_bytes = (int(g.sum()) * 16 + W * G * 16 + 3 * W * 4 + 2 * W * 4)
     sc_ops = W * G * 8
@@ -295,8 +307,8 @@ def phase_kernels(torch, np, ops, ref, deque, tasks):
     torch.cuda.synchronize()
     err_da = _max_abs_err([(new_k, new_p)])
     if not torch.equal(new_k, new_p) or not torch.equal(new_l, new_p):
-        raise SystemExit(f"deque_apply disagrees with its plain version "
-                         f"(max abs err {err_da})")
+        raise SystemExit(f"deque_apply disagrees with its plain version at "
+                         f"W={W} (max abs err {err_da})")
     live = int(n.sum())
     da_bytes = 2 * W * C * T * 4 + live * (T * 4 + 4) + W * 4
     da_ops = W * C * (2 * L + 4)
@@ -309,19 +321,38 @@ def phase_kernels(torch, np, ops, ref, deque, tasks):
         "library_ms": _device_ms(torch, lambda: buf.index_put((w_idx, s_idx), vals)),
         "max_abs_err": err_da, "bytes": da_bytes, "ops": da_ops}
     da["bound_ms"], da["bound_by"] = _bound_ms(da_bytes, da_ops)
+    for name, r in (("steal_compact", sc), ("deque_apply", da)):
+        print(f"[kernels] {name} at {W} rows, C={C}: exact; device per launch: "
+              f"kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
+              f"{r['library_ms']} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}, {r['bytes']} bytes); eager wrapper call "
+              f"{r['call_ms']:.6f} ms")
+    return sc, da
+
+
+def phase_kernels(torch, np, ops, ref, deque, tasks):
+    """The simulator kernels against their plain versions at the main path's
+    rows (W=4096, C=64) and at the sweep's (18 points x 4096 = 73,728 rows),
+    beside the launch floor. The sweep's numbers go under `sweep_*`."""
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(20261016)
+    sc, da = _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W_MAIN)
+    sc_g, da_g = _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs,
+                                 W_MAIN * len(SWEEP_GRID))
+    for main, grid in ((sc, sc_g), (da, da_g)):
+        main["max_abs_err"] = max(main["max_abs_err"], grid["max_abs_err"])
+        main.update({f"sweep_{k}": grid[k] for k in (
+            "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     # the launch floor: a one-element elementwise op in the same harness, a
     # yardstick for the tiny kernels (the port never calls it)
     one = torch.zeros(1, device=dev)
     floor = _device_ms(torch, lambda: one.add_(1.0))
     print(f"[kernels] launch floor: a one-element add_ takes {floor:.6f} ms a launch "
-          f"on the device (graph replay, as every kernel time here)")
-    for name, r in (("steal_compact", sc), ("deque_apply", da)):
-        print(f"[kernels] {name}: exact; device per launch: kernel "
-              f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
-              f"{r['library_ms']} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']}, {r['bytes']} bytes); eager wrapper call "
-              f"{r['call_ms']:.6f} ms")
-    return {"steal_compact": sc, "deque_apply": da}
+          f"on the device (graph replay, as every kernel time here); "
+          f"steal_compact's bound or the floor, whichever is larger: "
+          f"{max(sc['bound_ms'], floor):.6f} ms at {W_MAIN} rows, "
+          f"{max(sc_g['bound_ms'], floor):.6f} ms at {W_MAIN * len(SWEEP_GRID)}")
+    return {"steal_compact": sc, "deque_apply": da}, floor
 
 
 def _flash_work(B, KV, G, S, hd, causal, window, elt):
@@ -933,7 +964,7 @@ def phase_main_path(torch, np, sim, topo, tasks, ops):
               f"{k_ms / k_n * 1e3:.3f} us each")
         for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
             print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
-    return launches, profiled
+    return launches, profiled, first
 
 
 def _drained_cpu_run(strategy_value: str):
@@ -996,6 +1027,164 @@ def phase_drained(torch, np, sim, topo, tasks, ops):
                   f"card {dt_g:.3f} s ({dt_g / rg.events * 1e3:.3f} ms/event), "
                   f"launches={counts}, cpu {dt_c:.3f} s in a worker process, "
                   f"card == cpu")
+
+
+# the sweep: the crossover's own axes over the main path's configuration,
+# strategy x tau x seed (18 points, G·W = 73,728 workers in one carry)
+SWEEP_GRID = tuple((strategy, tau, seed) for strategy in ("neighbor", "global")
+                   for tau in (2, 5, 10) for seed in (0, 1, 2))
+
+
+def _sweep_params(sim, grid):
+    code = sim.stealing.strategy_code
+    return [sim.SimParams(strategy=code(s), hop_ticks=tau, seed=seed)
+            for s, tau, seed in grid]
+
+
+def phase_sweep(torch, np, sim, topo, tasks, ops, main_run):
+    """The 18-point grid at W=4096 in one `simulate_sweep` (one core call,
+    one graph capture): every point equal, field for field with `events`,
+    to the port's per-point `simulate` on the card, the (neighbor, 5, 0)
+    point equal to `[main]`'s leap/loop run; walls of the grid and of the
+    per-point runs, a profiled 300-tick window of the grid; then a staged
+    sweep of 6 points (`deque_apply` at G·W rows) equal to the loop sweep's.
+    Returns (launches by kernel, steal_compact's in-graph ms a launch)."""
+    mesh, wl, base = _main_setup(sim, topo, tasks)
+    cfg = sim.SimConfig(**base)
+    pts = _sweep_params(sim, SWEEP_GRID)
+    G = len(pts)
+    # a short grid first, untimed: its capture and first launches at G·W rows
+    sim.simulate_sweep(wl, mesh, sim.SimConfig(**{**base, "max_ticks": 20}), pts)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    cores = sim.core_count()
+    t0 = time.perf_counter()
+    grid = sim.simulate_sweep(wl, mesh, cfg, pts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    if sim.core_count() - cores != 1:
+        raise SystemExit(f"sweep: {sim.core_count() - cores} core calls for one grid")
+    if counts["steal_compact"] == 0:
+        raise SystemExit("sweep: steal_compact was never launched")
+    events = [r.events for r in grid]
+    print(f"[sweep] W={W_MAIN} x {G} points (G·W = {G * W_MAIN}): wall {wall:.3f} s, "
+          f"one core call; per-point events {min(events)}..{max(events)} "
+          f"(the loop's iterations: {max(events)}, then the masked ones up to "
+          f"the done-flag read); launches {counts}")
+    # the port's per-point runs on the card
+    walls = []
+    for (s, tau, seed), p, r in zip(SWEEP_GRID, pts, grid):
+        one_cfg = sim.SimConfig(**{**base, "strategy": sim.stealing.Strategy(s),
+                                   "hop_ticks": tau, "seed": seed})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one = sim.simulate(wl, mesh, one_cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        _assert_equal(np, one, r, what=f"sweep point ({s}, {tau}, {seed}) vs its own run")
+        print(f"[sweep] ({s}, tau {tau}, seed {seed}): ticks={r.ticks} "
+              f"events={r.events} nodes={r.nodes} overflow={r.overflow} "
+              f"per-point run {walls[-1]:.3f} s, equal field for field")
+    k = SWEEP_GRID.index(("neighbor", 5, 0))
+    _assert_equal(np, main_run, grid[k], what="sweep (neighbor, 5, 0) vs [main]")
+    if grid[k].events != MAIN_EVENTS[64]:
+        raise SystemExit(f"sweep (neighbor, 5, 0): {grid[k].events} events")
+    ticks = sum(r.ticks for r in grid)
+    print(f"[sweep] every point equals its own run; (neighbor, 5, 0) equals [main] "
+          f"({grid[k].events} events). Grid {wall:.3f} s against the {G} per-point "
+          f"runs' {sum(walls):.3f} s: ratio {sum(walls) / wall:.3f}; "
+          f"sum of ticks / grid wall = {ticks / wall:.2f} ticks/s "
+          f"({ticks / sum(walls):.2f} sequentially); "
+          f"{wall / max(events) * 1e3:.3f} ms a loop iteration")
+    # where the time goes: a 300-tick window of the grid, timed, then profiled
+    win = sim.SimConfig(**{**base, "max_ticks": 300})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters = max(r.events for r in sim.simulate_sweep(wl, mesh, win, pts))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, n_dev, by_name = _profile(torch, lambda: sim.simulate_sweep(wl, mesh, win, pts))
+    hits = [v for name, v in by_name.items() if "steal_compact_kernel" in name]
+    k_ms, k_n = sum(ms for ms, _ in hits), sum(c for _, c in hits)
+    if k_n == 0:
+        raise SystemExit("profile of the sweep: no steal_compact kernel seen")
+    print(f"[profile] sweep W={W_MAIN} x {G}, 300 ticks, {iters} loop iterations: "
+          f"device busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+          f"{busy / wall_ms:.4f}); {n_dev} device activities = {n_dev / iters:.1f} "
+          f"per iteration; steal_compact {k_n}x, {k_ms / k_n * 1e3:.3f} us each "
+          f"at {G * W_MAIN} rows")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+    # the staged backend: deque_apply at G·W rows, equal to the loop sweep
+    six = [i for i, (_, _, seed) in enumerate(SWEEP_GRID) if seed == 0]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    staged = sim.simulate_sweep(wl, mesh, sim.SimConfig(**base, deque_backend="staged"),
+                                [pts[i] for i in six])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    staged_counts = dict(ops.LAUNCHES)
+    if staged_counts["deque_apply"] == 0:
+        raise SystemExit("staged sweep: deque_apply was never launched")
+    for i, r in zip(six, staged):
+        _assert_equal(np, grid[i], r, what=f"staged sweep point {SWEEP_GRID[i]}")
+    print(f"[sweep] staged backend, {len(six)} points (seed 0; G·W = "
+          f"{len(six) * W_MAIN}): {dt:.3f} s, every point equal to the loop "
+          f"sweep's; launches {staged_counts}")
+    return ({"steal_compact": counts["steal_compact"],
+             "deque_apply": staged_counts["deque_apply"]}, k_ms / k_n)
+
+
+# the reference's crossover at BENCH_crossover.json's settings (sizes 16, 25,
+# 36, 64; tau 2, 5; 3 runs; FIB n=26 cutoff=12 max_leaf_cost=16; capacity
+# 2048; 5,000,000 ticks): each point's ticks, one per seed, from
+# `benchmarks.sweep.crossover(..., rtt_hists=False)` of the JAX package on a
+# CPU. The checked-in BENCH_crossover.json holds other ticks at every point
+# (an artifact older than the reference as it stands)
+CROSSOVER_TICKS = {
+    (16, 2, "neighbor"): [1001, 1023, 1008], (16, 2, "global"): [1077, 1076, 1074],
+    (16, 5, "neighbor"): [1191, 1094, 1179], (16, 5, "global"): [1382, 1296, 1259],
+    (25, 2, "neighbor"): [738, 764, 781], (25, 2, "global"): [846, 781, 782],
+    (25, 5, "neighbor"): [868, 872, 916], (25, 5, "global"): [1194, 1249, 1325],
+    (36, 2, "neighbor"): [755, 703, 660], (36, 2, "global"): [713, 681, 748],
+    (36, 5, "neighbor"): [1016, 899, 925], (36, 5, "global"): [989, 1021, 1272],
+    (64, 2, "neighbor"): [639, 727, 703], (64, 2, "global"): [621, 773, 600],
+    (64, 5, "neighbor"): [808, 954, 817], (64, 5, "global"): [975, 1100, 1164]}
+
+
+def phase_crossover(torch, ops):
+    """The port's crossover benchmark at BENCH_crossover.json's settings, one
+    grid a size on the card; every point's ticks must equal the
+    reference's (CROSSOVER_TICKS). Returns steal_compact's launches."""
+    from repro_torch.benchmarks import sweep
+    from repro_torch.core import tasks
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    doc = sweep.crossover((16, 25, 36, 64), taus=(2, 5), runs=3,
+                          workload=tasks.FibWorkload(n=26, cutoff=12, max_leaf_cost=16),
+                          capacity=2048, max_ticks=5_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES["steal_compact"]
+    got = {(p["N"], p["tau"], p["strategy"]): p["ticks"] for p in doc["points"]}
+    if got != CROSSOVER_TICKS:
+        bad = sorted(k for k in CROSSOVER_TICKS if got.get(k) != CROSSOVER_TICKS[k])
+        raise SystemExit(f"crossover: ticks differ from the reference's at {bad}: "
+                         f"{[(k, got.get(k), CROSSOVER_TICKS[k]) for k in bad]}")
+    if doc["traces_per_size"] != {str(n): 1 for n in (16, 25, 36, 64)} or not launches:
+        raise SystemExit(f"crossover: core calls {doc['traces_per_size']}, "
+                         f"steal_compact launches {launches}")
+    print(f"[crossover] sizes 16, 25, 36, 64 x tau 2, 5 x 3 seeds x 2 strategies, one "
+          f"core call a size: {wall:.3f} s; every point's ticks equal the "
+          f"reference's; ratios neighbor/global "
+          + ", ".join(f"N={c['N']} tau={c['tau']}: {c['ratio_neighbor_over_global']:.4f}"
+                      for c in doc["crossover"])
+          + f"; steal_compact launches {launches}")
+    return launches
 
 
 SERVE_BATCH, SERVE_NEW = 8, 64
@@ -1277,15 +1466,23 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     seq_only = _start_wkv6_seq_only(build)
     phase_build(build)
-    kern = phase_kernels(torch, np, ops, ref, deque, tasks)
+    kern, floor = phase_kernels(torch, np, ops, ref, deque, tasks)
     kern.update(phase_attention(torch, ops, ref))
     kern.update(phase_wkv6(torch, ops, ref, build, seq_only))
     kern.update(phase_rglru(torch, ops, ref, build))
+    print(f"[kernels] rglru decode: bound {kern['rglru']['decode_bound_ms']:.6f} ms, "
+          f"its bound or the launch floor, whichever is larger: "
+          f"{max(kern['rglru']['decode_bound_ms'], floor):.6f} ms")
     # main-path launches by kernel and path, each path's counts read just
     # after it ran from counts set to 0 just before it
-    launches, profiled = phase_main_path(torch, np, sim, topo, tasks, ops)
+    launches, profiled, main_run = phase_main_path(torch, np, sim, topo, tasks, ops)
     by_path = {k: {"main": n} for k, n in launches.items()}
     phase_drained(torch, np, sim, topo, tasks, ops)
+    sweep_launches, kern["steal_compact"]["sweep_main_path_device_ms"] = phase_sweep(
+        torch, np, sim, topo, tasks, ops, main_run)
+    for name, n in sweep_launches.items():
+        by_path[name]["sweep"] = n
+    by_path["steal_compact"]["crossover"] = phase_crossover(torch, ops)
     # the serving paths, one model at a time (each frees its weights)
     serving = {}
     for tag, arch, prompt_len, note in (
@@ -1328,7 +1525,7 @@ def main() -> int:
          "call_ms": kern[name]["call_ms"],
          "main_path_device_ms": profiled[name],
          **{k: v for k, v in kern[name].items()
-            if k.startswith(("decode_", "main_", "hd256_", "fp32_"))
+            if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_"))
             and k not in ("hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),

@@ -19,7 +19,9 @@ tensor (a 0-d tick on the device, or a column of F ticks), so the
 simulator derives each tick's key on the device with no host round trip.
 The draws broadcast a key against the (n,) counters: a key of shape (F, 1)
 draws an (F, n) block in one threefry pass, whose row j equals the draw of
-the key in row j. uint32 arithmetic is carried in int64 and masked with
+the key in row j; leading axes broadcast too, so a grid of G points' keys
+of shape (G, F, 1) draws a (G, F, n) block. `PRNGKey` of a tensor of seeds
+gives one key per seed. uint32 arithmetic is carried in int64 and masked with
 ``& 0xFFFFFFFF`` (CUDA tensors have no general uint32 arithmetic); the same
 functions work on Python ints.
 """
@@ -47,11 +49,16 @@ def threefry2x32(key, x0, x1):
             x0 = x0 + x1
             x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & MASK32
         x0 = x0 + ks[(i + 1) % 3]
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+        # the constant joins the key word first: one add on the counters
+        x1 = (x1 + (ks[(i + 2) % 3] + (i + 1))) & MASK32
     return x0 & MASK32, x1
 
 
-def PRNGKey(seed: int) -> tuple[int, int]:
+def PRNGKey(seed):
+    """``jax.random.PRNGKey(seed)`` for a non-negative seed: a pair of ints,
+    or for an integer tensor of seeds ``(0, seeds)`` with `seeds` as int64."""
+    if isinstance(seed, torch.Tensor):
+        return (0, seed.to(torch.int64) & MASK32)
     return (0, int(seed) & MASK32)
 
 

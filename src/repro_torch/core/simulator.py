@@ -25,12 +25,19 @@ Each loop iteration is one function of device tensors (`iteration`):
     mode's and do not depend on `famine_batch`, except `events`, the count
     of loop iterations, which equals the reference's.
 
-The clock, the liveness flag and the iteration count are 0-d tensors and
-each tick's key is derived on the device, so nothing in an iteration waits
-for the host; an iteration run after the loop's condition ``live & (t <
-max_ticks)`` turned false changes nothing. The host reads that condition
-once every `DONE_EVERY` iterations. On the CPU the iterations run eagerly
-(the plain path); on the card they are captured once as a CUDA graph and
+The core runs a grid of G points at once (`simulate_sweep`,
+`simulate_batch`; `simulate` is a grid of one): every state leaf has a
+leading G axis, the deques enter the deque layer and its kernels as G·W
+rows, each point has its own clock, liveness flag and iteration count
+((G, 1) columns), its own key, strategy, τ, escalation threshold, grant
+budget and checkpoint interval, and every reduction and cross-worker index
+stays inside its point. The grid's strategies are known on the host: only
+their branches run. Each tick's key is derived on the device, so nothing in
+an iteration waits for the host; a point whose condition ``live & (t <
+max_ticks)`` turned false keeps its state, so it stays as its own run left
+it while the others run on. The host reads whether any point is live once
+every `DONE_EVERY` iterations. On the CPU the iterations run eagerly (the
+plain path); on the card they are captured once as a CUDA graph and
 replayed (`_replay_loop`).
 
 Deque backends: ``deque_backend="loop"`` commits each deque mutation on its
@@ -157,7 +164,8 @@ class StaticConfig:
 
 
 class SimParams(NamedTuple):
-    """The data half of a `SimConfig`, as plain ints."""
+    """The data half of a `SimConfig`: plain ints for one point, (G,) int32
+    tensors for a grid (`stack_params`)."""
     strategy: int = stealing.NEIGHBOR_CODE
     hop_ticks: int = 5
     escalate_after: int = 4
@@ -170,6 +178,9 @@ class SimParams(NamedTuple):
 
 
 class SimState(NamedTuple):
+    """The loop's state. Inside the core every leaf has a leading grid axis
+    G: (G, W, ...) for the per-worker leaves below, (G, 1) for the
+    per-point scalars (shown as ())."""
     deque: dq.DequeState
     acc: torch.Tensor          # (W,) int32 mod-RESULT_MOD checksum
     work: torch.Tensor         # (W,) int32 remaining ticks on current expansion
@@ -247,20 +258,6 @@ def _mesh_tables(mesh: topo.MeshTopology, device) -> dict:
     }
 
 
-def _select(code: int, escalate_after: int, tbl, key, is_thief, fails, W: int):
-    """Victim selection for the strategy `code`, with the same key usage as
-    the reference's per-strategy branches."""
-    if code == stealing.GLOBAL_CODE:
-        return stealing.choose_global(key, W, is_thief)
-    if code == stealing.NEIGHBOR_CODE:
-        return stealing.choose_neighbor(key, tbl["neighbors"], is_thief)
-    if code == stealing.LIFELINE_CODE:
-        return stealing.choose_lifeline(key, tbl["lifelines"], fails, W,
-                                        is_thief)
-    return stealing.choose_adaptive(key, tbl["neighbors"], tbl["radius2"],
-                                    fails, is_thief, escalate_after)
-
-
 def _lane_budget() -> int:
     """Push-log width of the staged backend on the no-recovery path: the
     expansion children plus the thief-side loot import. Recovery and
@@ -268,82 +265,65 @@ def _lane_budget() -> int:
     return tasks.EXPAND_K + 1
 
 
-class _LoopDeques:
-    """Per-op deque backend: every mutation commits its own buffer."""
+class _Deques:
+    """One tick's view of the grid's (G, W, ...) deques, which the
+    deque layer sees as G·W rows. Loop backend (`lanes` None): every
+    mutation commits its own buffer. Staged backend: mutations accumulate
+    in a `deque.DequeOps` delta with an `lanes`-wide push log, and
+    `finish()` commits the tick in one pass."""
 
-    def __init__(self, state: dq.DequeState):
-        self.st = state
-
-    @property
-    def size(self):
-        return self.st.size
-
-    def push(self, task, mask):
-        self.st, ok = dq.push_top(self.st, task, mask)
-        return ok
-
-    def push_many(self, tasks_, counts):
-        self.st, over = dq.push_top_many(self.st, tasks_, counts)
-        return over
-
-    def pop(self, mask):
-        self.st, task, ok = dq.pop_top(self.st, mask)
-        return task, ok
-
-    def export(self, grants, width):
-        stolen, self.st = dq.export_bottom(self.st, grants, width)
-        return stolen
-
-    def finish(self) -> dq.DequeState:
-        return self.st
-
-
-class _StagedDeques:
-    """Staged deque backend: mutations accumulate in a `deque.DequeOps`
-    delta and `finish()` commits the tick in one pass."""
-
-    def __init__(self, state: dq.DequeState, lanes: int):
-        self.ops = dq.stage(state, lanes)
+    def __init__(self, state: dq.DequeState, lanes: int | None):
+        self.gw = tuple(state.size.shape)
+        rows = dq.DequeState(*(x.flatten(0, 1) for x in state))
+        self.staged = lanes is not None
+        self.st = dq.stage(rows, lanes) if self.staged else rows
 
     @property
     def size(self):
-        return self.ops.size
+        return self.st.size.view(self.gw)
 
     def push(self, task, mask):
-        self.ops, ok = dq.stage_push(self.ops, task, mask)
-        return ok
+        fn = dq.stage_push if self.staged else dq.push_top
+        self.st, ok = fn(self.st, task.flatten(0, 1), mask.flatten())
+        return ok.view(self.gw)
 
     def push_many(self, tasks_, counts):
-        self.ops, over = dq.stage_push_many(self.ops, tasks_, counts)
-        return over
+        fn = dq.stage_push_many if self.staged else dq.push_top_many
+        self.st, over = fn(self.st, tasks_.flatten(0, 1), counts.flatten())
+        return over.view(self.gw)
 
     def pop(self, mask):
-        self.ops, task, ok = dq.stage_pop(self.ops, mask)
-        return task, ok
+        fn = dq.stage_pop if self.staged else dq.pop_top
+        self.st, task, ok = fn(self.st, mask.flatten())
+        return task.unflatten(0, self.gw), ok.view(self.gw)
 
     def export(self, grants, width):
-        self.ops, stolen = dq.stage_export(self.ops, grants, width)
-        return stolen
+        if self.staged:
+            self.st, stolen = dq.stage_export(self.st, grants.flatten(), width)
+        else:
+            stolen, self.st = dq.export_bottom(self.st, grants.flatten(), width)
+        return stolen.unflatten(0, self.gw)
 
     def finish(self) -> dq.DequeState:
-        return dq.apply(self.ops)
+        rows = dq.apply(self.st) if self.staged else self.st
+        return dq.DequeState(*(x.unflatten(0, self.gw) for x in rows))
 
 
-def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor,
-                        p: SimParams) -> torch.Tensor:
-    """Clip `ne` at the next periodic checkpoint tick. Deaths, wake-ups,
-    epochs and arrivals join with their slices."""
-    if p.ckpt_interval > 0:
-        ck = p.ckpt_interval
-        ne = torch.minimum(ne, t + ((ck - t % ck) % ck))
+def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt) -> torch.Tensor:
+    """Clip `ne` at each point's next periodic checkpoint tick. `ckpt` is
+    None when no point of the grid checkpoints, else per point (interval
+    clamped to >= 1, interval > 0). Deaths, wake-ups, epochs and arrivals
+    join with their slices."""
+    if ckpt is not None:
+        every, on = ckpt
+        ne = torch.where(on, torch.minimum(ne, t + ((every - t % every) % every)), ne)
     return ne
 
 
-def _next_event(state: SimState, t: torch.Tensor, p: SimParams,
-                W: int) -> torch.Tensor:
-    """First tick >= t at which any worker does more than a bulk decrement
-    (0-d int32). Conservative: an early answer costs one loop iteration,
-    never correctness."""
+def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int) -> torch.Tensor:
+    """Per point, the first tick >= t at which any of its workers does more
+    than a bulk decrement ((G, 1) int32, as `t`). Conservative: an early
+    answer costs one loop iteration, never correctness."""
     alive = state.alive
     run = (state.phase == PHASE_RUN) & alive
     # burning workers: event when work hits 0
@@ -358,32 +338,29 @@ def _next_event(state: SimState, t: torch.Tensor, p: SimParams,
     # in-flight steal messages arrive when the timer reaches 0
     flight = (state.phase != PHASE_RUN) & alive
     ev = torch.where(flight, t + (state.timer - 1).clamp(min=0), ev)
-    return _scheduled_horizons(ev.amin(), t, p)
+    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt)
 
 
-def _famine_horizon(state: SimState, t: torch.Tensor, p: SimParams, W: int,
-                    window: int, strategy: stealing.Strategy, tbl,
+def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
+                    hop_ticks: torch.Tensor,
                     victim_hops: torch.Tensor) -> torch.Tensor:
-    """First tick >= t at which any deque size can change (or a checkpoint
-    fires): the famine window's horizon (0-d int32).
+    """Per point, the first tick >= t at which any deque size can change (or
+    a checkpoint fires): the famine window's horizon ((G, 1) int32).
 
     Within ``[t, horizon)`` no worker with a nonempty deque reaches an
     expansion, no request arrives at a nonempty victim, no granted loot is
     delivered, and no thief whose drawable victims could hold work
-    (`stealing.probe_may_succeed`) starts a probe. So every deque size stays
-    frozen and every attempt in the window fails: the stretch reduces to
-    burn-downs, flight timers and failing probe cycles, which the famine
-    replay advances. Probe starts, arrivals and deliveries of those failing
-    cycles are not events here. The closed system this module runs has no
-    failures, stragglers, link state or arrivals: every worker is alive,
-    every tick is an active tick and no worker is retired. `victim_hops` is
-    each worker's hop count to its current victim.
+    (`probe`, the point's `stealing.probe_may_succeed`) starts a probe. So
+    every deque size stays frozen and every attempt in the window fails: the
+    stretch reduces to burn-downs, flight timers and failing probe cycles,
+    which the famine replay advances. Probe starts, arrivals and deliveries
+    of those failing cycles are not events here. The closed system this
+    module runs has no failures, stragglers, link state or arrivals: every
+    worker is alive, every tick is an active tick and no worker is retired.
+    `victim_hops` is each worker's hop count to its current victim.
     """
     nonempty = state.deque.size > 0
-    risky = stealing.probe_may_succeed(
-        strategy, nonempty, state.fails, tbl["neighbors"], tbl["radius2"],
-        escalate_after=p.escalate_after, window=window,
-        min_cycle=max(2 * p.hop_ticks - 1, 1), num_workers=W)
+    risky = probe(nonempty, state.fails)
     never = torch.full_like(state.work, _NEVER)
     # holders expand when their burn ends; risky thieves (a drawable victim
     # may be nonempty) end the window at their next probe opportunity
@@ -395,16 +372,16 @@ def _famine_horizon(state: SimState, t: torch.Tensor, p: SimParams, W: int,
     # own deque is nonempty expands right after its delivery
     is_req = state.phase == PHASE_REQ
     v = state.victim.clamp(0, W - 1).long()
-    flight_risky = torch.where(is_req, nonempty[v], state.got) | nonempty
+    flight_risky = torch.where(is_req, nonempty.gather(-1, v), state.got) | nonempty
     arrive = t + (state.timer - 1).clamp(min=0)
     flight_ev = torch.where(flight_risky, arrive, never)
     # a risky flier fails its present attempt, but its next draw may hit a
     # nonempty deque: the window ends before that probe starts
-    back = victim_hops * p.hop_ticks
+    back = victim_hops * hop_ticks
     deliver = torch.where(is_req, arrive + (back - 1).clamp(min=0), arrive)
     flight_ev = torch.minimum(flight_ev, torch.where(risky, deliver + 1, never))
     ev = torch.where(state.phase != PHASE_RUN, flight_ev, ev)
-    return _scheduled_horizons(ev.amin(), t, p)
+    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt)
 
 
 def _min_draw_hops(mesh: topo.MeshTopology, code: int) -> int:
@@ -421,9 +398,16 @@ def _min_draw_hops(mesh: topo.MeshTopology, code: int) -> int:
     return int(hops.min()) if hops.numel() else 1
 
 
+def _lead(run: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The per-point flag `run` ((G, 1)) shaped to broadcast along the
+    leading (grid) axis of `x`, whatever its trailing axes."""
+    return run.reshape(run.shape[:1] + (1,) * (x.dim() - 1))
+
+
 def _masked(run: torch.Tensor, new, old):
-    """`new` where `run`, else `old`, leaf by leaf through the state's named
-    tuples; a leaf that is the same tensor on both sides is kept."""
+    """`new` where `run`, else `old`, per point and leaf by leaf through the
+    state's named tuples; a leaf that is the same tensor on both sides is
+    kept."""
     if isinstance(old, tuple):
         leaves = [_masked(run, n, o) for n, o in zip(new, old)]
         return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
@@ -431,7 +415,7 @@ def _masked(run: torch.Tensor, new, old):
         return old
     if new.dtype != old.dtype:  # the card's loop writes `new` into `old`
         raise TypeError(f"an iteration turned a {old.dtype} leaf into {new.dtype}")
-    return torch.where(run, new, old)
+    return torch.where(_lead(run, old), new, old)
 
 
 def _leaves(tree) -> list:
@@ -440,12 +424,12 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _clone(tree):
-    """A copy of a tree of tensors, every leaf in its own storage."""
+def _map(fn, tree):
+    """`fn` applied to every tensor of a tree of named tuples."""
     if isinstance(tree, tuple):
-        leaves = [_clone(x) for x in tree]
+        leaves = [_map(fn, x) for x in tree]
         return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
-    return tree.clone()
+    return fn(tree)
 
 
 # options beyond the closed system: what each is, and its ROADMAP Queue 1 item
@@ -460,6 +444,7 @@ _NOT_PORTED = {
     "routing_backend": ("the link-state routing tables (routing_backend)", 10),
     "trace": ("the flight recorder (trace)", 11),
     "arrivals": ("open-loop arrivals (arrivals, arrival_gap_q8)", 12),
+    "devices": ("a grid sharded over several devices (devices)", "13b"),
 }
 
 
@@ -469,7 +454,7 @@ def _not_ported(what: str):
                                f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def _check_cfg(cfg: SimConfig):
+def _check_static(cfg: StaticConfig):
     if cfg.step_mode not in ("leap", "tick"):
         raise ValueError(f"step_mode must be 'leap' or 'tick', got {cfg.step_mode!r}")
     if cfg.deque_backend not in (None, "staged", "loop"):
@@ -480,15 +465,12 @@ def _check_cfg(cfg: SimConfig):
         raise ValueError(f"max_ticks must stay below {_NEVER}")
     if cfg.famine_batch < 0:
         raise ValueError("famine_batch must be >= 0 (0 disables the fast path)")
-    _check_params(cfg.params)
     if cfg.recovery != Recovery.NONE:
         raise _not_ported("recovery")
     if cfg.preshed:
         raise _not_ported("preshed")
     if cfg.trace is not None:
         raise _not_ported("trace")
-    if cfg.arrival_gap_q8 > 0:
-        raise _not_ported("arrivals")
 
 
 def _check_params(p: SimParams):
@@ -496,8 +478,8 @@ def _check_params(p: SimParams):
         raise ValueError(
             "max_grants_per_victim must be <= stealing.GRANT_WIDTH "
             f"({stealing.GRANT_WIDTH}), got {int(p.max_grants_per_victim)}")
-    if not 0 <= int(p.strategy) < len(stealing.CODE_STRATEGIES):
-        raise ValueError(f"unknown strategy code {int(p.strategy)}")
+    if not 0 <= stealing.strategy_code(p.strategy) < len(stealing.CODE_STRATEGIES):
+        raise ValueError(f"unknown strategy code {stealing.strategy_code(p.strategy)}")
     if int(p.hop_ticks) < 0:
         raise ValueError("hop_ticks must be >= 0")
     if not 0 <= int(p.arrival_gap_q8) < (1 << 31):
@@ -505,66 +487,133 @@ def _check_params(p: SimParams):
     if not 1 <= int(p.arrival_batch) <= ARRIVAL_K:
         raise ValueError(f"arrival_batch must be in [1, {ARRIVAL_K}], "
                          f"got {int(p.arrival_batch)}")
+    if int(p.arrival_gap_q8) > 0:
+        raise _not_ported("arrivals")
 
 
-def _resolve_device(device) -> torch.device:
+def _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
+                    routing_backend, arrivals):
+    for name, arg in (("fail_time", fail_time), ("speed", speed),
+                      ("linkstate", linkstate), ("wake_time", wake_time),
+                      ("fail_period", fail_period), ("arrivals", arrivals)):
+        if arg is not None:
+            raise _not_ported(name)
+    if routing_backend != "auto":
+        raise _not_ported("routing_backend")
+
+
+def _resolve_device(device, cfg: StaticConfig) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "repro_torch.simulate runs on a CUDA device by default and none "
-            "is available; pass device='cpu' to run the plain PyTorch path")
+            "repro_torch's simulator runs on a CUDA device by default and "
+            "none is available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda" and cfg.use_steal_kernel is False:
+        raise ValueError(
+            "use_steal_kernel=False asks for the kernels' plain versions, "
+            "which run only for CPU tensors: on a CUDA device the simulator "
+            "always runs the hand-written kernels; pass device='cpu' for "
+            "the plain path")
     return dev
+
+
+# Bumped once per `_sim_core` call, i.e. per grid: on the card, one CUDA
+# graph capture. Read via `core_count()`, the port's mirror of the
+# reference's `trace_count()`.
+_CORE_COUNT = 0
+
+
+def core_count() -> int:
+    """Number of `_sim_core` calls in this process: one per `simulate`,
+    `simulate_batch` or `simulate_sweep` call, whatever the grid's size."""
+    return _CORE_COUNT
 
 
 def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
               p: SimParams, device: torch.device):
+    """Run the grid `p` (`stack_params`: G points) through one loop on
+    `device`. Returns (state, ticks, iters): every state leaf with a leading
+    G axis, per-point scalars as (G, 1) columns; ticks and iters (G,)."""
+    global _CORE_COUNT
+    _CORE_COUNT += 1
     W = mesh.num_workers
+    G = int(p.strategy.shape[0])
     tbl = _mesh_tables(mesh, device)
     coords = tbl["coords"]
     tables = workload.tables(device)
     S = cfg.supervision_slots
-    code, escalate_after = int(p.strategy), int(p.escalate_after)
-    strategy = stealing.CODE_STRATEGIES[code]
-    hop_ticks, max_grants = int(p.hop_ticks), int(p.max_grants_per_victim)
-    key0 = rng.PRNGKey(p.seed)
-    on_cuda = device.type == "cuda"
-    staged = cfg.deque_backend == "staged"
-    lanes = _lane_budget()
-    leap_mode = cfg.step_mode == "leap"
-    # the famine fast path runs in leap mode; the reference gates it off for
-    # LIFELINE (its thieves park on lifelines: no probe churn to collapse)
-    FB = (cfg.famine_batch
-          if leap_mode and code != stealing.LIFELINE_CODE else 0)
-    # each probe cycle takes >= 2·h·τ − 1 ticks (>= 1), so a famine window of
-    # FB ticks holds at most `rounds` draws per worker
-    min_cycle = max(2 * _min_draw_hops(mesh, code) * hop_ticks - 1, 1)
-    rounds = -(-FB // min_cycle)
 
-    deques = dq.make(W, cfg.capacity, device=device)
+    def col(x):  # a per-point parameter as a (G, 1) column on the device
+        return x.to(device=device, dtype=_I32)[:, None]
+
+    # the grid's strategies, known on the host: only their branches run
+    codes, taus = p.strategy.tolist(), p.hop_ticks.tolist()
+    present = sorted(set(codes))
+    drawn = [c for c in present if c != stealing.LIFELINE_CODE]
+    lifeline = stealing.LIFELINE_CODE in present
+    code, hop_ticks = col(p.strategy), col(p.hop_ticks)
+    escalate_after = col(p.escalate_after)
+    max_grants = col(p.max_grants_per_victim)
+    key0 = rng.PRNGKey(col(p.seed))
+    gidx = torch.arange(G, device=device)[:, None]
+    # each drawn strategy draws for its own points only (LIFELINE points,
+    # whose rows are never read, ride with the first): `rows` lists the
+    # points in the order the strategies' blocks are joined, `order` puts
+    # them back in grid order (None when they already are)
+    groups = {c: [g for g, x in enumerate(codes)
+                  if x == c or (c == drawn[0] and x == stealing.LIFELINE_CODE)]
+              for c in drawn}
+    rows = [g for c in drawn for g in groups[c]]
+    order = (None if rows == sorted(rows)
+             else torch.as_tensor(np.argsort(rows), device=device))
+    sel = {c: None if len(groups[c]) == G
+           else torch.as_tensor(groups[c], device=device) for c in drawn}
+    keys = {c: key0 if sel[c] is None else (0, key0[1][sel[c]]) for c in drawn}
+    ckpt = None
+    if max(p.ckpt_interval.tolist()) > 0:
+        every = col(p.ckpt_interval)
+        ckpt = (every.clamp(min=1), every > 0)
+    on_cuda = device.type == "cuda"
+    lanes = _lane_budget() if cfg.deque_backend == "staged" else None
+    leap_mode = cfg.step_mode == "leap"
+    # the famine fast path runs in leap mode; the reference gates it off per
+    # point for LIFELINE (its thieves park on lifelines: no probe churn to
+    # collapse), so a LIFELINE point replays no tick
+    FB = cfg.famine_batch if leap_mode and drawn else 0
+    # each probe cycle takes >= 2·h·τ − 1 ticks (>= 1), so a famine window of
+    # FB ticks holds at most `rounds` draws per worker; the shortest cycle of
+    # the grid's famine points sets it (extra rounds draw nothing)
+    h_min = {c: _min_draw_hops(mesh, c) for c in drawn}
+    min_cycle = min((max(2 * h_min[c] * tau - 1, 1)
+                     for c, tau in zip(codes, taus) if c in h_min), default=1)
+    rounds = -(-FB // min_cycle)
+    # the reference's bound on a probe cycle, per point, and 2·τ against the
+    # (G, FB, W) draws
+    probe_cycle = (2 * hop_ticks - 1).clamp(min=1)
+    tau2 = 2 * hop_ticks[..., None]
+
+    deques = dq.make(G * W, cfg.capacity, device=device)
     T = deques.buf.shape[2]
     root = torch.as_tensor(workload.root_task(), device=device)
     assert root.shape[-1] == T, (
         f"root task width {root.shape[-1]} != deque record width {T}")
-    deques, _ = dq.push_top(deques, root[None].expand(W, T),
-                            torch.arange(W, device=device) == 0)
-
-    def session(deq):
-        if staged:
-            return _StagedDeques(deq, lanes)
-        return _LoopDeques(deq)
+    # each point's root task on its worker 0
+    deques, _ = dq.push_top(deques, root[None].expand(G * W, T),
+                            torch.arange(G * W, device=device) % W == 0)
+    deques = dq.DequeState(*(x.unflatten(0, (G, W)) for x in deques))
 
     def zeros(*shape, dtype=_I32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    def scalar(v):
-        return torch.tensor(v, dtype=_I32, device=device)
+    def scalar(v):  # a per-point scalar leaf: a (G, 1) column
+        return torch.full((G, 1), v, dtype=_I32, device=device)
 
-    z = zeros(W)
+    z = zeros(G, W)
     state0 = SimState(
         deque=deques, acc=z, work=z, fails=z, phase=z, timer=z, victim=z - 1,
-        loot=zeros(W, T), got=zeros(W, dtype=torch.bool),
-        alive=torch.ones((W,), dtype=torch.bool, device=device),
-        sup_buf=zeros(W, S, T), sup_thief=zeros(W, S) - 1, sup_n=z,
+        loot=zeros(G, W, T), got=zeros(G, W, dtype=torch.bool),
+        alive=torch.ones((G, W), dtype=torch.bool, device=device),
+        sup_buf=zeros(G, W, S, T), sup_thief=zeros(G, W, S) - 1, sup_n=z,
         attempts=z, successes=z, nodes=z, busy=z, steal_wait=z,
         hops_lo=scalar(0), hops_hi=scalar(0), ckpt_count=scalar(0),
         overflow=z, stolen_from=z, hiwater=deques.size,
@@ -572,16 +621,43 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         arr_dropped=scalar(0), arr_done=scalar(0), soj_lo=scalar(0),
         soj_hi=scalar(0))
 
+    def probe(nonempty, fails):
+        """Each point's `stealing.probe_may_succeed`, by its strategy
+        (LIFELINE points take the first strategy's: their famine replay is
+        gated off)."""
+        risky = None
+        for c in drawn:
+            r = stealing.probe_may_succeed(
+                stealing.CODE_STRATEGIES[c], nonempty, fails, tbl["neighbors"],
+                tbl["radius2"], escalate_after=escalate_after, window=FB,
+                min_cycle=probe_cycle, num_workers=W)
+            risky = r if risky is None else torch.where(code == c, r, risky)
+        return risky
+
     def draws(t: torch.Tensor):
-        """All-thieves victim draws of ticks t .. t + FB, one row a tick
-        (`stealing.batched_victim_draws`): row 0 serves this tick, rows
-        1.. the famine replay. (None, None) for LIFELINE, which selects per
-        tick with its own key."""
-        if code == stealing.LIFELINE_CODE:
+        """All-thieves victim draws of ticks t .. t + FB, one (G, 1 + FB, W)
+        block by each point's strategy, key and tick
+        (`stealing.batched_victim_draws`, each strategy on its own points):
+        row 0 serves this tick, rows 1.. the famine replay. `far`,
+        ADAPTIVE's escalated draws (the near ones for the other points), is
+        None when no point is ADAPTIVE; (None, None) when every point is
+        LIFELINE, which selects per tick with its own key."""
+        if not drawn:
             return None, None
-        return stealing.batched_victim_draws(
-            strategy, key0, t, 1 + FB, tbl["neighbors"], tbl["radius2"],
-            num_workers=W)
+        blocks = {c: stealing.batched_victim_draws(
+            stealing.CODE_STRATEGIES[c], keys[c],
+            t if sel[c] is None else t[sel[c]], 1 + FB, tbl["neighbors"],
+            tbl["radius2"], num_workers=W) for c in drawn}
+
+        def join(parts):
+            out = parts[0] if len(parts) == 1 else torch.cat(parts)
+            return out if order is None else out[order]
+
+        near = join([b[0] for b in blocks.values()])
+        if stealing.ADAPTIVE_CODE not in blocks:
+            return near, None
+        return near, join([b[1] if b[1] is not None else b[0]
+                           for b in blocks.values()])
 
     def chosen(near, far, fails):
         """The drawn victim by the fail count (ADAPTIVE escalates)."""
@@ -589,18 +665,23 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             return near
         return torch.where(fails >= escalate_after, far, near)
 
+    def expand(task, popped):
+        ex = tasks.expand(task.flatten(0, 1), popped.flatten(), tables)
+        return {k: v.unflatten(0, (G, W)) for k, v in ex.items()}
+
     def tick_fn(state: SimState, t: torch.Tensor, near, far):
-        """One tick with full semantics at tick `t` (0-d tensor), drawing
-        from row 0 of `draws(t)`; returns (state, live)."""
+        """One tick with full semantics at each point's tick `t` ((G, 1)),
+        drawing from row 0 of `draws(t)`; returns (state, live)."""
         # No worker dies or wakes in the closed system this module runs
         # (simulate() rejects failure schedules), so `alive` stays all-True.
         alive = state.alive
-        ses = session(state.deque)
+        ses = _Deques(state.deque, lanes)
 
         # ------------- periodic checkpoint counter -------------------------- #
-        if p.ckpt_interval > 0:
+        if ckpt is not None:
+            every, on = ckpt
             state = state._replace(ckpt_count=state.ckpt_count + (
-                t % p.ckpt_interval == 0).to(_I32))
+                on & (t % every == 0)).to(_I32))
 
         # ------------- phase RUN: work / expand / start steal -------------- #
         # (no stragglers: every tick is an active tick for every worker)
@@ -610,7 +691,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
         can_expand = running & ~burning & (ses.size > 0)
         task, popped = ses.pop(can_expand)
-        ex = tasks.expand(task, popped, tables)
+        ex = expand(task, popped)
         over = ses.push_many(ex["children"], ex["n_children"])
         # int32 add wraps before the floor-mod, as in the reference
         acc = torch.remainder(state.acc + ex["value"], tasks.RESULT_MOD)
@@ -621,13 +702,17 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
         # idle workers become thieves: request departs now, arrives in h·τ
         idle = running & ~burning & ~popped & (ses.size == 0)
-        if near is None:
-            victim_new = _select(code, escalate_after, tbl,
-                                 rng.fold_in(key0, t), idle, state.fails, W)
-        else:
+        victim_new = None
+        if near is not None:
             victim_new = torch.where(
-                idle, chosen(near[0], None if far is None else far[0],
+                idle, chosen(near[:, 0], None if far is None else far[:, 0],
                              state.fails), topo.NO_NEIGHBOR)
+        if lifeline:
+            parked = stealing.choose_lifeline(rng.fold_in(key0, t),
+                                              tbl["lifelines"], state.fails,
+                                              W, idle)
+            victim_new = (parked if victim_new is None else torch.where(
+                code == stealing.LIFELINE_CODE, parked, victim_new))
         has_victim = victim_new >= 0
         vhops = torch.where(has_victim, topo.hop_dist(mesh, coords, victim_new), 0)
         req_ticks = vhops * hop_ticks
@@ -636,19 +721,20 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         timer = torch.where(start_req, req_ticks, state.timer)
         victim = torch.where(start_req, victim_new, state.victim)
         attempts = state.attempts + start_req.to(_I32)
-        hop_units = torch.where(start_req, vhops, 0).sum()
+        hop_units = torch.where(start_req, vhops, 0).sum(-1, keepdim=True)
 
         # ------------- phase REQ: in flight / arrival ----------------------- #
         in_req = (phase == PHASE_REQ) & alive
         timer = torch.where(in_req, (timer - 1).clamp(min=0), timer)
         arriving = in_req & (timer == 0)
         # victims must be alive to grant (dead satellites drop requests)
-        valid_victim = arriving & alive[victim.clamp(0, W - 1).long()]
+        valid_victim = arriving & alive.gather(-1, victim.clamp(0, W - 1).long())
         plan = stealing.resolve_grants(torch.where(valid_victim, victim, -1),
                                        ses.size, max_grants)
         v = plan.victim.clamp(0, W - 1).long()
         stolen_blk = ses.export(plan.taken, stealing.GRANT_WIDTH)
-        stolen = stolen_blk[v, plan.rank.clamp(0, stealing.GRANT_WIDTH - 1).long()]
+        stolen = stolen_blk[gidx, v,
+                            plan.rank.clamp(0, stealing.GRANT_WIDTH - 1).long()]
         got = plan.got
         stolen_from = state.stolen_from + plan.taken
         # response departs: travel back
@@ -656,8 +742,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         phase = torch.where(resp_start, PHASE_RESP, phase)
         back_hops = torch.where(resp_start, topo.hop_dist(mesh, coords, victim), 0)
         timer = torch.where(resp_start, back_hops * hop_ticks, timer)
-        hop_units = hop_units + torch.where(resp_start, back_hops, 0).sum()
-        loot = torch.where(resp_start[:, None], stolen, state.loot)
+        hop_units = hop_units + torch.where(resp_start, back_hops, 0).sum(-1, keepdim=True)
+        loot = torch.where(resp_start[..., None], stolen, state.loot)
         got_flight = torch.where(resp_start, got, state.got)
 
         # exact 62-bit hop accumulation (int32 lanes with explicit carry)
@@ -691,23 +777,25 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             busy=busy, steal_wait=steal_wait, hops_lo=hops_lo, hops_hi=hops_hi,
             overflow=overflow, stolen_from=stolen_from,
             hiwater=torch.maximum(state.hiwater, deque_.size))
-        live = (deque_.size.sum() + work.sum() + got_left.sum()) > 0
+        live = (deque_.size.sum(-1, keepdim=True) + work.sum(-1, keepdim=True)
+                + got_left.sum(-1, keepdim=True)) > 0
         return new_state, live
 
     def leap(state: SimState, t, live, ne):
-        """Fused fast-forward over the dead ticks in [t, ne). Returns
-        (state, t, live). If the window's bulk burn consumes the LAST
-        pending work, land right after the final burn tick (where the
-        one-tick stepper exits) and clear live."""
+        """Fused fast-forward over the dead ticks in [t, ne), per point.
+        Returns (state, t, live). If the window's bulk burn consumes a
+        point's LAST pending work, land right after the final burn tick
+        (where the one-tick stepper exits) and clear its live flag."""
         delta = (ne.clamp(max=cfg.max_ticks) - t).clamp(min=0)
         delta = torch.where(live, delta, 0)
         burning = (state.phase == PHASE_RUN) & state.alive & (state.work > 0)
         nact = torch.where(burning, torch.minimum(delta, state.work), 0)
-        drained = (state.deque.size.sum() + (state.work - nact).sum()
-                   + state.got.sum()) == 0
+        drained = (state.deque.size.sum(-1, keepdim=True)
+                   + (state.work - nact).sum(-1, keepdim=True)
+                   + state.got.sum(-1, keepdim=True)) == 0
         # tick right after the last burn of the burners that finish in-window
         exit_t = torch.where(burning & (nact == state.work), t + state.work,
-                             0).amax()
+                             0).amax(-1, keepdim=True)
         delta = torch.where(live & drained,
                             torch.minimum(delta, (exit_t - t).clamp(min=0)),
                             delta)
@@ -722,8 +810,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
     def famine_ff(state: SimState, t, live, ne_all, near, far):
         """Advance up to FB ticks of deterministically failing probe cycles
-        in this iteration (the famine fast path). Returns (state, t, live,
-        ne), `ne` the `_next_event` horizon of the returned state.
+        in this iteration (the famine fast path), per point. Returns (state,
+        t, live, ne), `ne` the `_next_event` horizon of the returned state.
 
         `_famine_horizon` certifies that deque sizes are frozen over the
         window, so only burn-downs, probe flights and their counters move.
@@ -742,16 +830,19 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         """
         # every worker's hops to its current victim (its reply's flight)
         hv = topo.hop_dist(mesh, coords, state.victim)
-        ne_risky = _famine_horizon(state, t, p, W, FB, strategy, tbl, hv)
+        ne_risky = _famine_horizon(state, t, ckpt, W, probe, hop_ticks, hv)
         hi = ne_risky.clamp(max=cfg.max_ticks)
         delta = (hi - t).clamp(0, FB)
         # profitable only when probe-cycle events (counted by _next_event
         # but not by the famine horizon) fall inside the batch range
         pred = live & (delta > 0) & (ne_all < torch.minimum(hi, t + FB))
+        if lifeline:
+            pred = pred & (code != stealing.LIFELINE_CODE)
 
         phase, timer, work, fails = (state.phase, state.timer, state.work,
                                      state.fails)
-        frozen = state.deque.size.sum() + state.got.sum()
+        frozen = (state.deque.size.sum(-1, keepdim=True)
+                  + state.got.sum(-1, keepdim=True))
         in_flight = phase != PHASE_RUN
         is_req = phase == PHASE_REQ
         # the flight under way: arrival a0 and delivery dv0 (relative ticks;
@@ -763,7 +854,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         # a worker burns from b0 (after its delivery if in flight) and has
         # no work left after tick b0 + work - 1
         b0 = torch.where(in_flight, dv0 + 1, 0)
-        last_burn = torch.where(work > 0, b0 + work, 0).amax()
+        last_burn = torch.where(work > 0, b0 + work, 0).amax(-1, keepdim=True)
         # ticks replayed: the window, cut where the last work burns out
         # unless frozen deques or loot keep the system live
         n = torch.where(pred, torch.where(frozen > 0, delta,
@@ -790,31 +881,32 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         # from row d; a draw of h hops is back 2·max(h·τ − 1, 0) ticks later
         # and the next draw follows: a cycle of max(2·h·τ − 1, 1) ticks. A
         # worker whose table row is empty draws no victim all window.
-        def cycles(draw):  # (FB, W, 3): victim, hops, cycle length
+        def cycles(draw):  # (G, FB, W, 3): victim, hops, cycle length
             h = topo.hop_dist(mesh, coords, draw)
-            return torch.stack([draw, h, (2 * h * hop_ticks - 1).clamp(min=1)], -1)
+            return torch.stack([draw, h, (h * tau2 - 1).clamp(min=1)], -1)
 
-        near_c, has_near = cycles(near), near[0] >= 0
+        near_c, has_near = cycles(near), near[:, 0] >= 0
         idle = state.deque.size == 0
         if far is None:
             idle = idle & has_near
         else:
-            far_c, has_far = cycles(far), far[0] >= 0
+            far_c, has_far = cycles(far), far[:, 0] >= 0
         d0 = torch.where(idle, b0 + work, _NEVER)
         d, attempts, victim = d0, state.attempts, state.victim
         hops_sum = torch.zeros_like(d)
         d_last, h_last = d0, hops_sum
         for r in range(rounds):
-            row = d.clamp(max=FB - 1).long()[None, :, None].expand(1, W, 3)
-            g = near_c.gather(0, row)[0]
+            # each worker's next draw: row d of its own point's block
+            row = d.clamp(max=FB - 1).long()[:, None, :, None].expand(G, 1, W, 3)
+            g = near_c.gather(1, row)[:, 0]
             ok = d < n
             if far is not None:
                 # every earlier draw was delivered before this one: r more
                 # failures than after the flight under way
                 esc = fails >= escalate_after - r
-                g = torch.where(esc[:, None], far_c.gather(0, row)[0], g)
+                g = torch.where(esc[..., None], far_c.gather(1, row)[:, 0], g)
                 ok = ok & torch.where(esc, has_far, has_near)
-            ch, h, cycle = g.unbind(1)
+            ch, h, cycle = g.unbind(-1)
             attempts = attempts + ok
             hops_sum = hops_sum + h * ok
             victim = torch.where(ok, ch, victim)
@@ -840,49 +932,51 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
         # hop units: the reference adds each tick's sum to the low lane and
         # carries; adding the window's sum at once gives the same lanes
-        lo = state.hops_lo.to(torch.int64) + hop_w.sum()
+        lo = state.hops_lo.to(torch.int64) + hop_w.sum(-1, keepdim=True)
         new_state = state._replace(
             phase=phase, timer=timer, victim=victim, fails=fails,
             work=work - burned, busy=state.busy + burned,
-            loot=torch.where(loot_zero[:, None], 0, state.loot),
+            loot=torch.where(loot_zero[..., None], 0, state.loot),
             attempts=attempts, steal_wait=steal_wait,
             hops_lo=(lo & _HOP_LANE_MASK).to(_I32),
             hops_hi=state.hops_hi + (lo >> _HOP_LANE_BITS).to(_I32))
         t_out = t + n
         live_out = torch.where(n > 0, (frozen > 0) | (n < last_burn), live)
-        return new_state, t_out, live_out, _next_event(new_state, t_out, p, W)
+        return new_state, t_out, live_out, _next_event(new_state, t_out, ckpt, W)
 
     def iteration(carry):
         """One loop iteration of device tensors only — tick, next event,
-        famine replay, leap — with no host sync. Returns the carry after it
-        and the flag ``live & (t < max_ticks)`` of the carry before it: the
-        loop keeps the new carry only where the flag is set, so iterations
-        past the end change nothing."""
+        famine replay, leap — for every point at once, with no host sync.
+        Returns the carry after it and the per-point flag ``live & (t <
+        max_ticks)`` of the carry before it: the loop keeps a point's new
+        carry only where its flag is set, so a finished point's fields, its
+        iteration count `events` included, stay as they were."""
         state, t, live, iters = carry
         run = live & (t < cfg.max_ticks)
         near, far = draws(t)
         new, live_n = tick_fn(state, t, near, far)
         t_n = t + 1
         if leap_mode:
-            ne = _next_event(new, t_n, p, W)
+            ne = _next_event(new, t_n, ckpt, W)
             if FB:
                 new, t_n, live_n, ne = famine_ff(
-                    new, t_n, live_n, ne, near[1:],
-                    None if far is None else far[1:])
+                    new, t_n, live_n, ne, near[:, 1:],
+                    None if far is None else far[:, 1:])
             new, t_n, live_n = leap(new, t_n, live_n, ne)
         return (new, t_n, live_n, iters + 1), run
 
-    carry = (state0, scalar(0), torch.ones((), dtype=torch.bool, device=device),
+    carry = (state0, scalar(0), torch.ones((G, 1), dtype=torch.bool, device=device),
              scalar(0))
     loop = _replay_loop if on_cuda else _eager_loop
     state, t, _, iters = loop(iteration, carry, cfg.max_ticks)
-    return state, int(t), int(iters)
+    return state, t[:, 0], iters[:, 0]
 
 
 def _loop_done(carry, max_ticks: int) -> bool:
-    """The host's read of the loop's done flag (one device-to-host sync)."""
+    """The host's read of the loop's done flag, true when no point is live
+    (one device-to-host sync)."""
     _, t, live, _ = carry
-    return not bool(live & (t < max_ticks))
+    return not bool((live & (t < max_ticks)).any())
 
 
 def _eager_loop(body, carry, max_ticks: int):
@@ -911,19 +1005,19 @@ def _no_host_sync():
 def _replay_loop(body, carry, max_ticks: int):
     """The card's path: one iteration of `body` captured as a CUDA graph
     over static buffers (each replay writes its masked outputs back into
-    them) and replayed, the done flag read every DONE_EVERY iterations. One
-    iteration runs eagerly first, to warm up. The warm-up and the replays
-    run with host syncs made errors; a failed capture or replay raises,
-    never falling back to the eager loop."""
+    them, per point) and replayed, the done flag read every DONE_EVERY
+    iterations. One iteration runs eagerly first, to warm up. The warm-up
+    and the replays run with host syncs made errors; a failed capture or
+    replay raises, never falling back to the eager loop."""
     from ..kernels import ops
 
-    static = _clone(carry)
+    static = _map(torch.clone, carry)
 
     def step():  # the masked commit, written into the static buffers
         new, run = body(static)
         for src, dst in zip(_leaves(new), _leaves(static)):
             if src is not dst:
-                torch.where(run, src, dst, out=dst)
+                torch.where(_lead(run, dst), src, dst, out=dst)
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -948,8 +1042,9 @@ def _ckpt_state_bytes(mesh: topo.MeshTopology, cfg: StaticConfig) -> int:
 
 def _finalize(state: SimState, ticks: int, iters: int,
               mesh: topo.MeshTopology, cfg: StaticConfig) -> SimResult:
+    """One point's `SimResult` from its slice of the state (host tensors)."""
     def np_(x):
-        return x.cpu().numpy()
+        return x.numpy()
 
     busy_w = np_(state.busy)
     att_w, suc_w = np_(state.attempts), np_(state.successes)
@@ -983,32 +1078,93 @@ def _finalize(state: SimState, ticks: int, iters: int,
         sojourn_mean=soj_sum / max(req_done, 1))
 
 
+def stack_params(params_list) -> SimParams:
+    """Stack `SimParams` points (or `SimConfig`s, whose `params` are taken)
+    into one `SimParams` of (G,) int32 host tensors: the grid argument of
+    the simulator's core, which moves it to its device. Strategies may be
+    `Strategy` enums, their value strings or codes."""
+    pts = [p.params if isinstance(p, SimConfig) else p for p in params_list]
+    if not pts:
+        raise ValueError("stack_params needs at least one SimParams point")
+    pts = [p._replace(strategy=stealing.strategy_code(p.strategy)) for p in pts]
+    return SimParams(*(torch.tensor([int(x) for x in leaf], dtype=_I32)
+                       for leaf in zip(*pts)))
+
+
+def _run_grid(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
+              points: list, device) -> list[SimResult]:
+    """Check and run a grid of `SimParams` points in one `_sim_core` call;
+    one `SimResult` per point, in order."""
+    _check_static(cfg)
+    for p in points:
+        _check_params(p)
+    dev = _resolve_device(device, cfg)
+    state, ticks, iters = _sim_core(workload, mesh, cfg, stack_params(points), dev)
+    # to the host: what the results read (not the rings, loot or ledger)
+    host = _map(torch.Tensor.cpu, state._replace(
+        deque=(), loot=(), sup_buf=(), sup_thief=(), sup_n=()))
+    ticks, iters = ticks.tolist(), iters.tolist()
+    return [_finalize(_map(lambda x: x[g], host), ticks[g], iters[g], mesh, cfg)
+            for g in range(len(points))]
+
+
 def simulate(workload, mesh: topo.MeshTopology, cfg: SimConfig | None = None,
              fail_time=None, speed=None, linkstate=None, wake_time=None,
              fail_period=None, routing_backend: str = "auto", arrivals=None,
              *, device=None) -> SimResult:
     """Run the closed-system simulator on `device` (default: the CUDA
     device; raises if there is none — pass ``device="cpu"`` for the plain
-    PyTorch path). Arguments follow the reference's `simulate`; the failure,
-    straggler, link-state and arrival arguments must be None, and
-    `routing_backend` "auto", until their slices are ported
-    (`NotImplementedError` names the ROADMAP item)."""
+    PyTorch path): a grid of one point on the core `simulate_sweep` runs.
+    Arguments follow the reference's `simulate`; the failure, straggler,
+    link-state and arrival arguments must be None, and `routing_backend`
+    "auto", until their slices are ported (`NotImplementedError` names the
+    ROADMAP item)."""
     cfg = cfg or SimConfig()
-    _check_cfg(cfg)
-    for name, arg in (("fail_time", fail_time), ("speed", speed),
-                      ("linkstate", linkstate), ("wake_time", wake_time),
-                      ("fail_period", fail_period), ("arrivals", arrivals)):
-        if arg is not None:
-            raise _not_ported(name)
-    if routing_backend != "auto":
-        raise _not_ported("routing_backend")
-    dev = _resolve_device(device)
-    if dev.type == "cuda" and cfg.use_steal_kernel is False:
-        raise ValueError(
-            "use_steal_kernel=False asks for the kernels' plain versions, "
-            "which run only for CPU tensors: on a CUDA device the simulator "
-            "always runs the hand-written kernels; pass device='cpu' for "
-            "the plain path")
-    scfg, params = cfg.split()
-    state, ticks, iters = _sim_core(workload, mesh, scfg, params, dev)
-    return _finalize(state, ticks, iters, mesh, scfg)
+    _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
+                    routing_backend, arrivals)
+    return _run_grid(workload, mesh, cfg.static, [cfg.params], device)[0]
+
+
+def simulate_batch(workload, mesh: topo.MeshTopology,
+                   cfg: SimConfig | None = None, seeds=(0,), fail_time=None,
+                   speed=None, linkstate=None, wake_time=None,
+                   fail_period=None, routing_backend: str = "auto",
+                   arrivals=None, *, device=None) -> list[SimResult]:
+    """One simulation per seed, all in one grid: every seed shares `cfg`
+    (whose own `seed` is ignored); the grid runs until its slowest seed
+    ends. Returns one `SimResult` per seed, each equal to `simulate` with
+    that seed, `events` included. Other arguments as `simulate`'s."""
+    cfg = cfg or SimConfig()
+    _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
+                    routing_backend, arrivals)
+    return _run_grid(workload, mesh, cfg.static,
+                     [cfg.params._replace(seed=int(s)) for s in seeds], device)
+
+
+def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
+                   fail_time=None, speed=None, linkstate=None, wake_time=None,
+                   fail_period=None, routing_backend: str = "auto",
+                   devices=None, arrivals=None, *, device=None) -> list[SimResult]:
+    """Run a whole grid of points in one `_sim_core` call: one loop (on the
+    card, one captured CUDA graph) advances every point, each with its own
+    clock, and a point that has ended stays as it was while the rest run
+    on. `cfg` supplies the static half (a `StaticConfig`, or a `SimConfig`
+    whose per-point fields are ignored); `params_list` is the grid, a
+    sequence of `SimParams` or `SimConfig`s. Returns one `SimResult` per
+    point, in order, each equal to `simulate` of that point, `events`
+    included. `devices` may name one device (it then stands for `device`);
+    a grid sharded over several raises `NotImplementedError` (ROADMAP Queue
+    1 item 13b). Other arguments as `simulate`'s."""
+    scfg = cfg.static if isinstance(cfg, SimConfig) else cfg
+    _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
+                    routing_backend, arrivals)
+    if devices is not None:
+        devices = list(devices)
+        if len(devices) > 1:
+            raise _not_ported("devices")
+        if devices and device is None:
+            device = devices[0]
+    pts = [p.params if isinstance(p, SimConfig) else p for p in params_list]
+    if not pts:
+        return []
+    return _run_grid(workload, mesh, scfg, pts, device)

@@ -63,11 +63,11 @@ GRANT_WIDTH = 8
 
 
 class StealPlan(NamedTuple):
-    victim: torch.Tensor   # (W,) int32 chosen victim, -1 for non-thieves
-    rank: torch.Tensor     # (W,) int32 rank among same-victim requesters
-    got: torch.Tensor      # (W,) bool steal granted
-    taken: torch.Tensor    # (W,) int32 tasks taken from this worker (victim view)
-    hops: torch.Tensor     # (W,) int32 thief→victim hop distance
+    victim: torch.Tensor   # (..., W) int32 chosen victim, -1 for non-thieves
+    rank: torch.Tensor     # (..., W) int32 rank among same-victim requesters
+    got: torch.Tensor      # (..., W) bool steal granted
+    taken: torch.Tensor    # (..., W) int32 tasks taken from this worker (victim view)
+    hops: torch.Tensor     # (..., W) int32 thief→victim hop distance
 
 
 # --------------------------------------------------------------------------- #
@@ -186,56 +186,63 @@ def segment_prefix(key: torch.Tensor, active: torch.Tensor,
 
     Workers are ordered inside a segment by (priority, worker id); worker
     w's result is the sum of the weights of same-key active workers that
-    precede it. Inactive workers sort last and return 0.
+    precede it. Inactive workers sort last and return 0. Every argument may
+    carry leading axes (a grid of points, shape (..., W)): each row along
+    the last axis is ranked on its own.
 
     Args:
-      key: (W,) segment id per active worker, in [0, W].
-      active: (W,) bool.
-      weights: (W,) int summands; defaults to ones (prefix = rank).
-      priority: (W,) optional within-segment order in [0, W) (lower =
+      key: (..., W) segment id per active worker, in [0, W].
+      active: (..., W) bool.
+      weights: (..., W) int summands; defaults to ones (prefix = rank).
+      priority: (..., W) optional within-segment order in [0, W) (lower =
         first); worker id breaks ties. Defaults to worker id.
     """
-    W = key.shape[0]
+    W = key.shape[-1]
     dev = key.device
     ids = torch.arange(W, dtype=torch.int64, device=dev)
     if weights is None:
-        weights = torch.ones((W,), dtype=torch.int32, device=dev)
+        weights = torch.ones_like(key, dtype=torch.int32)
     pri = ids if priority is None else priority.to(torch.int64)
     skey = torch.where(active, key.to(torch.int64), W)  # inactive sort last
-    # one composite key (segment, priority, id): total, so no reliance on
-    # sort stability; it replaces the reference's three-key lexsort
-    _, order = torch.sort((skey * W + pri) * W + ids)
-    skey_sorted = skey[order]
-    w_sorted = torch.where(active, weights, 0)[order].to(torch.int32)
-    excl = torch.cumsum(w_sorted, 0).to(torch.int32) - w_sorted
-    is_start = torch.ones((W,), dtype=torch.bool, device=dev)
-    is_start[1:] = skey_sorted[1:] != skey_sorted[:-1]
-    seg_first, _ = torch.cummax(torch.where(is_start, ids, 0), 0)
-    prefix_sorted = excl - excl[seg_first]
-    prefix = torch.empty((W,), dtype=torch.int32, device=dev)
-    prefix[order] = prefix_sorted  # `order` is a permutation: no duplicates
+    # one composite key (segment, priority, id) < W^3: total, so no reliance
+    # on sort stability; it replaces the reference's three-key lexsort (int64
+    # holds it for W < 2^21)
+    _, order = torch.sort((skey * W + pri) * W + ids, dim=-1)
+    skey_sorted = skey.gather(-1, order)
+    w_sorted = torch.where(active, weights, 0).gather(-1, order).to(torch.int32)
+    excl = torch.cumsum(w_sorted, -1).to(torch.int32) - w_sorted
+    is_start = torch.ones_like(skey_sorted, dtype=torch.bool)
+    is_start[..., 1:] = skey_sorted[..., 1:] != skey_sorted[..., :-1]
+    seg_first, _ = torch.cummax(torch.where(is_start, ids, 0), -1)
+    prefix_sorted = excl - excl.gather(-1, seg_first)
+    # `order` is a permutation of each row: no duplicates
+    prefix = torch.empty_like(prefix_sorted).scatter_(-1, order, prefix_sorted)
     return torch.where(active, prefix, 0)
 
 
 def resolve_grants(victim: torch.Tensor, sizes: torch.Tensor,
-                   max_grants_per_victim: int = 4,
+                   max_grants_per_victim=4,
                    priority: torch.Tensor | None = None) -> StealPlan:
     """Deterministically match thieves to victim deque-bottom slots.
 
     Sort-based segment ranking (O(W log W)); `resolve_grants_pairwise` is
     the O(W^2) oracle. `rank[w]` is w's position in its victim's service
     order, `got[w]` whether a task is granted (rank < min(size, budget)),
-    `taken[v]` how many tasks leave victim v's bottom this round.
+    `taken[v]` how many tasks leave victim v's bottom this round. With
+    leading axes (a grid: victims, sizes (..., W) and a budget that
+    broadcasts, e.g. (G, 1)) each point's requests are ranked and served
+    apart from the others'.
     """
-    W = victim.shape[0]
+    W = victim.shape[-1]
     req = victim >= 0
     rank = segment_prefix(victim, req, priority=priority)
     vc = victim.clamp(0, W - 1).long()
-    vsize = torch.where(req, sizes[vc], 0)
+    vsize = torch.where(req, sizes.gather(-1, vc), 0)
     budget = vsize.clamp(max=max_grants_per_victim)
     got = req & (rank < budget)
-    taken = torch.zeros((W,), dtype=torch.int32, device=victim.device)
-    taken.index_add_(0, vc, got.to(torch.int32))  # integer adds: any order
+    # integer adds: any order
+    taken = torch.zeros_like(victim, dtype=torch.int32).scatter_add_(
+        -1, vc, got.to(torch.int32))
     return StealPlan(victim=torch.where(req, victim, topo.NO_NEIGHBOR),
                      rank=rank, got=got, taken=taken,
                      hops=torch.zeros_like(taken))
@@ -276,11 +283,11 @@ def _link_state_not_ported(what: str):
 
 def _any_nonempty(table: torch.Tensor, nonempty: torch.Tensor) -> torch.Tensor:
     """Per worker: does any valid (!= NO_NEIGHBOR) entry of `table` index a
-    worker with a nonempty deque?"""
-    W = nonempty.shape[0]
+    worker of the same point with a nonempty deque? `nonempty` is (..., W)."""
+    W = nonempty.shape[-1]
     valid = table != topo.NO_NEIGHBOR
-    hit = nonempty[table.clamp(0, W - 1).long()] & valid
-    return hit.any(dim=1)
+    hit = nonempty[..., table.clamp(0, W - 1).long()] & valid
+    return hit.any(dim=-1)
 
 
 def probe_may_succeed(strategy: Strategy, nonempty: torch.Tensor,
@@ -301,14 +308,17 @@ def probe_may_succeed(strategy: Strategy, nonempty: torch.Tensor,
     `k` failures short of escalating draws no radius-2 victim before
     (k - 1)·min_cycle ticks). LIFELINE falls back to global draws and is
     always risky. `comp_row` (link-state components) belongs to the
-    link-state slice and raises."""
+    link-state slice and raises. A grid of points gives `nonempty` and
+    `fails` leading axes, (G, W), and per-point `escalate_after` and
+    `min_cycle` of shape (G, 1); each point's workers see only its own
+    deques."""
     if comp_row is not None:
         raise _link_state_not_ported("probe_may_succeed(comp_row=...)")
     W = num_workers
     if strategy == Strategy.GLOBAL:
-        return (nonempty.any() & (W > 1)).expand(W)
+        return (nonempty.any(-1, keepdim=True) & (W > 1)).expand_as(nonempty)
     if strategy == Strategy.LIFELINE:
-        return torch.ones((W,), dtype=torch.bool, device=nonempty.device)
+        return torch.ones_like(nonempty, dtype=torch.bool)
     near = _any_nonempty(neighbor_table, nonempty)
     if strategy == Strategy.NEIGHBOR:
         return near
@@ -345,6 +355,14 @@ def probe_may_succeed_code(code, nonempty: torch.Tensor, fails: torch.Tensor,
                                                True)))
 
 
+def _per_point(x):
+    """A per-point column (G, 1) lifted to (G, 1, 1), so that it broadcasts
+    against (G, count, W) blocks; ints and 0-d tensors pass through."""
+    if isinstance(x, torch.Tensor) and x.dim() > 0:
+        return x[..., None]
+    return x
+
+
 def batched_victim_draws(strategy: Strategy, key0, t0, count: int,
                          neighbor_table: torch.Tensor,
                          radius2_table: torch.Tensor | None, *,
@@ -356,6 +374,9 @@ def batched_victim_draws(strategy: Strategy, key0, t0, count: int,
     j)``) for an all-thieves mask. `far` is None except for ADAPTIVE, whose
     caller picks per worker between the near and the escalated draw by its
     fail count at probe time. `t0` is a Python int or a 0-d device tensor.
+    For a grid of G points, `t0` and the key's words are per-point columns
+    of shape (G, 1): the keys are then (G, count, 1) and the draws (G,
+    count, W), point g's rows drawn with its own key from its own tick.
     `link_tau_row` (cheapest live neighbor) belongs to the link-state slice
     and raises."""
     if link_tau_row is not None:
@@ -364,7 +385,8 @@ def batched_victim_draws(strategy: Strategy, key0, t0, count: int,
     dev = neighbor_table.device
     all_thieves = torch.ones((W,), dtype=torch.bool, device=dev)
     ticks = t0 + torch.arange(count, dtype=torch.int64, device=dev)
-    keys = rng.fold_in(key0, ticks[:, None])            # (count, 1) each
+    # (count, 1), or (G, count, 1) for a grid
+    keys = rng.fold_in(tuple(_per_point(k) for k in key0), ticks[..., None])
     if strategy == Strategy.GLOBAL:
         return choose_global(keys, W, all_thieves), None
     if strategy == Strategy.NEIGHBOR:
@@ -384,7 +406,9 @@ def batched_victim_draws_code(code, key0, t0, count: int,
     shape (count, W), `far` a copy of `near` for the single-draw strategies.
     LIFELINE gives global draws as a placeholder (the famine path is gated
     off for it). An int code dispatches; a code tensor draws every branch
-    and selects per code, as the reference's switch does under vmap."""
+    and selects per code, as the reference's switch does under vmap. A
+    grid's codes are a (G, 1) column beside its (G, 1) keys and ticks (see
+    `batched_victim_draws`), giving (G, count, W) draws."""
     kw = dict(num_workers=num_workers, link_tau_row=link_tau_row)
     branch = {GLOBAL_CODE: Strategy.GLOBAL, NEIGHBOR_CODE: Strategy.NEIGHBOR,
               LIFELINE_CODE: Strategy.GLOBAL, ADAPTIVE_CODE: Strategy.ADAPTIVE}
@@ -398,6 +422,7 @@ def batched_victim_draws_code(code, key0, t0, count: int,
         return draw(branch[int(code)])
     (g, _), (n, _), (an, af) = (draw(s) for s in (
         Strategy.GLOBAL, Strategy.NEIGHBOR, Strategy.ADAPTIVE))
+    code = _per_point(code)
     near = torch.where(code == ADAPTIVE_CODE, an,
                        torch.where(code == NEIGHBOR_CODE, n, g))
     far = torch.where(code == ADAPTIVE_CODE, af, near)

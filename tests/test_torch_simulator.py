@@ -77,17 +77,23 @@ def test_overflow_checkpoints_and_truncation_match_reference(reference_runs):
 
 
 def test_port_imports_no_jax():
-    """`import repro_torch` and a whole CPU simulate leave JAX and the
-    reference package out of sys.modules."""
+    """`import repro_torch`, its sweep benchmark and a whole CPU simulate and
+    sweep leave JAX and the reference package out of sys.modules."""
     code = (
         "import sys, repro_torch\n"
         "from repro_torch.core import simulator as s, tasks as t, topology as m\n"
         "import repro_torch.convert, repro_torch.kernels.ops\n"
         "import repro_torch.launch.serve, repro_torch.runtime.serve_loop\n"
         "import repro_torch.models.transformer\n"
+        "import repro_torch.benchmarks.sweep, repro_torch.core.jsonio\n"
+        "import repro_torch.core.latency\n"
         "r = s.simulate(t.FibWorkload(n=12, cutoff=6), m.MeshTopology.square(9),\n"
         "               s.SimConfig(capacity=16), device='cpu')\n"
         "assert r.result == t.FibWorkload(n=12, cutoff=6).expected_result()\n"
+        "rs = s.simulate_sweep(t.FibWorkload(n=12, cutoff=6), m.MeshTopology.square(9),\n"
+        "                      s.SimConfig(capacity=16), [s.SimParams(seed=1),\n"
+        "                      s.SimParams(strategy=0)], device='cpu')\n"
+        "assert [x.result for x in rs] == [r.result] * 2\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
