@@ -70,7 +70,20 @@ Phases — any failure exits non-zero:
   6. run the port's crossover benchmark (`repro_torch.benchmarks.sweep`) at
      BENCH_crossover.json's settings, one grid a size; every point's ticks
      must equal the reference's, pinned in CROSSOVER_TICKS;
-  7-9. serve three models through `serve_loop.serve_requests` (one phase,
+  7. run the fault model (`phase_faults`) at the main path's configuration
+     (W=4096, 1500 ticks) under schedules made with numpy from seed 0 after
+     examples/constellation_sim.py's constellation (eclipse: 614 workers
+     sleeping periodically with pre-shed; radiation: 20 one-shot deaths
+     under TC, SUPERVISION and NONE; stragglers: 41 workers at speed 3),
+     each leap/loop, eclipse and radiation/TC also staged, with the famine
+     path off and in tick mode, every mode equal to the leap/loop run but
+     in `events`; `deque_apply` at the TC push-log width (83 lanes); a
+     profiled 300-tick TC window; the drained W=100 runs of each scenario,
+     card == CPU and equal to the reference's pinned (result, ticks,
+     events), TC and pre-shed exact; the radiation schedule under TC as one
+     6-point sweep (checkpoint interval 0, 40, 80 x NEIGHBOR, GLOBAL), every
+     point equal to its own run;
+  8-10. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
      exactly as its blocks say (an attention block `flash_attention` once in
@@ -247,6 +260,52 @@ def _sass_ops(build, name: str, op: str) -> dict:
     return found
 
 
+def _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L):
+    """`deque_apply` against its plain version (exactly equal) on the rings
+    `buf` with an L-lane push log, timed beside `index_put` with its bound."""
+    dev = torch.device("cuda")
+    W, C, T = buf.shape
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+
+    # push log: slots drawn from a few ring positions so lanes repeat, and
+    # live-lane counts n below the lane budget L for most workers
+    base = rs.integers(0, C, (W, 1))
+    slot = t((base + rs.integers(0, 3, (W, L))) % C)
+    rec = t(rs.integers(-2**31, 2**31 - 1, (W, L, T), dtype=np.int64))
+    n = t(rs.integers(0, L + 1, W))
+    new_k = ops.deque_apply(buf, slot, rec, n)
+    new_p = ref.deque_apply(buf, slot, rec, n)
+    # the library yardstick: one index_put after the last-lane dedup
+    dops = deque.DequeOps(buf0=buf, bot=bot, size=size, slot=slot, rec=rec, n=n)
+    last = deque._last_lane_map(dops)
+    lanes = torch.arange(L, device=dev)[None, :]
+    keep = (lanes < n[:, None]) & (torch.gather(last, 1, slot.long()) == lanes)
+    w_idx = torch.arange(W, device=dev)[:, None].expand(W, L)[keep]
+    s_idx = slot.long()[keep]
+    vals = rec[keep]
+    new_l = buf.index_put((w_idx, s_idx), vals)
+    torch.cuda.synchronize()
+    err_da = _max_abs_err([(new_k, new_p)])
+    if not torch.equal(new_k, new_p) or not torch.equal(new_l, new_p):
+        raise SystemExit(f"deque_apply disagrees with its plain version at "
+                         f"W={W} (max abs err {err_da})")
+    live = int(n.sum())
+    da_bytes = 2 * W * C * T * 4 + live * (T * 4 + 4) + W * 4
+    da_ops = W * C * (2 * L + 4)
+    def kern():
+        return ops.deque_apply(buf, slot, rec, n)
+
+    da = {
+        "ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+        "plain_ms": _device_ms(torch, lambda: ref.deque_apply(buf, slot, rec, n)),
+        "library_ms": _device_ms(torch, lambda: buf.index_put((w_idx, s_idx), vals)),
+        "max_abs_err": err_da, "bytes": da_bytes, "ops": da_ops}
+    da["bound_ms"], da["bound_by"] = _bound_ms(da_bytes, da_ops)
+    return da
+
+
 def _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W):
     """`steal_compact` and `deque_apply` against their plain versions at W
     rows of capacity CAP_MAIN (exactly equal), timed with their bounds."""
@@ -287,40 +346,7 @@ def _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W):
         "bytes": sc_bytes, "ops": sc_ops}
     sc["bound_ms"], sc["bound_by"] = _bound_ms(sc_bytes, sc_ops)
 
-    # push log: slots drawn from a few ring positions so lanes repeat, and
-    # live-lane counts n below the lane budget L for most workers
-    base = rs.integers(0, C, (W, 1))
-    slot = t((base + rs.integers(0, 3, (W, L))) % C)
-    rec = t(rs.integers(-2**31, 2**31 - 1, (W, L, T), dtype=np.int64))
-    n = t(rs.integers(0, L + 1, W))
-    new_k = ops.deque_apply(buf, slot, rec, n)
-    new_p = ref.deque_apply(buf, slot, rec, n)
-    # the library yardstick: one index_put after the last-lane dedup
-    dops = deque.DequeOps(buf0=buf, bot=bot, size=size, slot=slot, rec=rec, n=n)
-    last = deque._last_lane_map(dops)
-    lanes = torch.arange(L, device=dev)[None, :]
-    keep = (lanes < n[:, None]) & (torch.gather(last, 1, slot.long()) == lanes)
-    w_idx = torch.arange(W, device=dev)[:, None].expand(W, L)[keep]
-    s_idx = slot.long()[keep]
-    vals = rec[keep]
-    new_l = buf.index_put((w_idx, s_idx), vals)
-    torch.cuda.synchronize()
-    err_da = _max_abs_err([(new_k, new_p)])
-    if not torch.equal(new_k, new_p) or not torch.equal(new_l, new_p):
-        raise SystemExit(f"deque_apply disagrees with its plain version at "
-                         f"W={W} (max abs err {err_da})")
-    live = int(n.sum())
-    da_bytes = 2 * W * C * T * 4 + live * (T * 4 + 4) + W * 4
-    da_ops = W * C * (2 * L + 4)
-    def kern():
-        return ops.deque_apply(buf, slot, rec, n)
-
-    da = {
-        "ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
-        "plain_ms": _device_ms(torch, lambda: ref.deque_apply(buf, slot, rec, n)),
-        "library_ms": _device_ms(torch, lambda: buf.index_put((w_idx, s_idx), vals)),
-        "max_abs_err": err_da, "bytes": da_bytes, "ops": da_ops}
-    da["bound_ms"], da["bound_by"] = _bound_ms(da_bytes, da_ops)
+    da = _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L)
     for name, r in (("steal_compact", sc), ("deque_apply", da)):
         print(f"[kernels] {name} at {W} rows, C={C}: exact; device per launch: "
               f"kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
@@ -904,7 +930,7 @@ def phase_main_path(torch, np, sim, topo, tasks, ops):
     famine_batch 64 (the default) and 0, and tick mode. Every run's fields
     must agree, `events` aside, and `events` must equal the reference's."""
     mesh, wl, base = _main_setup(sim, topo, tasks)
-    runs, launches, profiled = {}, {}, {}
+    runs, launches, profiled, ms_event = {}, {}, {}, {}
     # a short run of each backend first, untimed: a process's first capture
     # and first use of a kernel library cost a few tenths of a second
     for backend in ("staged", "loop"):
@@ -922,6 +948,7 @@ def phase_main_path(torch, np, sim, topo, tasks, ops):
         if counts[kernel] == 0:
             raise SystemExit(f"{label}: kernel {kernel} was never launched")
         runs[label] = r
+        ms_event[label] = dt / r.events * 1e3
         launches.setdefault(kernel, counts[kernel])
         print(f"[main] W={W_MAIN} {label}: ticks={r.ticks} events={r.events} "
               f"wall={dt:.3f} s ticks/s={r.ticks / dt:.2f} "
@@ -964,7 +991,7 @@ def phase_main_path(torch, np, sim, topo, tasks, ops):
               f"{k_ms / k_n * 1e3:.3f} us each")
         for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
             print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
-    return launches, profiled, first
+    return launches, profiled, first, ms_event["leap/loop"]
 
 
 def _drained_cpu_run(strategy_value: str):
@@ -1185,6 +1212,272 @@ def phase_crossover(torch, ops):
                       for c in doc["crossover"])
           + f"; steal_compact launches {launches}")
     return launches
+
+
+# the fault scenarios: examples/constellation_sim.py's constellation
+# settings (a 40-tick warning, 15% of the workers in eclipse, 0.5% lost to
+# radiation, 1% degraded to speed 3, a checkpoint every 80 ticks), the
+# eclipse's orbit cut from 1500 ticks to a 500-tick period so that its second
+# cycle falls inside the 1500-tick run; worker counts at W = 4096 and at the
+# drained W = 100 (eclipse, radiation, stragglers)
+FAULT_WARN, FAULT_PERIOD, FAULT_SLEEP, FAULT_CKPT, FAULT_SPEED = 40, 500, 175, 80, 3
+FAULT_COUNTS = {4096: (614, 20, 41), 100: (15, 2, 1)}
+# the drained W=100 runs' fault-free ticks (NEIGHBOR, tau 5, capacity 64, FIB
+# n=34 cutoff=18): deaths fall in its first half, before the run drains
+DRAINED_TICKS = 4769
+
+
+def fault_schedules(np, W: int, first_half: int | None = None) -> dict:
+    """The three fault scenarios' schedules for W workers, made with numpy
+    from seed 0: disjoint worker sets for the eclipse (periodic: first death
+    uniform in [50, 500), wake 175 ticks later, period 500), radiation (one
+    death uniform in [100, 1400), or in [100, first_half) for a drained run)
+    and stragglers (speed 3). Returns {name: simulate's schedule kwargs}."""
+    n_ecl, n_rad, n_str = FAULT_COUNTS[W]
+    rs = np.random.default_rng(0)
+    perm = rs.permutation(W)
+    ecl, rad = perm[:n_ecl], perm[n_ecl:n_ecl + n_rad]
+    slow = perm[n_ecl + n_rad:n_ecl + n_rad + n_str]
+    never = np.full(W, -1, np.int32)
+    ft, wt, fp = never.copy(), never.copy(), never.copy()
+    ft[ecl] = rs.integers(50, min(FAULT_PERIOD, first_half or FAULT_PERIOD), n_ecl)
+    wt[ecl] = ft[ecl] + FAULT_SLEEP
+    fp[ecl] = FAULT_PERIOD
+    rft = never.copy()
+    rft[rad] = rs.integers(100, first_half or 1400, n_rad)
+    speed = np.ones(W, np.int32)
+    speed[slow] = FAULT_SPEED
+    return {"eclipse": {"fail_time": ft, "wake_time": wt, "fail_period": fp},
+            "radiation": {"fail_time": rft},
+            "stragglers": {"speed": speed}}
+
+
+# the fault scenarios' SimConfig fields beyond the run's base, by label
+FAULT_RUNS = {
+    "eclipse": ("eclipse", {"preshed": True, "warn_ticks": FAULT_WARN}),
+    "radiation/tc": ("radiation", {"recovery": "tc", "ckpt_interval": FAULT_CKPT}),
+    "radiation/supervision": ("radiation", {"recovery": "supervision"}),
+    "radiation/none": ("radiation", {}),
+    "stragglers": ("stragglers", {}),
+}
+# the runs that also go through the staged backend, the famine path off and
+# tick mode at W=4096 (each must equal its leap/loop run, `events` aside)
+FAULT_MODES = (("leap/staged", {"deque_backend": "staged"}),
+               ("leap/loop fb=0", {"famine_batch": 0}),
+               ("tick/loop", {"step_mode": "tick"}))
+# the reference's (`repro.core.simulator.simulate`, JAX on a CPU) drained
+# W=100 runs of each scenario (`fault_schedules(np, 100, DRAINED_TICKS // 2)`,
+# NEIGHBOR, tau 5, capacity 64, famine_batch 64, FIB n=34 cutoff=18):
+# (result, ticks, events). TC and pre-shed are exact (5702887); supervision
+# over-counts the subtrees re-stolen from its dead thieves
+FAULT_PINS = {"eclipse": (5702887, 6965, 5393),
+              "radiation/tc": (5702887, 6347, 4888),
+              "radiation/supervision": (8713236, 8840, 6969),
+              "radiation/none": (5188658, 4620, 3846),
+              "stragglers": (5702887, 5007, 4291)}
+
+
+def _fault_cfg(sim, base: dict, extra: dict, **more):
+    f = {**base, **extra, **more}
+    if "recovery" in f:
+        f["recovery"] = sim.Recovery(f["recovery"])
+    return sim.SimConfig(**f)
+
+
+def _faults_cpu_run(label: str):
+    """The port's CPU run of one drained W=100 fault scenario (in a worker
+    process, beside the card runs of the main process)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import tasks
+    from repro_torch.core import topology as topo
+
+    torch.set_num_threads(1)
+    scen, extra = FAULT_RUNS[label]
+    t0 = time.perf_counter()
+    r = sim.simulate(tasks.FibWorkload(n=34, cutoff=18), topo.MeshTopology.square(100),
+                     _fault_cfg(sim, _drained_base(sim), extra), device="cpu",
+                     **fault_schedules(np, 100, DRAINED_TICKS // 2)[scen])
+    return r, time.perf_counter() - t0
+
+
+def _drained_base(sim):
+    return dict(strategy=sim.stealing.Strategy.NEIGHBOR, hop_ticks=5, capacity=64)
+
+
+def phase_faults(torch, np, sim, topo, tasks, ops, ref, deque, main_run, main_ms):
+    """The fault model on the card. At W=4096 (the main path's
+    configuration) each scenario runs leap/loop; eclipse and radiation/TC
+    also staged, with the famine path off and in tick mode, each equal to
+    the leap/loop run (`events` aside); ms/event against `[main]`'s;
+    `deque_apply` at the TC push-log width; a profiled 300-tick TC window.
+    At W=100, drained: each scenario card == CPU, equal to the reference's
+    pinned (result, ticks, events), TC and pre-shed exact. Then the
+    radiation schedule under TC as one 6-point sweep (checkpoint interval
+    0, 40, 80 x NEIGHBOR, GLOBAL), every point equal to its own run.
+    Returns (launches by kernel, deque_apply at the TC width)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    # the drained runs' CPU side starts first, in worker processes beside
+    # everything the card runs in this phase
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(len(FAULT_RUNS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    cpu = {label: pool.submit(_faults_cpu_run, label) for label in FAULT_RUNS}
+    try:
+        out = _phase_faults(torch, np, sim, topo, tasks, ops, ref, deque, main_run,
+                            main_ms, cpu)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"[faults] phase {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def _phase_faults(torch, np, sim, topo, tasks, ops, ref, deque, main_run, main_ms, cpu):
+    mesh, wl, base = _main_setup(sim, topo, tasks)
+    sched = fault_schedules(np, W_MAIN)
+    n_ecl, n_rad, n_str = FAULT_COUNTS[W_MAIN]
+    print(f"[faults] W={W_MAIN}, the [main] configuration, cut at {base['max_ticks']} "
+          f"ticks; schedules from numpy seed 0: eclipse {n_ecl} workers (15%), "
+          f"first death uniform in [50, {FAULT_PERIOD}), wake {FAULT_SLEEP} ticks "
+          f"later, period {FAULT_PERIOD} (examples/constellation_sim.py's 1500-tick "
+          f"orbit cut to {FAULT_PERIOD} so that second-cycle deaths and wakes fall "
+          f"inside the run), pre-shed with a {FAULT_WARN}-tick warning; radiation "
+          f"{n_rad} workers (0.5%) die once at ticks uniform in [100, 1400) under "
+          f"TC (checkpoint every {FAULT_CKPT}), SUPERVISION and NONE; stragglers "
+          f"{n_str} workers (1%) at speed {FAULT_SPEED}")
+    launches = {"steal_compact": 0, "deque_apply": 0}
+
+    def run(label, cfg, kw, mesh_=mesh, wl_=wl):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = sim.simulate(wl_, mesh_, cfg, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: ops.LAUNCHES[k] for k in ("steal_compact", "deque_apply")}
+        kernel = "deque_apply" if cfg.deque_backend == "staged" else "steal_compact"
+        if counts[kernel] == 0:
+            raise SystemExit(f"[faults] {label}: kernel {kernel} was never launched")
+        for k in launches:
+            launches[k] += counts[k]
+        return r, dt, counts
+
+    # a short run of each backend under TC first, untimed (capture, first use)
+    for backend in ("loop", "staged"):
+        sim.simulate(wl, mesh, _fault_cfg(sim, {**base, "max_ticks": 20},
+                                          FAULT_RUNS["radiation/tc"][1],
+                                          deque_backend=backend), **sched["radiation"])
+    firsts = {}
+    for label, (scen, extra) in FAULT_RUNS.items():
+        modes = (("leap/loop", {}),) + (FAULT_MODES if label in ("eclipse", "radiation/tc")
+                                        else ())
+        for mode, mextra in modes:
+            r, dt, counts = run(f"{label} {mode}", _fault_cfg(sim, base, extra, **mextra),
+                                sched[scen])
+            first = firsts.setdefault(label, r)
+            _assert_equal(np, first, r, skip=("events",),
+                          what=f"[faults] {label} leap/loop vs {mode}")
+            if mode == "tick/loop" and r.events != r.ticks:
+                raise SystemExit(f"[faults] {label} tick: {r.events} events")
+            print(f"[faults] {label} {mode}: ticks={r.ticks} events={r.events} "
+                  f"wall={dt:.3f} s ms/event={dt / r.events * 1e3:.3f} "
+                  f"({dt / r.events * 1e3 / main_ms:.2f}x [main]'s {main_ms:.3f}) "
+                  f"nodes={r.nodes} overflow={r.overflow} "
+                  f"ckpt_bytes={r.ckpt_bytes:.0f} launches={counts}")
+    for label, r in firsts.items():
+        if r.ticks != base["max_ticks"] or r.nodes <= 0:
+            raise SystemExit(f"[faults] {label}: ticks {r.ticks} nodes {r.nodes}")
+    print(f"[faults] W={W_MAIN}: every mode equal to its leap/loop run, field for "
+          f"field but events; the closed [main] run took {main_run.events} events")
+
+    # deque_apply at the push-log width of a TC or pre-shed tick
+    L = tasks.EXPAND_K + 1 + CAP_MAIN + ref.GRANT_WIDTH + 2
+    rs = np.random.default_rng(20261017)
+    buf = torch.as_tensor(rs.integers(-2**31, 2**31 - 1, (W_MAIN, CAP_MAIN, 4),
+                                      dtype=np.int64).astype(np.int32), device="cuda")
+    bot = torch.as_tensor(rs.integers(0, CAP_MAIN, W_MAIN).astype(np.int32), device="cuda")
+    size = torch.as_tensor(rs.integers(0, CAP_MAIN + 1, W_MAIN).astype(np.int32),
+                           device="cuda")
+    da = _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L)
+    da["lanes"] = L
+    print(f"[faults] deque_apply at {W_MAIN} rows, C={CAP_MAIN}, L={L} lanes (the "
+          f"TC / pre-shed push log): exact; device per launch: kernel "
+          f"{da['ms']:.6f} ms, plain {da['plain_ms']:.6f} ms, library "
+          f"{da['library_ms']:.6f} ms (index_put), bound {da['bound_ms']:.6f} ms "
+          f"({da['bound_by']}, {da['bytes']} bytes); eager wrapper call "
+          f"{da['call_ms']:.6f} ms")
+
+    # where the time goes under TC: a 300-tick window, timed, then profiled
+    scen, extra = FAULT_RUNS["radiation/tc"]
+    win = _fault_cfg(sim, {**base, "max_ticks": 300}, extra)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = sim.simulate(wl, mesh, win, **sched[scen]).events
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, n_dev, by_name = _profile(torch, lambda: sim.simulate(wl, mesh, win, **sched[scen]))
+    print(f"[profile] faults radiation/tc W={W_MAIN}, 300 ticks, {ev} events: device "
+          f"busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+          f"{busy / wall_ms:.4f}); {n_dev} device activities = {n_dev / ev:.1f} per event")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+
+    # drained W=100: card == CPU (worker processes), the reference's pins
+    mesh100 = topo.MeshTopology.square(100)
+    wl100 = tasks.FibWorkload(n=34, cutoff=18)
+    sched100 = fault_schedules(np, 100, DRAINED_TICKS // 2)
+    for label, (scen, extra) in FAULT_RUNS.items():
+        rg, dt, counts = run(f"W=100 {label}",
+                             _fault_cfg(sim, _drained_base(sim), extra),
+                             sched100[scen], mesh100, wl100)
+        got = (rg.result, rg.ticks, rg.events)
+        if got != FAULT_PINS[label]:
+            raise SystemExit(f"[faults] W=100 {label}: (result, ticks, events) "
+                             f"{got}, the reference's {FAULT_PINS[label]}")
+        exact = rg.result == wl100.expected_result()
+        if label in ("eclipse", "radiation/tc") and not exact:
+            raise SystemExit(f"[faults] W=100 {label}: result {rg.result} not exact")
+        rc, dt_c = cpu[label].result()
+        _assert_equal(np, rg, rc, what=f"[faults] W=100 {label} card vs cpu")
+        print(f"[faults] W=100 {label}: result={rg.result} (exact: {exact}) "
+              f"ticks={rg.ticks} events={rg.events} = the reference's; card "
+              f"{dt:.3f} s ({dt / rg.events * 1e3:.3f} ms/event), cpu {dt_c:.3f} s "
+              f"in a worker process, card == cpu; launches={counts}")
+
+    # the radiation schedule under TC across a grid
+    code = sim.stealing.strategy_code
+    grid_pts = [(ck, s) for ck in (0, 40, FAULT_CKPT) for s in ("neighbor", "global")]
+    pts = [sim.SimParams(strategy=code(s), hop_ticks=base["hop_ticks"], ckpt_interval=ck)
+           for ck, s in grid_pts]
+    tc_cfg = _fault_cfg(sim, base, {"recovery": "tc"})
+    sim.simulate_sweep(wl, mesh, _fault_cfg(sim, {**base, "max_ticks": 20},
+                                            {"recovery": "tc"}), pts, **sched[scen])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    grid = sim.simulate_sweep(wl, mesh, tc_cfg, pts, **sched[scen])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["steal_compact"] += ops.LAUNCHES["steal_compact"]
+    walls = []
+    for (ck, s), r in zip(grid_pts, grid):
+        one, dt, _ = run(f"grid point {s} ckpt {ck}",
+                         _fault_cfg(sim, base, {"recovery": "tc", "ckpt_interval": ck},
+                                    strategy=sim.stealing.Strategy(s)), sched[scen])
+        walls.append(dt)
+        _assert_equal(np, one, r, what=f"[faults] TC grid point ({s}, ckpt {ck})")
+        print(f"[faults] TC grid ({s}, ckpt {ck}): ticks={r.ticks} events={r.events} "
+              f"nodes={r.nodes} ckpt_bytes={r.ckpt_bytes:.0f}; its own run "
+              f"{dt:.3f} s, equal field for field")
+    print(f"[faults] TC grid, {len(pts)} points at W={W_MAIN} (G·W = "
+          f"{len(pts) * W_MAIN}): wall {wall:.3f} s against the per-point runs' "
+          f"{sum(walls):.3f} s (ratio {sum(walls) / wall:.3f}); every point equal "
+          f"to its own run")
+    return launches, da
 
 
 SERVE_BATCH, SERVE_NEW = 8, 64
@@ -1475,7 +1768,7 @@ def main() -> int:
           f"{max(kern['rglru']['decode_bound_ms'], floor):.6f} ms")
     # main-path launches by kernel and path, each path's counts read just
     # after it ran from counts set to 0 just before it
-    launches, profiled, main_run = phase_main_path(torch, np, sim, topo, tasks, ops)
+    launches, profiled, main_run, main_ms = phase_main_path(torch, np, sim, topo, tasks, ops)
     by_path = {k: {"main": n} for k, n in launches.items()}
     phase_drained(torch, np, sim, topo, tasks, ops)
     sweep_launches, kern["steal_compact"]["sweep_main_path_device_ms"] = phase_sweep(
@@ -1483,6 +1776,14 @@ def main() -> int:
     for name, n in sweep_launches.items():
         by_path[name]["sweep"] = n
     by_path["steal_compact"]["crossover"] = phase_crossover(torch, ops)
+    fault_launches, da_tc = phase_faults(torch, np, sim, topo, tasks, ops, ref, deque,
+                                         main_run, main_ms)
+    for name, n in fault_launches.items():
+        by_path[name]["faults"] = n
+    kern["deque_apply"].update({f"faults_{k}": da_tc[k] for k in (
+        "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "lanes")})
+    kern["deque_apply"]["max_abs_err"] = max(kern["deque_apply"]["max_abs_err"],
+                                             da_tc["max_abs_err"])
     # the serving paths, one model at a time (each frees its weights)
     serving = {}
     for tag, arch, prompt_len, note in (
@@ -1525,7 +1826,7 @@ def main() -> int:
          "call_ms": kern[name]["call_ms"],
          "main_path_device_ms": profiled[name],
          **{k: v for k, v in kern[name].items()
-            if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_"))
+            if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_", "faults_"))
             and k not in ("hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),

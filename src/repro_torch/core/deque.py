@@ -8,8 +8,10 @@ functional: it returns new tensors and leaves its inputs untouched.
 
 Writes use a dense formulation: each ring slot (or push-log lane) works out
 which record, if any, lands on it, and the result is a `torch.where` over
-the whole buffer. No scatter ever sees a duplicate index, so the result is
-the same on every device and in every order.
+the whole buffer. Writes from many sources at computed places (`place`,
+`stage_place`: the transplants) find each cell's writer by a scatter-max of
+the writers' indices (`winner_map`), which any order of duplicates leaves
+the same. So the result is the same on every device and in every order.
 
 Staged mutations (`DequeOps`)
 -----------------------------
@@ -297,6 +299,89 @@ def stage_export(ops: DequeOps, grants: torch.Tensor, width: int):
 def stage_clear(ops: DequeOps, mask: torch.Tensor) -> DequeOps:
     """Empty `mask` workers' deques (bottom cursor unchanged)."""
     return ops._replace(size=torch.where(mask, 0, ops.size))
+
+
+def stage_select(ops: DequeOps, pred: torch.Tensor, other: DequeState) -> DequeOps:
+    """Where `pred` (per worker (W,), or one flag), discard everything staged
+    and restart from `other`: the staged mirror of a rollback's wholesale
+    `torch.where(pred, snapshot, current)` over the deque."""
+    pred = torch.as_tensor(pred, device=ops.n.device)
+    p3 = pred.reshape(-1, 1, 1) if pred.dim() else pred
+    return DequeOps(
+        buf0=torch.where(p3, other.buf, ops.buf0),
+        bot=torch.where(pred, other.bot, ops.bot),
+        size=torch.where(pred, other.size, ops.size),
+        slot=ops.slot, rec=ops.rec,
+        n=torch.where(pred, 0, ops.n))
+
+
+def winner_map(shape: tuple, dst: torch.Tensor, write: torch.Tensor) -> torch.Tensor:
+    """For a batch of (R, K) writes into cells of a `shape`-sized table at
+    flat indices `dst`, the flat index r·K + k of the write that lands on
+    each cell, -1 where none does. Written cells are unique by the callers'
+    contract; the map is a scatter-max, which any order of duplicates
+    leaves the same, and unwritten entries add -1 wherever they point."""
+    src = torch.arange(dst.numel(), device=dst.device).view(dst.shape)
+    numel = 1
+    for s in shape:
+        numel *= s
+    m = torch.full((numel,), -1, dtype=torch.int64, device=dst.device)
+    m.scatter_reduce_(0, dst.reshape(-1), torch.where(write, src, -1).reshape(-1),
+                      reduce="amax")
+    return m.view(shape)
+
+
+def winners(recs: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    """The records `winner_map` chose: `recs` is the (R, K, T) block of the
+    writes, `win` flat indices r·K + k, -1 where a cell has no writer (those
+    cells read distinct rows, discarded by the caller). Indexed by (row,
+    column): one index tensor over the R·K rows of 16 bytes takes a gather
+    kernel that is far slower on the H100."""
+    R, K = recs.shape[:2]
+    spread = torch.arange(win.numel(), device=win.device).view(win.shape) % (R * K)
+    w = torch.where(win >= 0, win, spread)
+    return recs[w // K, w % K]
+
+
+def place(state: DequeState, dst_w: torch.Tensor, dst_slot: torch.Tensor,
+          recs: torch.Tensor, write: torch.Tensor) -> torch.Tensor:
+    """The direct path's multi-source write: `recs[r, k]` into ring slot
+    `dst_slot[r, k]` of worker `dst_w[r, k]` where `write[r, k]`. Returns
+    the new buffer. Caller contract: written (worker, slot) pairs are
+    unique; entries that do not write may point anywhere in range."""
+    W, cap = state.buf.shape[:2]
+    win = winner_map((W, cap), dst_w.long() * cap + dst_slot.long(), write)
+    return torch.where((win >= 0)[..., None], winners(recs, win), state.buf)
+
+
+def stage_place(ops: DequeOps, dst_w: torch.Tensor, rel_pos: torch.Tensor,
+                recs: torch.Tensor, write: torch.Tensor) -> DequeOps:
+    """Stage records at positions `rel_pos` above each destination's current
+    virtual top (a multi-source write: the transplant path). `dst_w`,
+    `rel_pos`, `write` are (R, K), `recs` (R, K, T).
+
+    Caller contract: per destination worker, the written `rel_pos` values
+    are collectively gap-free 0..k-1 and `write` already excludes records
+    beyond the destination's remaining room. Writes past the lane budget are
+    dropped and left out of each destination's size and lane advance, so an
+    undersized budget never mints phantom tasks."""
+    W, cap = ops.buf0.shape[:2]
+    L = ops.slot.shape[1]
+    dst = dst_w.long()
+    n_d = ops.n[dst]
+    lane = n_d + rel_pos
+    write = write & (lane < L)
+    win = winner_map((W, L), dst * L + lane.clamp(0, L - 1), write)
+    hit = win >= 0
+    lanes = _lanes(ops)
+    # the slot of lane l of worker w is its top then: rel_pos = l - n[w]
+    slot = torch.remainder((ops.bot + ops.size - ops.n)[:, None] + lanes, cap)
+    added = torch.zeros_like(ops.n).scatter_add_(
+        0, dst.reshape(-1), write.reshape(-1).to(torch.int32))
+    return ops._replace(
+        slot=torch.where(hit, slot, ops.slot).to(torch.int32),
+        rec=torch.where(hit[..., None], winners(recs, win), ops.rec),
+        size=ops.size + added, n=ops.n + added)
 
 
 def apply(ops: DequeOps) -> DequeState:

@@ -7,12 +7,19 @@ arrive: a victim serves the requests that arrive in the same tick in
 deterministic (priority, worker id) order, one bottom task each while tasks
 and its per-round budget last (paper §3.1, §3.3).
 
-This module runs the CLOSED system: one root task, no failures, no link
-state, no arrivals, no tracing. It reproduces the reference JAX simulator
+This module runs one root task with the reference's fault model — deaths
+by schedule (one-shot or periodic) under `Recovery.NONE`, `Recovery.TC`
+(coordinated snapshots, rollback, the dead's deques transplanted to their
+heirs) and `Recovery.SUPERVISION` (victims re-push what a dead thief took),
+wake-ups, straggler speeds and malleable pre-shed with a warning — and no
+link state, arrivals or tracing. It reproduces the reference JAX simulator
 (`repro.core.simulator.simulate`) field for field on those inputs: the
 randomness is a pure function of ``(seed, tick)`` (`rng.fold_in`), every
-quantity is int32 with the same wrap-around, and the deque, selection and
-grant logic mirror the reference step by step.
+quantity is int32 with the same wrap-around, and the deque, selection,
+grant and recovery logic mirror the reference step by step. Every write of
+records to computed places (a transplant, the supervision ledger) has one
+writer a destination, found by a scatter-max of the writers' indices, so
+no result depends on the order of a scatter.
 
 Each loop iteration is one function of device tensors (`iteration`):
 
@@ -48,8 +55,8 @@ on the card, under the captured loop, it took less time than staged at
 every measured point (PERF.md). The kernels' wrappers run their plain
 versions for CPU
 tensors, so on the card the simulator always runs the kernels, and
-``use_steal_kernel=False`` there raises. Options beyond the closed system
-raise `NotImplementedError` and name the ROADMAP item that brings them.
+``use_steal_kernel=False`` there raises. Options not ported yet raise
+`NotImplementedError` and name the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -258,11 +265,56 @@ def _mesh_tables(mesh: topo.MeshTopology, device) -> dict:
     }
 
 
-def _lane_budget() -> int:
-    """Push-log width of the staged backend on the no-recovery path: the
-    expansion children plus the thief-side loot import. Recovery and
-    pre-shed widen it when they are ported."""
-    return tasks.EXPAND_K + 1
+def _lane_budget(cfg: StaticConfig) -> int:
+    """Push-log width of the staged backend: an upper bound on the staged
+    pushes any worker can accept in one tick. Accepted pushes are bounded by
+    free room plus the slots freed mid-tick (one expansion pop and at most
+    GRANT_WIDTH exported grants), so transplants never append more than
+    capacity + GRANT_WIDTH + 1 on top of the expansion children and the loot
+    import; supervision re-pushes at most its ledger."""
+    L = tasks.EXPAND_K + 1          # expansion children + thief-side loot import
+    if cfg.recovery == Recovery.SUPERVISION:
+        L += min(cfg.supervision_slots, cfg.capacity)
+    if cfg.preshed or cfg.recovery == Recovery.TC:
+        # pre-shed / rollback transplants plus the dying worker's loot bank
+        L += cfg.capacity + stealing.GRANT_WIDTH + 2
+    return L
+
+
+def _nearest_alive_neighbor(nbrs: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Each worker's first live mesh neighbor (worker 0 when none is alive):
+    the heir of its deque and accumulator. `alive` (G, W); returns (G, W)
+    worker ids within the point."""
+    W = nbrs.shape[0]
+    valid = (nbrs >= 0) & alive[:, nbrs.clamp(0, W - 1).long()]      # (G, W, 4)
+    first = valid.to(_I32).argmax(-1, keepdim=True)
+    heir = nbrs.expand(valid.shape).gather(-1, first)[..., 0]
+    return torch.where(valid.any(-1), heir, 0)
+
+
+def _transplant_plan(size: torch.Tensor, src_mask: torch.Tensor,
+                     heir: torch.Tensor, cap: int):
+    """Where every transplanted record lands on its heir, which records the
+    heir's capacity rejects, and the per-worker size delta, per point ((G,
+    W) inputs). Heir h receives its sources' records in worker-id order: a
+    source's offset is the summed counts of its heir's earlier sources (a
+    segment prefix). Shared by both deque backends."""
+    ranks = torch.arange(cap, device=size.device)
+    src_counts = torch.where(src_mask, size, 0)
+    offset = stealing.segment_prefix(heir, src_mask, src_counts)
+    live = src_mask[..., None] & (ranks < src_counts[..., None])
+    # drop writes that would overflow the heir; charge drops to the heir
+    room = cap - size.gather(-1, heir.long()) - offset
+    write = live & (ranks < room[..., None])
+    dropped = (live & ~write).sum(-1, dtype=_I32)
+    written = torch.where(src_mask, write.sum(-1, dtype=_I32), 0)
+    added = torch.zeros_like(size).scatter_add_(-1, heir.long(), written)
+    return ranks, offset, write, dropped, added
+
+
+def _transplant_acc(acc, src_mask, heir):
+    new = acc.scatter_add(-1, heir.long(), torch.where(src_mask, acc, 0))
+    return torch.remainder(torch.where(src_mask, 0, new), tasks.RESULT_MOD)
 
 
 class _Deques:
@@ -304,48 +356,166 @@ class _Deques:
             stolen, self.st = dq.export_bottom(self.st, grants.flatten(), width)
         return stolen.unflatten(0, self.gw)
 
+    def clear(self, mask):
+        self.st = self.st._replace(size=torch.where(mask.flatten(), 0, self.st.size))
+
+    def select(self, pred, other: dq.DequeState):
+        """Where the per-point flag `pred` ((G, 1)), restart from `other`."""
+        rows = pred.expand(self.gw).flatten()
+        other = dq.DequeState(*(x.flatten(0, 1) for x in other))
+        if self.staged:
+            self.st = dq.stage_select(self.st, rows, other)
+        else:
+            self.st = dq.DequeState(
+                torch.where(rows[:, None, None], other.buf, self.st.buf),
+                torch.where(rows, other.bot, self.st.bot),
+                torch.where(rows, other.size, self.st.size))
+
+    def transplant(self, acc, src_mask, heir, overflow):
+        """Move every `src_mask` worker's deque and accumulator onto its
+        heir (`heir`: worker ids within the point), emptying the sources.
+        Returns (acc, overflow); records an heir has no room for are
+        dropped and charged to its overflow."""
+        G, W = self.gw
+        cap = self.st.buf0.shape[1] if self.staged else self.st.buf.shape[1]
+        ranks, offset, write, dropped, added = _transplant_plan(
+            self.size, src_mask, heir, cap)
+        overflow = overflow + torch.zeros_like(overflow).scatter_add_(
+            -1, heir.long(), torch.where(src_mask, dropped, 0))
+        # an heir's row among the G·W rows: its point's base plus its id
+        base = torch.arange(G, device=heir.device)[:, None] * W
+        heir_row = (heir + base).flatten().long()
+        dst = heir_row[:, None].expand(-1, cap)
+        write = write.flatten(0, 1)
+        if self.staged:
+            src = dq.stage_window(self.st, cap)
+            self.st = dq.stage_place(self.st, dst, offset.flatten()[:, None] + ranks,
+                                     src, write)
+            self.st = dq.stage_clear(self.st, src_mask.flatten())
+        else:
+            st = self.st
+            src = dq.peek_bottom_window(st, cap)
+            heir_base = (self.size.gather(-1, heir.long()) + offset).flatten()
+            slot = torch.remainder(st.bot[heir_row][:, None] + heir_base[:, None]
+                                   + ranks, cap)
+            self.st = dq.DequeState(
+                dq.place(st, dst, slot, src, write), st.bot,
+                torch.where(src_mask, 0, self.size + added).flatten())
+        return _transplant_acc(acc, src_mask, heir), overflow
+
     def finish(self) -> dq.DequeState:
         rows = dq.apply(self.st) if self.staged else self.st
         return dq.DequeState(*(x.unflatten(0, self.gw) for x in rows))
 
 
-def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt) -> torch.Tensor:
-    """Clip `ne` at each point's next periodic checkpoint tick. `ckpt` is
-    None when no point of the grid checkpoints, else per point (interval
-    clamped to >= 1, interval > 0). Deaths, wake-ups, epochs and arrivals
-    join with their slices."""
+class _Faults(NamedTuple):
+    """The schedules on the device: per worker (W,), shared by every point
+    of a grid, as in the reference; `warn` per point ((G, 1)), None when
+    pre-shed is off; `wake` None when no worker wakes."""
+    fail: torch.Tensor    # death tick (-1: immortal)
+    wake: torch.Tensor | None    # rejoin tick of a dead worker (-1: never)
+    period: torch.Tensor  # cycle of a periodic (fail, wake) schedule (-1: one-shot)
+    warn: torch.Tensor | None
+
+
+def _fires_now(base, period, t):
+    """Does the periodic event anchored at `base` with cycle `period` fire
+    at tick t? period == -1 is the one-shot case (``base == t``); period > 0
+    fires at ``base + k * period``, k >= 0. `base < 0` never fires."""
+    hit = torch.where(period > 0,
+                      torch.remainder(t - base, period.clamp(min=1)) == 0,
+                      t == base)
+    return (base >= 0) & (t >= base) & hit
+
+
+def _next_fire(base, period, t):
+    """First fire tick >= t of the event (base, period), `_NEVER` when none
+    remains. int32 floor division as the reference's (period < 2**29 and t
+    <= max_ticks < 2**30 keep it in range)."""
+    pp = period.clamp(min=1)
+    k = torch.div(t - base + pp - 1, pp, rounding_mode="floor").clamp(min=0)
+    one_shot = torch.where(base >= t, base, _NEVER)
+    return torch.where(base < 0, _NEVER,
+                       torch.where(period > 0, base + k * pp, one_shot))
+
+
+def _retired_mask(faults: _Faults | None, t):
+    """Pre-shed retirement: a warned worker idles from its next death's tick
+    less `warn` until that death and pulls no work back in. None when
+    pre-shed is off (no worker is ever retired)."""
+    if faults is None or faults.warn is None:
+        return None
+    nf = _next_fire(faults.fail, faults.period, t)
+    return (nf < _NEVER) & (t >= nf - faults.warn)
+
+
+def _first_active(x, sp):
+    """Each worker's first straggler-active tick >= x (a speed-s worker
+    acts at the ticks divisible by s); x itself when every speed is 1."""
+    if sp is None:
+        return x
+    return x + torch.remainder(sp - torch.remainder(x, sp), sp)
+
+
+def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
+                        faults: _Faults | None = None, alive=None) -> torch.Tensor:
+    """Clip `ne` at each point's scheduled events: deaths (and pre-shed
+    warnings) of alive workers, wake-ups of dead ones — every cycle of a
+    periodic schedule — and the next periodic checkpoint. `ckpt` is None
+    when no point of the grid checkpoints, else per point (interval clamped
+    to >= 1, interval > 0). Link-state epochs and arrivals join with their
+    slices."""
+    if faults is not None:
+        never = torch.full_like(alive, _NEVER, dtype=_I32)
+        nf = _next_fire(faults.fail, faults.period, t)
+        ne = torch.minimum(ne, torch.where(alive, nf, never).amin(-1, keepdim=True))
+        if faults.wake is not None:
+            nw = _next_fire(faults.wake, faults.period, t)
+            ne = torch.minimum(ne, torch.where(alive, never, nw).amin(-1, keepdim=True))
+        if faults.warn is not None:
+            warn_at = nf - faults.warn
+            ne = torch.minimum(ne, torch.where(
+                alive & (nf < _NEVER) & (warn_at >= t), warn_at,
+                never).amin(-1, keepdim=True))
     if ckpt is not None:
         every, on = ckpt
         ne = torch.where(on, torch.minimum(ne, t + ((every - t % every) % every)), ne)
     return ne
 
 
-def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int) -> torch.Tensor:
+def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
+                faults: _Faults | None = None) -> torch.Tensor:
     """Per point, the first tick >= t at which any of its workers does more
     than a bulk decrement ((G, 1) int32, as `t`). Conservative: an early
-    answer costs one loop iteration, never correctness."""
+    answer costs one loop iteration, never correctness. `sp`: the (W,)
+    straggler speeds, None when all are 1."""
     alive = state.alive
     run = (state.phase == PHASE_RUN) & alive
-    # burning workers: event when work hits 0
-    burn_ev = t + state.work
+    t0 = _first_active(t, sp)
+    # burning workers: event when work hits 0 on their work-th active tick
+    burn_ev = t0 + state.work * (1 if sp is None else sp)
     # work-exhausted workers expand (deque nonempty) or start a steal — with
-    # no link state, any other worker is a reachable victim
-    idle_acts = (state.deque.size > 0) | (W > 1)
+    # no link state, any other worker is a reachable victim — unless retired
+    # by a pre-shed warning
+    retired = _retired_mask(faults, t)
+    can_try = W > 1 if retired is None else ~retired & (W > 1)
+    idle_acts = (state.deque.size > 0) | can_try
     never = torch.full_like(state.work, _NEVER)
     run_ev = torch.where(state.work > 0, burn_ev,
-                         torch.where(idle_acts, t, never))
+                         torch.where(idle_acts, t0, never))
     ev = torch.where(run, run_ev, never)
     # in-flight steal messages arrive when the timer reaches 0
     flight = (state.phase != PHASE_RUN) & alive
     ev = torch.where(flight, t + (state.timer - 1).clamp(min=0), ev)
-    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt)
+    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive)
 
 
 def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
-                    hop_ticks: torch.Tensor,
-                    victim_hops: torch.Tensor) -> torch.Tensor:
+                    hop_ticks: torch.Tensor, victim_hops: torch.Tensor,
+                    sp=None, faults: _Faults | None = None) -> torch.Tensor:
     """Per point, the first tick >= t at which any deque size can change (or
-    a checkpoint fires): the famine window's horizon ((G, 1) int32).
+    a death, wake, pre-shed warning or checkpoint fires): the famine
+    window's horizon ((G, 1) int32).
 
     Within ``[t, horizon)`` no worker with a nonempty deque reaches an
     expansion, no request arrives at a nonempty victim, no granted loot is
@@ -354,34 +524,41 @@ def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
     every deque size stays frozen and every attempt in the window fails: the
     stretch reduces to burn-downs, flight timers and failing probe cycles,
     which the famine replay advances. Probe starts, arrivals and deliveries
-    of those failing cycles are not events here. The closed system this
-    module runs has no failures, stragglers, link state or arrivals: every
-    worker is alive, every tick is an active tick and no worker is retired.
-    `victim_hops` is each worker's hop count to its current victim.
+    of those failing cycles are not events here. `victim_hops` is each
+    worker's hop count to its current victim.
     """
+    alive = state.alive
     nonempty = state.deque.size > 0
     risky = probe(nonempty, state.fails)
+    retired = _retired_mask(faults, t)
+    if retired is not None:
+        risky = risky & ~retired
     never = torch.full_like(state.work, _NEVER)
+    t0 = _first_active(t, sp)
     # holders expand when their burn ends; risky thieves (a drawable victim
     # may be nonempty) end the window at their next probe opportunity
-    run_ev = torch.where(state.work > 0, t + state.work, t)
-    ev = torch.where((state.phase == PHASE_RUN) & (nonempty | risky), run_ev,
-                     never)
+    run_ev = torch.where(state.work > 0,
+                         t0 + state.work * (1 if sp is None else sp), t0)
+    ev = torch.where((state.phase == PHASE_RUN) & alive & (nonempty | risky),
+                     run_ev, never)
     # in flight: a request arriving at a nonempty victim may be granted, a
     # response carrying granted loot delivers into a deque, and a flier whose
-    # own deque is nonempty expands right after its delivery
+    # own deque is nonempty (a re-push or transplant landed on it) expands
+    # right after its delivery
     is_req = state.phase == PHASE_REQ
     v = state.victim.clamp(0, W - 1).long()
     flight_risky = torch.where(is_req, nonempty.gather(-1, v), state.got) | nonempty
     arrive = t + (state.timer - 1).clamp(min=0)
     flight_ev = torch.where(flight_risky, arrive, never)
     # a risky flier fails its present attempt, but its next draw may hit a
-    # nonempty deque: the window ends before that probe starts
+    # nonempty deque: the window ends before that probe starts, at its first
+    # active tick after the delivery
     back = victim_hops * hop_ticks
     deliver = torch.where(is_req, arrive + (back - 1).clamp(min=0), arrive)
-    flight_ev = torch.minimum(flight_ev, torch.where(risky, deliver + 1, never))
-    ev = torch.where(state.phase != PHASE_RUN, flight_ev, ev)
-    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt)
+    flight_ev = torch.minimum(flight_ev, torch.where(
+        risky, _first_active(deliver + 1, sp), never))
+    ev = torch.where((state.phase != PHASE_RUN) & alive, flight_ev, ev)
+    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive)
 
 
 def _min_draw_hops(mesh: topo.MeshTopology, code: int) -> int:
@@ -404,18 +581,21 @@ def _lead(run: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return run.reshape(run.shape[:1] + (1,) * (x.dim() - 1))
 
 
-def _masked(run: torch.Tensor, new, old):
+def _masked(run: torch.Tensor, new, old, lifted: dict | None = None):
     """`new` where `run`, else `old`, per point and leaf by leaf through the
     state's named tuples; a leaf that is the same tensor on both sides is
-    kept."""
+    kept. `lifted` caches `run` shaped for each leaf rank."""
+    lifted = {} if lifted is None else lifted
     if isinstance(old, tuple):
-        leaves = [_masked(run, n, o) for n, o in zip(new, old)]
+        leaves = [_masked(run, n, o, lifted) for n, o in zip(new, old)]
         return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
     if new is old:
         return old
     if new.dtype != old.dtype:  # the card's loop writes `new` into `old`
         raise TypeError(f"an iteration turned a {old.dtype} leaf into {new.dtype}")
-    return torch.where(_lead(run, old), new, old)
+    if old.dim() not in lifted:
+        lifted[old.dim()] = _lead(run, old)
+    return torch.where(lifted[old.dim()], new, old)
 
 
 def _leaves(tree) -> list:
@@ -432,14 +612,8 @@ def _map(fn, tree):
     return fn(tree)
 
 
-# options beyond the closed system: what each is, and its ROADMAP Queue 1 item
+# options not ported yet: what each is, and its ROADMAP Queue 1 item
 _NOT_PORTED = {
-    "recovery": ("Recovery.TC / Recovery.SUPERVISION", 9),
-    "preshed": ("pre-shed malleability (preshed, warn_ticks)", 9),
-    "fail_time": ("failure schedules (fail_time)", 9),
-    "wake_time": ("wake-ups (wake_time)", 9),
-    "fail_period": ("periodic failure schedules (fail_period)", 9),
-    "speed": ("straggler speeds (speed)", 9),
     "linkstate": ("time-varying link state (linkstate)", 10),
     "routing_backend": ("the link-state routing tables (routing_backend)", 10),
     "trace": ("the flight recorder (trace)", 11),
@@ -465,10 +639,8 @@ def _check_static(cfg: StaticConfig):
         raise ValueError(f"max_ticks must stay below {_NEVER}")
     if cfg.famine_batch < 0:
         raise ValueError("famine_batch must be >= 0 (0 disables the fast path)")
-    if cfg.recovery != Recovery.NONE:
-        raise _not_ported("recovery")
-    if cfg.preshed:
-        raise _not_ported("preshed")
+    if not isinstance(cfg.recovery, Recovery):
+        raise ValueError(f"recovery must be a Recovery, got {cfg.recovery!r}")
     if cfg.trace is not None:
         raise _not_ported("trace")
 
@@ -491,15 +663,61 @@ def _check_params(p: SimParams):
         raise _not_ported("arrivals")
 
 
-def _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
-                    routing_backend, arrivals):
-    for name, arg in (("fail_time", fail_time), ("speed", speed),
-                      ("linkstate", linkstate), ("wake_time", wake_time),
-                      ("fail_period", fail_period), ("arrivals", arrivals)):
+def _check_unported(linkstate, routing_backend, arrivals):
+    for name, arg in (("linkstate", linkstate), ("arrivals", arrivals)):
         if arg is not None:
             raise _not_ported(name)
     if routing_backend != "auto":
         raise _not_ported("routing_backend")
+
+
+class _Schedules(NamedTuple):
+    """The failure, wake-up and straggler schedules of a run, host-side
+    (W,) int32 arrays, validated as the reference validates them
+    (`_schedules`)."""
+    fail_time: np.ndarray
+    wake_time: np.ndarray
+    fail_period: np.ndarray
+    speed: np.ndarray
+
+
+def _schedules(W: int, fail_time=None, speed=None, wake_time=None,
+               fail_period=None) -> _Schedules:
+    """Check and fill the schedule arguments of `simulate`: -1 (never,
+    one-shot) where not given, speeds of 1. A wake needs an earlier death of
+    its worker; a periodic schedule needs a positive cycle below 2**29 that
+    holds the wake strictly inside it."""
+    def arr(x, fill):
+        a = np.asarray(np.full(W, fill) if x is None else x)
+        if a.shape != (W,):
+            raise ValueError(f"expected a schedule of shape ({W},), got {a.shape}")
+        return a.astype(np.int32)
+
+    ft, wt = arr(fail_time, -1), arr(wake_time, -1)
+    fp, sp = arr(fail_period, -1), arr(speed, 1)
+    bad = (wt >= 0) & ((ft < 0) | (wt <= ft))
+    if bad.any():
+        raise ValueError(
+            "wake_time must be strictly after the worker's fail_time (and "
+            f"only set for workers that fail); offending workers: "
+            f"{np.where(bad)[0].tolist()}")
+    per = fp != -1
+    bad_p = per & (fp <= 0)
+    # int32 fire arithmetic (`_next_fire`) needs period < 2**29; a worker
+    # must die and wake exactly once per cycle, so the wake offset has to
+    # land strictly inside it
+    bad_p |= per & (fp >= (1 << 29))
+    bad_p |= per & ((ft < 0) | (wt < 0) | (wt - ft >= fp))
+    if bad_p.any():
+        raise ValueError(
+            "fail_period must be -1 (one-shot) or a positive cycle length "
+            "< 2**29 with fail_time >= 0 and fail_time < wake_time < "
+            f"fail_time + fail_period; offending workers: "
+            f"{np.where(bad_p)[0].tolist()}")
+    if (sp < 1).any():
+        raise ValueError(f"speed must be >= 1; offending workers: "
+                         f"{np.where(sp < 1)[0].tolist()}")
+    return _Schedules(ft, wt, fp, sp)
 
 
 def _resolve_device(device, cfg: StaticConfig) -> torch.device:
@@ -530,21 +748,26 @@ def core_count() -> int:
 
 
 def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
-              p: SimParams, device: torch.device):
+              p: SimParams, device: torch.device, sched: _Schedules | None = None):
     """Run the grid `p` (`stack_params`: G points) through one loop on
-    `device`. Returns (state, ticks, iters): every state leaf with a leading
-    G axis, per-point scalars as (G, 1) columns; ticks and iters (G,)."""
+    `device`, every point under the schedules `sched` (None: no failure,
+    wake-up or straggler). Returns (state, ticks, iters): every state leaf
+    with a leading G axis, per-point scalars as (G, 1) columns; ticks and
+    iters (G,)."""
     global _CORE_COUNT
     _CORE_COUNT += 1
     W = mesh.num_workers
     G = int(p.strategy.shape[0])
     tbl = _mesh_tables(mesh, device)
-    coords = tbl["coords"]
+    coords, nbrs = tbl["coords"], tbl["neighbors"]
     tables = workload.tables(device)
     S = cfg.supervision_slots
 
     def col(x):  # a per-point parameter as a (G, 1) column on the device
         return x.to(device=device, dtype=_I32)[:, None]
+
+    def dev_i32(a):
+        return torch.as_tensor(a, dtype=_I32, device=device)
 
     # the grid's strategies, known on the host: only their branches run
     codes, taus = p.strategy.tolist(), p.hop_ticks.tolist()
@@ -573,8 +796,31 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     if max(p.ckpt_interval.tolist()) > 0:
         every = col(p.ckpt_interval)
         ckpt = (every.clamp(min=1), every > 0)
+
+    # the schedules, on the device only where they can act: `faults` when
+    # some worker dies, `sp` when some worker is a straggler. Their absence
+    # changes no result: a run with no death never transplants, rolls back,
+    # re-pushes or retires a worker
+    faults = sp = None
+    if sched is not None and (sched.fail_time >= 0).any():
+        faults = _Faults(
+            fail=dev_i32(sched.fail_time),
+            wake=dev_i32(sched.wake_time) if (sched.wake_time >= 0).any() else None,
+            period=dev_i32(sched.fail_period),
+            warn=col(p.warn_ticks) if cfg.preshed else None)
+    if sched is not None and (sched.speed != 1).any():
+        sp = dev_i32(sched.speed)
+    preshed = faults is not None and cfg.preshed
+    recovery = cfg.recovery if faults is not None else Recovery.NONE
+    # TC rolls back only at points that checkpoint: with no such point it
+    # leaves the dead as they fell, and carries no snapshot
+    tc = recovery == Recovery.TC and ckpt is not None
+    supervision = recovery == Recovery.SUPERVISION
+
     on_cuda = device.type == "cuda"
-    lanes = _lane_budget() if cfg.deque_backend == "staged" else None
+    staged = cfg.deque_backend == "staged"
+    lanes_full = _lane_budget(cfg) if staged else None
+    lanes_common = tasks.EXPAND_K + 1 if staged else None
     leap_mode = cfg.step_mode == "leap"
     # the famine fast path runs in leap mode; the reference gates it off per
     # point for LIFELINE (its thieves park on lifelines: no probe churn to
@@ -669,23 +915,149 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         ex = tasks.expand(task.flatten(0, 1), popped.flatten(), tables)
         return {k: v.unflatten(0, (G, W)) for k, v in ex.items()}
 
-    def tick_fn(state: SimState, t: torch.Tensor, near, far):
-        """One tick with full semantics at each point's tick `t` ((G, 1)),
-        drawing from row 0 of `draws(t)`; returns (state, live)."""
-        # No worker dies or wakes in the closed system this module runs
-        # (simulate() rejects failure schedules), so `alive` stays all-True.
-        alive = state.alive
-        ses = _Deques(state.deque, lanes)
+    def void(state, mask, timer=False):
+        """A dead worker's in-flight state voided: no phase, work or granted
+        loot (and no timer, where the reference clears it)."""
+        out = state._replace(work=torch.where(mask, 0, state.work),
+                             phase=torch.where(mask, 0, state.phase),
+                             got=torch.where(mask, False, state.got))
+        if timer:
+            out = out._replace(timer=torch.where(mask, 0, state.timer))
+        return out
 
-        # ------------- periodic checkpoint counter -------------------------- #
+    def apply_tc(state, snap, ses, dying, alive):
+        """Roll every point with a death back to its last coordinated
+        snapshot (a consistent cut: the in-flight steal state is part of it),
+        then move each dead worker's snapshot deque, accumulator and
+        in-flight loot onto its heir. The snapshot may predate earlier
+        deaths, so every dead worker transplants. The high-water mark and
+        the arrival fields are not simulation state: they survive."""
+        rb = dying.any(-1, keepdim=True) & ckpt[1]
+        # the session owns the live deque: on rollback it discards what was
+        # staged this tick (pre-shed moves included) and restarts from the
+        # snapshot
+        ses.select(rb, snap.deque)
+        merged = _masked(rb, snap, state._replace(deque=snap.deque))
+        heir = _nearest_alive_neighbor(nbrs, alive)
+        dead = ~alive & rb
+        # bank a dead worker's in-flight loot into its own deque first
+        want_bank = dead & merged.got
+        banked = ses.push(merged.loot, want_bank)
+        ovf = merged.overflow + (want_bank & ~banked).to(_I32)
+        acc, ovf = ses.transplant(merged.acc, dead, heir, ovf)
+        keep = {f: getattr(state, f) for f in (
+            "hiwater", "arr_t", "arr_k", "arr_injected", "arr_dropped",
+            "arr_done", "soj_lo", "soj_hi")}
+        return void(merged._replace(acc=acc, overflow=ovf, alive=alive, **keep),
+                    dead, timer=True)
+
+    def apply_supervision(state, ses, dying, alive):
+        """Victims re-push the records whose thief just died (a live victim
+        pushes; every victim forgets them), and the dead worker's own state
+        is lost."""
+        thief = state.sup_thief
+        dead_thief = dying.gather(-1, thief.clamp(0, W - 1).long().flatten(1))
+        repush = (thief >= 0) & dead_thief.view(thief.shape)
+        pushing = repush & (state.alive & ~dying)[..., None]
+        # each victim's re-pushed records to the front, in slot order
+        slot_order = torch.sort((~pushing).to(_I32), dim=-1, stable=True).indices
+        recs = state.sup_buf.gather(2, slot_order[..., None].expand(-1, -1, -1, T))
+        ovf = state.overflow + ses.push_many(recs, pushing.sum(-1, dtype=_I32))
+        ses.clear(dying)
+        return void(state._replace(
+            acc=torch.where(dying, 0, state.acc), overflow=ovf, alive=alive,
+            sup_thief=torch.where(repush, -1, thief)), dying)
+
+    def supervise(state, v, rank, got, stolen):
+        """The victims' ledger of granted steals: each granted (record,
+        thief) in its victim's slot sup_n + rank, clipped to the last slot,
+        where the highest thief of a slot wins (the reference's scatter
+        order)."""
+        vslot = (state.sup_n.gather(-1, v) + rank).clamp(0, S - 1)
+        cell = ((gidx * W + v) * S + vslot)
+        win = dq.winner_map((G, W, S), cell, got)
+        hit = win >= 0
+        sup_thief = torch.where(hit, win % W, state.sup_thief).to(_I32)
+        sup_buf = torch.where(hit[..., None], dq.winners(stolen, win), state.sup_buf)
+        sup_n = state.sup_n + torch.zeros_like(state.sup_n).scatter_add_(
+            -1, v, got.to(_I32))
+        return state._replace(sup_buf=sup_buf, sup_thief=sup_thief,
+                              sup_n=sup_n.clamp(max=S - 1))
+
+    def tick_fn(state: SimState, snap, t: torch.Tensor, near, far):
+        """One tick with full semantics at each point's tick `t` ((G, 1)),
+        drawing from row 0 of `draws(t)`; returns (state, snap, live)."""
+        alive = state.alive
+        ses = _Deques(state.deque, lanes_full)
+
+        # ------------- scheduled failures / shutdowns --------------------- #
+        if faults is not None:
+            # periodic schedules fire at base + k·period (one-shot: base == t)
+            dying = alive & _fires_now(faults.fail, faults.period, t)
+            acc, overflow = state.acc, state.overflow
+            if preshed:
+                # malleable pre-shed: a warned worker moves its deque and
+                # accumulator one warn window early; at its death tick it
+                # banks in-flight loot and moves again (the final flush)
+                warned = alive & _fires_now(faults.fail, faults.period, t + faults.warn)
+                heir = _nearest_alive_neighbor(nbrs, alive & ~warned & ~dying)
+                acc, overflow = ses.transplant(acc, warned, heir, overflow)
+                want_bank = dying & state.got
+                banked = ses.push(state.loot, want_bank)
+                overflow = overflow + (want_bank & ~banked).to(_I32)
+                acc, overflow = ses.transplant(acc, dying, heir, overflow)
+                state = state._replace(got=torch.where(dying, False, state.got))
+            state = state._replace(acc=acc, overflow=overflow)
+            alive = alive & ~dying
+            if tc:
+                state = apply_tc(state, snap, ses, dying, alive)
+            elif supervision:
+                state = apply_supervision(state, ses, dying, alive)
+            elif recovery == Recovery.TC:
+                # no point checkpoints: nothing to roll back to
+                state = state._replace(alive=alive)
+            else:
+                ses.clear(dying)
+                state = void(state._replace(
+                    alive=alive, acc=torch.where(dying, 0, state.acc)), dying)
+            alive = state.alive
+
+            # ------------- eclipse exits: wake-ups (elastic grow) --------- #
+            # a dead worker whose wake tick arrives rejoins as a fresh
+            # citizen: its deque is empty (every recovery path leaves a dead
+            # deque empty), no fail count, ledger or in-flight state
+            if faults.wake is not None:
+                waking = ~alive & _fires_now(faults.wake, faults.period, t)
+                alive = alive | waking
+                state = state._replace(
+                    alive=alive,
+                    phase=torch.where(waking, PHASE_RUN, state.phase),
+                    timer=torch.where(waking, 0, state.timer),
+                    victim=torch.where(waking, -1, state.victim),
+                    work=torch.where(waking, 0, state.work),
+                    fails=torch.where(waking, 0, state.fails),
+                    got=torch.where(waking, False, state.got),
+                    sup_thief=torch.where(waking[..., None], -1, state.sup_thief),
+                    sup_n=torch.where(waking, 0, state.sup_n))
+
+        # ------------- periodic checkpoint -------------------------------- #
         if ckpt is not None:
             every, on = ckpt
-            state = state._replace(ckpt_count=state.ckpt_count + (
-                on & (t % every == 0)).to(_I32))
+            take = on & (t % every == 0)
+            if tc:
+                # the snapshot cut sees the deque after recovery: the staged
+                # ops commit here and a fresh session at the common lane
+                # budget carries the rest of the tick (two commits a tick)
+                deq_mid = ses.finish()
+                ses = _Deques(deq_mid, lanes_common)
+                state = state._replace(deque=deq_mid)
+                snap = _masked(take, state, snap)
+            state = state._replace(ckpt_count=state.ckpt_count + take.to(_I32))
 
         # ------------- phase RUN: work / expand / start steal -------------- #
-        # (no stragglers: every tick is an active tick for every worker)
-        running = (state.phase == PHASE_RUN) & alive
+        # a speed-s straggler acts only at ticks divisible by s
+        active = alive if sp is None else alive & (t % sp == 0)
+        running = (state.phase == PHASE_RUN) & active
         burning = running & (state.work > 0)
         work = state.work - burning.to(_I32)
 
@@ -702,6 +1074,10 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
         # idle workers become thieves: request departs now, arrives in h·τ
         idle = running & ~burning & ~popped & (ses.size == 0)
+        retired = _retired_mask(faults, t)
+        if retired is not None:
+            # retired workers (warned of shutdown) pull no work back in
+            idle = idle & ~retired
         victim_new = None
         if near is not None:
             victim_new = torch.where(
@@ -737,6 +1113,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                             plan.rank.clamp(0, stealing.GRANT_WIDTH - 1).long()]
         got = plan.got
         stolen_from = state.stolen_from + plan.taken
+        if supervision:
+            state = supervise(state, v, plan.rank, got, stolen)
         # response departs: travel back
         resp_start = arriving
         phase = torch.where(resp_start, PHASE_RESP, phase)
@@ -779,7 +1157,14 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             hiwater=torch.maximum(state.hiwater, deque_.size))
         live = (deque_.size.sum(-1, keepdim=True) + work.sum(-1, keepdim=True)
                 + got_left.sum(-1, keepdim=True)) > 0
-        return new_state, live
+        return new_state, snap, live
+
+    def active_in(t, a, b):
+        """Each worker's straggler-active ticks in [t + a, t + b)."""
+        if sp is None:
+            return b - a
+        return (torch.div(t + b + sp - 1, sp, rounding_mode="floor")
+                - torch.div(t + a + sp - 1, sp, rounding_mode="floor"))
 
     def leap(state: SimState, t, live, ne):
         """Fused fast-forward over the dead ticks in [t, ne), per point.
@@ -789,17 +1174,19 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         delta = (ne.clamp(max=cfg.max_ticks) - t).clamp(min=0)
         delta = torch.where(live, delta, 0)
         burning = (state.phase == PHASE_RUN) & state.alive & (state.work > 0)
-        nact = torch.where(burning, torch.minimum(delta, state.work), 0)
+        # burners: one work unit per straggler-active tick in the window
+        nact = torch.where(burning, torch.minimum(active_in(t, 0, delta), state.work), 0)
         drained = (state.deque.size.sum(-1, keepdim=True)
                    + (state.work - nact).sum(-1, keepdim=True)
                    + state.got.sum(-1, keepdim=True)) == 0
         # tick right after the last burn of the burners that finish in-window
-        exit_t = torch.where(burning & (nact == state.work), t + state.work,
+        last = _first_active(t, sp) + (state.work - 1) * (1 if sp is None else sp) + 1
+        exit_t = torch.where(burning & (nact == state.work), last,
                              0).amax(-1, keepdim=True)
         delta = torch.where(live & drained,
                             torch.minimum(delta, (exit_t - t).clamp(min=0)),
                             delta)
-        nact = torch.where(burning, torch.minimum(delta, state.work), 0)
+        nact = torch.where(burning, torch.minimum(active_in(t, 0, delta), state.work), 0)
         # in-flight messages: timers tick down, thieves accumulate wait
         flight = (state.phase != PHASE_RUN) & state.alive
         dflt = torch.where(flight, delta, 0)
@@ -814,23 +1201,26 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         t, live, ne), `ne` the `_next_event` horizon of the returned state.
 
         `_famine_horizon` certifies that deque sizes are frozen over the
-        window, so only burn-downs, probe flights and their counters move.
-        The reference replays the window tick by tick (`lax.scan` over FB
-        ticks under `lax.cond`); here the replay is worked out per worker,
-        with no branch: a worker's window is its flight under way (or its
-        idle start), its burn, then probe cycles — a draw at tick d from
-        row d of `near`/`far` (`stealing.batched_victim_draws`, the same
-        ``fold_in(key0, t)`` keys as the per-tick path), the request
-        arriving at d + max(L − 1, 0) and the empty-handed reply landing
-        max(L − 1, 0) later, L = h·τ, the next draw on the tick after. Each
-        round below takes every worker's next draw at once; `rounds` bounds
-        the draws a window holds. The number of replayed ticks `n` is where
-        the reference's scan stops (its `act = pred & live & (j < delta)`):
-        0 when the gate `pred` is closed, which leaves everything as it was.
+        window, so only burn-downs, probe flights and their counters move;
+        deaths, wake-ups and pre-shed warnings end it, so who is alive and
+        who is retired holds over it. The reference replays the window tick
+        by tick (`lax.scan` over FB ticks under `lax.cond`); here the replay
+        is worked out per worker, with no branch: a live worker's window is
+        its flight under way (or its idle start), its burn — one unit at each
+        straggler-active tick — then, unless it is retired, probe cycles: a
+        draw at an active tick d from row d of `near`/`far`
+        (`stealing.batched_victim_draws`, the same ``fold_in(key0, t)`` keys
+        as the per-tick path), the request arriving at d + max(L − 1, 0) and
+        the empty-handed reply landing max(L − 1, 0) later, L = h·τ, the
+        next draw at the first active tick after. Each round below takes
+        every worker's next draw at once; `rounds` bounds the draws a window
+        holds. The number of replayed ticks `n` is where the reference's
+        scan stops (its `act = pred & live & (j < delta)`): 0 when the gate
+        `pred` is closed, which leaves everything as it was.
         """
         # every worker's hops to its current victim (its reply's flight)
         hv = topo.hop_dist(mesh, coords, state.victim)
-        ne_risky = _famine_horizon(state, t, ckpt, W, probe, hop_ticks, hv)
+        ne_risky = _famine_horizon(state, t, ckpt, W, probe, hop_ticks, hv, sp, faults)
         hi = ne_risky.clamp(max=cfg.max_ticks)
         delta = (hi - t).clamp(0, FB)
         # profitable only when probe-cycle events (counted by _next_event
@@ -841,25 +1231,30 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
         phase, timer, work, fails = (state.phase, state.timer, state.work,
                                      state.fails)
+        alive = state.alive
         frozen = (state.deque.size.sum(-1, keepdim=True)
                   + state.got.sum(-1, keepdim=True))
-        in_flight = phase != PHASE_RUN
-        is_req = phase == PHASE_REQ
+        in_flight = (phase != PHASE_RUN) & alive
+        is_req = (phase == PHASE_REQ) & alive
         # the flight under way: arrival a0 and delivery dv0 (relative ticks;
         # a reply already in flight arrived before the window, a0 = -1)
         lv = hv * hop_ticks
         t_arr = (timer - 1).clamp(min=0)
         a0 = torch.where(is_req, t_arr, -1)
         dv0 = torch.where(is_req, t_arr + (lv - 1).clamp(min=0), t_arr)
-        # a worker burns from b0 (after its delivery if in flight) and has
-        # no work left after tick b0 + work - 1
+        # a worker may burn from b0 (after its delivery if in flight); it
+        # burns at its active ticks from b1 on and has no work left after
+        # tick `last_burn` - 1. A dead worker's work never burns
         b0 = torch.where(in_flight, dv0 + 1, 0)
-        last_burn = torch.where(work > 0, b0 + work, 0).amax(-1, keepdim=True)
+        b1 = b0 if sp is None else _first_active(t + b0, sp) - t
+        spw = work if sp is None else work * sp
+        last_burn = torch.where(work > 0, torch.where(alive, b1 + spw - (
+            0 if sp is None else sp - 1), _NEVER), 0).amax(-1, keepdim=True)
         # ticks replayed: the window, cut where the last work burns out
         # unless frozen deques or loot keep the system live
         n = torch.where(pred, torch.where(frozen > 0, delta,
                                           torch.minimum(delta, last_burn)), 0)
-        burned = torch.minimum((n - b0).clamp(min=0), work)
+        burned = torch.where(alive, torch.minimum(active_in(t, b0, n).clamp(min=0), work), 0)
 
         # the flight under way: its reply, its delivery, where it stands
         arrived = is_req & (a0 < n)
@@ -878,23 +1273,28 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             timer)
 
         # probe cycles: an idle worker with an empty deque draws at tick d
-        # from row d; a draw of h hops is back 2·max(h·τ − 1, 0) ticks later
-        # and the next draw follows: a cycle of max(2·h·τ − 1, 1) ticks. A
-        # worker whose table row is empty draws no victim all window.
-        def cycles(draw):  # (G, FB, W, 3): victim, hops, cycle length
+        # from row d; a draw of h hops is back 2·max(h·τ − 1, 0) ticks later:
+        # a flight of max(2·h·τ − 1, 1) ticks, and the next draw follows at
+        # the first active tick after it. A worker whose table row is empty
+        # draws no victim all window.
+        def cycles(draw):  # (G, FB, W, 3): victim, hops, flight length
             h = topo.hop_dist(mesh, coords, draw)
             return torch.stack([draw, h, (h * tau2 - 1).clamp(min=1)], -1)
 
         near_c, has_near = cycles(near), near[:, 0] >= 0
-        idle = state.deque.size == 0
+        idle = alive & (state.deque.size == 0)
+        retired = _retired_mask(faults, t)
+        if retired is not None:
+            idle = idle & ~retired
         if far is None:
             idle = idle & has_near
         else:
             far_c, has_far = cycles(far), far[:, 0] >= 0
-        d0 = torch.where(idle, b0 + work, _NEVER)
+        d0 = torch.where(idle, b1 + spw, _NEVER)
         d, attempts, victim = d0, state.attempts, state.victim
         hops_sum = torch.zeros_like(d)
         d_last, h_last = d0, hops_sum
+        flown, c_last = hops_sum, hops_sum
         for r in range(rounds):
             # each worker's next draw: row d of its own point's block
             row = d.clamp(max=FB - 1).long()[:, None, :, None].expand(G, 1, W, 3)
@@ -912,6 +1312,12 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             victim = torch.where(ok, ch, victim)
             d_last = torch.where(ok, d, d_last)
             h_last = torch.where(ok, h, h_last)
+            if sp is not None:
+                # a straggler idles between a delivery and its next active
+                # tick: the flights' ticks are summed apart from the draws'
+                flown = flown + cycle * ok
+                c_last = torch.where(ok, cycle, c_last)
+                cycle = torch.div(cycle + sp - 1, sp, rounding_mode="floor") * sp
             d = torch.where(ok, d + cycle, _NEVER)
         # every draw but the last was delivered (the next followed it): the
         # counters telescope, and the last draw's flight is where it stands
@@ -924,7 +1330,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         fails = fails + draws_n - (drew & (dv >= n)).to(_I32)
         hop_w = hop_w + 2 * hops_sum - torch.where(drew & (a >= n), h_last, 0)
         loot_zero = loot_zero | (drew & ((draws_n > 1) | (a < n)))
-        steal_wait = steal_wait + torch.where(drew, torch.minimum(dv + 1, n) - d0, 0)
+        before = d0 if sp is None else d_last - (flown - c_last)
+        steal_wait = steal_wait + torch.where(drew, torch.minimum(dv + 1, n) - before, 0)
         phase = torch.where(drew, torch.where(
             dv < n, PHASE_RUN, PHASE_REQ + (a < n).to(_I32)), phase)
         timer = torch.where(drew, torch.where(
@@ -942,7 +1349,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             hops_hi=state.hops_hi + (lo >> _HOP_LANE_BITS).to(_I32))
         t_out = t + n
         live_out = torch.where(n > 0, (frozen > 0) | (n < last_burn), live)
-        return new_state, t_out, live_out, _next_event(new_state, t_out, ckpt, W)
+        return new_state, t_out, live_out, _next_event(new_state, t_out, ckpt, W, sp, faults)
 
     def iteration(carry):
         """One loop iteration of device tensors only — tick, next event,
@@ -951,43 +1358,49 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         max_ticks)`` of the carry before it: the loop keeps a point's new
         carry only where its flag is set, so a finished point's fields, its
         iteration count `events` included, stay as they were."""
-        state, t, live, iters = carry
+        state, snap, t, live, iters = carry
         run = live & (t < cfg.max_ticks)
         near, far = draws(t)
-        new, live_n = tick_fn(state, t, near, far)
+        new, snap, live_n = tick_fn(state, snap, t, near, far)
         t_n = t + 1
         if leap_mode:
-            ne = _next_event(new, t_n, ckpt, W)
+            ne = _next_event(new, t_n, ckpt, W, sp, faults)
             if FB:
                 new, t_n, live_n, ne = famine_ff(
                     new, t_n, live_n, ne, near[:, 1:],
                     None if far is None else far[:, 1:])
             new, t_n, live_n = leap(new, t_n, live_n, ne)
-        return (new, t_n, live_n, iters + 1), run
+        return (new, snap, t_n, live_n, iters + 1), run
 
-    carry = (state0, scalar(0), torch.ones((G, 1), dtype=torch.bool, device=device),
-             scalar(0))
+    # only TC consumes snapshots: other runs carry none
+    snap0 = _map(torch.clone, state0) if tc else ()
+    carry = (state0, snap0, scalar(0),
+             torch.ones((G, 1), dtype=torch.bool, device=device), scalar(0))
     loop = _replay_loop if on_cuda else _eager_loop
-    state, t, _, iters = loop(iteration, carry, cfg.max_ticks)
+    state, _, t, _, iters = loop(iteration, carry, cfg.max_ticks)
     return state, t[:, 0], iters[:, 0]
 
 
 def _loop_done(carry, max_ticks: int) -> bool:
     """The host's read of the loop's done flag, true when no point is live
     (one device-to-host sync)."""
-    _, t, live, _ = carry
+    t, live = carry[2], carry[3]
     return not bool((live & (t < max_ticks)).any())
 
 
 def _eager_loop(body, carry, max_ticks: int):
     """The plain path: `body` run eagerly, the done flag read every
-    DONE_EVERY iterations."""
-    while True:
-        for _ in range(DONE_EVERY):
-            new, run = body(carry)
-            carry = _masked(run, new, carry)
-        if _loop_done(carry, max_ticks):
-            return carry
+    DONE_EVERY iterations. An iteration in which every point runs keeps its
+    new carry whole (the host reads the flags: on the CPU that costs no
+    wait). Inference mode spares each of an iteration's ~1,100 small
+    operations autograd's bookkeeping."""
+    with torch.inference_mode():
+        while True:
+            for _ in range(DONE_EVERY):
+                new, run = body(carry)
+                carry = new if bool(run.all()) else _masked(run, new, carry)
+            if _loop_done(carry, max_ticks):
+                return carry
 
 
 @contextlib.contextmanager
@@ -1092,14 +1505,16 @@ def stack_params(params_list) -> SimParams:
 
 
 def _run_grid(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
-              points: list, device) -> list[SimResult]:
-    """Check and run a grid of `SimParams` points in one `_sim_core` call;
-    one `SimResult` per point, in order."""
+              points: list, device, sched: _Schedules) -> list[SimResult]:
+    """Check and run a grid of `SimParams` points in one `_sim_core` call,
+    every point under the schedules `sched`; one `SimResult` per point, in
+    order."""
     _check_static(cfg)
     for p in points:
         _check_params(p)
     dev = _resolve_device(device, cfg)
-    state, ticks, iters = _sim_core(workload, mesh, cfg, stack_params(points), dev)
+    state, ticks, iters = _sim_core(workload, mesh, cfg, stack_params(points), dev,
+                                    sched)
     # to the host: what the results read (not the rings, loot or ledger)
     host = _map(torch.Tensor.cpu, state._replace(
         deque=(), loot=(), sup_buf=(), sup_thief=(), sup_n=()))
@@ -1112,17 +1527,21 @@ def simulate(workload, mesh: topo.MeshTopology, cfg: SimConfig | None = None,
              fail_time=None, speed=None, linkstate=None, wake_time=None,
              fail_period=None, routing_backend: str = "auto", arrivals=None,
              *, device=None) -> SimResult:
-    """Run the closed-system simulator on `device` (default: the CUDA
-    device; raises if there is none — pass ``device="cpu"`` for the plain
-    PyTorch path): a grid of one point on the core `simulate_sweep` runs.
-    Arguments follow the reference's `simulate`; the failure, straggler,
-    link-state and arrival arguments must be None, and `routing_backend`
-    "auto", until their slices are ported (`NotImplementedError` names the
-    ROADMAP item)."""
+    """Run the simulator on `device` (default: the CUDA device; raises if
+    there is none — pass ``device="cpu"`` for the plain PyTorch path): a
+    grid of one point on the core `simulate_sweep` runs. Arguments follow
+    the reference's `simulate`: `fail_time[w]` is worker w's death tick (-1:
+    immortal), `wake_time[w]` the tick a dead worker rejoins with an empty
+    deque (-1: never; after its death), `fail_period[w]` the cycle of a
+    periodic (fail, wake) schedule (-1: one-shot), `speed[w]` its straggler
+    divisor (1: nominal); `cfg.recovery`, `cfg.preshed` and
+    `cfg.warn_ticks` say what a death costs. The link-state and arrival
+    arguments must be None, and `routing_backend` "auto", until their
+    slices are ported (`NotImplementedError` names the ROADMAP item)."""
     cfg = cfg or SimConfig()
-    _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
-                    routing_backend, arrivals)
-    return _run_grid(workload, mesh, cfg.static, [cfg.params], device)[0]
+    _check_unported(linkstate, routing_backend, arrivals)
+    sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
+    return _run_grid(workload, mesh, cfg.static, [cfg.params], device, sched)[0]
 
 
 def simulate_batch(workload, mesh: topo.MeshTopology,
@@ -1131,14 +1550,15 @@ def simulate_batch(workload, mesh: topo.MeshTopology,
                    fail_period=None, routing_backend: str = "auto",
                    arrivals=None, *, device=None) -> list[SimResult]:
     """One simulation per seed, all in one grid: every seed shares `cfg`
-    (whose own `seed` is ignored); the grid runs until its slowest seed
-    ends. Returns one `SimResult` per seed, each equal to `simulate` with
-    that seed, `events` included. Other arguments as `simulate`'s."""
+    (whose own `seed` is ignored) and the schedules; the grid runs until its
+    slowest seed ends. Returns one `SimResult` per seed, each equal to
+    `simulate` with that seed, `events` included. Other arguments as
+    `simulate`'s."""
     cfg = cfg or SimConfig()
-    _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
-                    routing_backend, arrivals)
+    _check_unported(linkstate, routing_backend, arrivals)
+    sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
     return _run_grid(workload, mesh, cfg.static,
-                     [cfg.params._replace(seed=int(s)) for s in seeds], device)
+                     [cfg.params._replace(seed=int(s)) for s in seeds], device, sched)
 
 
 def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
@@ -1150,14 +1570,16 @@ def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     clock, and a point that has ended stays as it was while the rest run
     on. `cfg` supplies the static half (a `StaticConfig`, or a `SimConfig`
     whose per-point fields are ignored); `params_list` is the grid, a
-    sequence of `SimParams` or `SimConfig`s. Returns one `SimResult` per
-    point, in order, each equal to `simulate` of that point, `events`
-    included. `devices` may name one device (it then stands for `device`);
-    a grid sharded over several raises `NotImplementedError` (ROADMAP Queue
-    1 item 13b). Other arguments as `simulate`'s."""
+    sequence of `SimParams` or `SimConfig`s, whose `warn_ticks` and
+    `ckpt_interval` are per point; every point shares the failure, wake-up
+    and straggler schedules. Returns one `SimResult` per point, in order,
+    each equal to `simulate` of that point, `events` included. `devices`
+    may name one device (it then stands for `device`); a grid sharded over
+    several raises `NotImplementedError` (ROADMAP Queue 1 item 13b). Other
+    arguments as `simulate`'s."""
     scfg = cfg.static if isinstance(cfg, SimConfig) else cfg
-    _check_unported(fail_time, speed, linkstate, wake_time, fail_period,
-                    routing_backend, arrivals)
+    _check_unported(linkstate, routing_backend, arrivals)
+    sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
     if devices is not None:
         devices = list(devices)
         if len(devices) > 1:
@@ -1167,4 +1589,4 @@ def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     pts = [p.params if isinstance(p, SimConfig) else p for p in params_list]
     if not pts:
         return []
-    return _run_grid(workload, mesh, scfg, pts, device)
+    return _run_grid(workload, mesh, scfg, pts, device, sched)

@@ -216,3 +216,83 @@ def test_random_staged_sequences(seed):
     clear = rs.random(W) < 0.5
     assert_same(rdq.stage_clear(ro, jnp.asarray(clear)).size,
                 pdq.stage_clear(po, torch.as_tensor(clear)).size)
+
+
+def _transplant_inputs(rs, W=W, C=C):
+    """A random ring set, sources (a few workers) and heirs: each source's
+    heir is a random non-source worker, several sources per heir."""
+    buf, bot, size = random_state(rs, W, C)
+    src = rs.random(W) < 0.3
+    heir = rs.choice(np.flatnonzero(~src), W)
+    acc = rs.integers(0, 1000, W)
+    ovf = rs.integers(0, 3, W)
+    return buf, bot, size, src, heir, acc, ovf
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_stage_place_and_select_match_reference(seed):
+    """`stage_place` at a transplant plan's (heir, rel_pos) places, after a
+    few staged pushes, and `stage_select` against a snapshot, each equal to
+    the reference's on random rings; both kernel-path commits equal."""
+    from repro.core import simulator as rsim
+    rs = np_rng(70 + seed)
+    buf, bot, size, src, heir, _, _ = _transplant_inputs(rs)
+    r, p = both(buf, bot, size)
+    L = 9 + C + 10
+    ro, po = rdq.stage(r, L), pdq.stage(p, L)
+    task = rs.integers(0, 99, (W, T))
+    mask = rs.random(W) < 0.5
+    ro, _ = rdq.stage_push(ro, to_jax(task), jnp.asarray(mask))
+    po, _ = pdq.stage_push(po, to_torch(task), torch.as_tensor(mask))
+    ranks, offset, write, _, _ = rsim._transplant_plan(ro.size, jnp.asarray(src),
+                                                       to_jax(heir), C)
+    dst = np.broadcast_to(heir[:, None], (W, C))
+    rel = np.asarray(offset)[:, None] + np.asarray(ranks)
+    recs = rdq.stage_window(ro, C)
+    ro = rdq.stage_place(ro, to_jax(dst), to_jax(rel), recs, write)
+    po = pdq.stage_place(po, to_torch(dst), to_torch(rel),
+                         pdq.stage_window(po, C), torch.as_tensor(np.array(write)))
+    for f in ("bot", "size", "slot", "rec", "n"):
+        assert_same(getattr(ro, f), getattr(po, f), f"stage_place {f}")
+    assert_state(rdq.apply(ro), pdq.apply(po), "apply after stage_place")
+    snap_buf, snap_bot, snap_size = random_state(rs)
+    rsnap, psnap = both(snap_buf, snap_bot, snap_size)
+    for pred in (True, False):
+        rs_, ps_ = (rdq.stage_select(ro, jnp.asarray(pred), rsnap),
+                    pdq.stage_select(po, torch.tensor(pred), psnap))
+        for f in ("buf0", "bot", "size", "n"):
+            assert_same(getattr(rs_, f), getattr(ps_, f), f"stage_select {pred} {f}")
+    rows = rs.random(W) < 0.5
+    ps_ = pdq.stage_select(po, torch.as_tensor(rows), psnap)
+    for w in range(W):
+        one = pdq.stage_select(po, torch.tensor(bool(rows[w])), psnap)
+        for f in ("buf0", "bot", "size", "n"):
+            assert_same(getattr(one, f)[w], getattr(ps_, f)[w], f"row {w} {f}")
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("staged", [False, True])
+def test_transplant_matches_reference(seed, staged):
+    """The simulator's transplant on both backends (`place` on the ring
+    buffer, `stage_place` into the push log) against the reference's
+    `_transplant` / `_stage_transplant`: rings, accumulators and overflow
+    equal, heirs short of room included (full rings)."""
+    from repro.core import simulator as rsim
+    from repro_torch.core import simulator as psim
+    rs = np_rng(90 + seed)
+    buf, bot, size, src, heir, acc, ovf = _transplant_inputs(rs)
+    r, p = both(buf, bot, size)
+    args = (to_jax(acc), jnp.asarray(src), to_jax(heir), to_jax(ovf))
+    ses = psim._Deques(pdq.DequeState(*(x[None] for x in p)),
+                       9 + C + 10 if staged else None)
+    acc_p, ovf_p = ses.transplant(to_torch(acc)[None], torch.as_tensor(src)[None],
+                                  to_torch(heir)[None].long(), to_torch(ovf)[None])
+    if staged:
+        ops, acc_r, ovf_r = rsim._stage_transplant(rdq.stage(r, 9 + C + 10), *args)
+        want = rdq.apply(ops)
+    else:
+        want, acc_r, ovf_r = rsim._transplant(r, *args)
+    got = ses.finish()
+    assert_state(want, pdq.DequeState(*(x[0] for x in got)), "transplant")
+    assert_same(acc_r, acc_p[0], "acc")
+    assert_same(ovf_r, ovf_p[0], "overflow")

@@ -77,8 +77,9 @@ def test_overflow_checkpoints_and_truncation_match_reference(reference_runs):
 
 
 def test_port_imports_no_jax():
-    """`import repro_torch`, its sweep benchmark and a whole CPU simulate and
-    sweep leave JAX and the reference package out of sys.modules."""
+    """`import repro_torch`, its sweep benchmark and whole CPU simulate and
+    sweep runs (closed, and under TC and SUPERVISION with pre-shed and
+    stragglers) leave JAX and the reference package out of sys.modules."""
     code = (
         "import sys, repro_torch\n"
         "from repro_torch.core import simulator as s, tasks as t, topology as m\n"
@@ -94,6 +95,14 @@ def test_port_imports_no_jax():
         "                      s.SimConfig(capacity=16), [s.SimParams(seed=1),\n"
         "                      s.SimParams(strategy=0)], device='cpu')\n"
         "assert [x.result for x in rs] == [r.result] * 2\n"
+        "import numpy as np\n"
+        "ft = np.full(9, -1, np.int32); ft[4] = 30\n"
+        "for rec in (s.Recovery.TC, s.Recovery.SUPERVISION):\n"
+        "    s.simulate(t.FibWorkload(n=12, cutoff=6), m.MeshTopology.square(9),\n"
+        "               s.SimConfig(capacity=16, recovery=rec, ckpt_interval=10,\n"
+        "                           preshed=True, warn_ticks=3,\n"
+        "                           deque_backend='staged'), fail_time=ft,\n"
+        "               speed=np.full(9, 2, np.int32), device='cpu')\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -128,21 +137,12 @@ def test_plain_kernels_refused_on_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,cfg_kw", [
-    ({}, {"recovery": psim.Recovery.TC}),
-    ({}, {"recovery": psim.Recovery.SUPERVISION}),
-    ({}, {"preshed": True}),
     ({}, {"trace": object()}),
     ({}, {"arrival_gap_q8": 256}),
-    ({"fail_time": np.full(4, -1, np.int32)}, {}),
-    ({"wake_time": np.full(4, -1, np.int32)}, {}),
-    ({"fail_period": np.full(4, -1, np.int32)}, {}),
-    ({"speed": np.ones(4, np.int32)}, {}),
     ({"linkstate": object()}, {}),
     ({"arrivals": object()}, {}),
     ({"routing_backend": "sparse"}, {}),
-], ids=["tc", "supervision", "preshed", "trace", "arrivals_gap",
-        "fail_time", "wake_time", "fail_period", "speed", "linkstate", "arrivals",
-        "routing_backend"])
+], ids=["trace", "arrivals_gap", "linkstate", "arrivals", "routing_backend"])
 def test_unported_options_raise(kwargs, cfg_kw):
     cfg = psim.SimConfig(capacity=16, **cfg_kw)
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item \d+"):

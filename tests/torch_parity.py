@@ -48,10 +48,11 @@ def assert_results_equal(ref, port, skip=()):
             assert a == b, f"{f}: reference {a!r} != port {b!r}"
 
 
-def port_simulate(workload, mesh, cfg, **overrides):
+def port_simulate(workload, mesh, cfg, schedule=None, **overrides):
     """Run the port on the CPU with the reference's workload, mesh and
     `SimConfig` (carried across by `repro_torch.convert`), with `overrides`
-    applied to the config's fields."""
+    applied to the config's fields and `schedule` (a dict of `fail_time`,
+    `wake_time`, `fail_period`, `speed` numpy arrays) passed on."""
     import dataclasses
 
     from repro_torch import convert
@@ -61,7 +62,7 @@ def port_simulate(workload, mesh, cfg, **overrides):
     return psim.simulate(
         convert.workload(type(workload).__name__, dataclasses.asdict(workload)),
         convert.mesh(mesh.num_workers, mesh.rows, mesh.cols, mesh.torus),
-        convert.sim_config(fields), device="cpu")
+        convert.sim_config(fields), device="cpu", **(schedule or {}))
 
 
 # (step_mode, deque_backend, use_steal_kernel): the port's stepper x backend
