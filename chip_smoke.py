@@ -15,8 +15,13 @@ Phases — any failure exits non-zero:
      (mma.sync) in `decode_attention`'s;
   2. hold each simulator kernel against its plain PyTorch version at the
      main path's shapes (W=4096 rings of capacity 64) and at the sweep's
-     (18 x 4096 = 73,728 rings) — outputs must be
-     exactly equal — and time kernel, plain version and library call on the
+     (18 x 4096 = 73,728 rings) — outputs must be exactly equal: the
+     in-place `deque_apply` run on copies of the rings, with repeated and
+     out-of-range slots, rows with n = 0 and rows gated off by
+     `deque.apply`'s `keep` coming back bit for bit; `steal_compact` at
+     export widths 8 and 4, grants above the width — and time kernel, plain
+     version and library call (for `deque_apply` an in-place `index_put_`
+     of the same winners) on the
      device (CUDA graph replay, CUDA events), plus the kernel's eager
      wrapper call, beside the launch floor (a one-element elementwise op in
      the same harness); then the same for the attention kernels at the serving
@@ -261,54 +266,90 @@ def _sass_ops(build, name: str, op: str) -> dict:
 
 
 def _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L):
-    """`deque_apply` against its plain version (exactly equal) on the rings
-    `buf` with an L-lane push log, timed beside `index_put` with its bound."""
+    """The in-place `deque_apply` against its plain version (exactly equal,
+    each run on a copy of the rings `buf`) with an L-lane push log holding
+    repeated and out-of-range slots; rows with n = 0 or gated off through
+    `deque.apply`'s `keep` must come back bit for bit. Timed beside the
+    library yardstick, an in-place `index_put_` of the same winners (the
+    dedup left untimed), with the bound of what the inputs need."""
     dev = torch.device("cuda")
     W, C, T = buf.shape
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
 
-    # push log: slots drawn from a few ring positions so lanes repeat, and
-    # live-lane counts n below the lane budget L for most workers
+    # push log: slots drawn from a few ring positions so lanes repeat, one
+    # lane in 32 out of [0, C); live-lane counts n below the lane budget L
+    # for most workers, 0 for some
     base = rs.integers(0, C, (W, 1))
-    slot = t((base + rs.integers(0, 3, (W, L))) % C)
+    slot_np = (base + rs.integers(0, 3, (W, L))) % C
+    out = rs.random((W, L)) < 1 / 32
+    slot_np[out] = rs.choice([-1, C], int(out.sum()))
+    slot = t(slot_np)
     rec = t(rs.integers(-2**31, 2**31 - 1, (W, L, T), dtype=np.int64))
     n = t(rs.integers(0, L + 1, W))
-    new_k = ops.deque_apply(buf, slot, rec, n)
-    new_p = ref.deque_apply(buf, slot, rec, n)
-    # the library yardstick: one index_put after the last-lane dedup
-    dops = deque.DequeOps(buf0=buf, bot=bot, size=size, slot=slot, rec=rec, n=n)
-    last = deque._last_lane_map(dops)
+    keep = torch.as_tensor(rs.random(W) < 0.75, device=dev)
+    new_k = ops.deque_apply_(buf.clone(), slot, rec, n)
+    new_p = ref.deque_apply_(buf.clone(), slot, rec, n)
+    gated = deque.apply(deque.DequeOps(buf0=buf.clone(), bot=bot, size=size,
+                                       slot=slot, rec=rec, n=n), keep).buf
+    # the library yardstick's winners: each live, in-range lane that no later
+    # live lane of its worker overrides
     lanes = torch.arange(L, device=dev)[None, :]
-    keep = (lanes < n[:, None]) & (torch.gather(last, 1, slot.long()) == lanes)
-    w_idx = torch.arange(W, device=dev)[:, None].expand(W, L)[keep]
-    s_idx = slot.long()[keep]
-    vals = rec[keep]
-    new_l = buf.index_put((w_idx, s_idx), vals)
+    live = lanes < n[:, None]
+    ok = live & (slot >= 0) & (slot < C)
+    same = (slot[:, :, None] == slot[:, None, :]) & ok[:, None, :]
+    later = same & (lanes[:, None, :] > lanes[:, :, None])
+    win = ok & ~later.any(-1)
+    w_idx = torch.arange(W, device=dev)[:, None].expand(W, L)[win]
+    s_idx = slot.long()[win]
+    vals = rec[win]
+    new_l = buf.clone().index_put_((w_idx, s_idx), vals)
     torch.cuda.synchronize()
     err_da = _max_abs_err([(new_k, new_p)])
-    if not torch.equal(new_k, new_p) or not torch.equal(new_l, new_p):
+    if not (torch.equal(new_k, new_p) and torch.equal(new_l, new_p)
+            and torch.equal(ref.deque_apply(buf, slot, rec, n), new_p)):
         raise SystemExit(f"deque_apply disagrees with its plain version at "
-                         f"W={W} (max abs err {err_da})")
-    live = int(n.sum())
-    da_bytes = 2 * W * C * T * 4 + live * (T * 4 + 4) + W * 4
-    da_ops = W * C * (2 * L + 4)
-    def kern():
-        return ops.deque_apply(buf, slot, rec, n)
+                         f"W={W}, L={L} (max abs err {err_da})")
+    still = ~keep | (n == 0)
+    if not (torch.equal(gated[still], buf[still])
+            and torch.equal(gated[~still], new_p[~still])):
+        raise SystemExit(f"deque_apply at W={W}, L={L}: a gated or n = 0 row "
+                         f"changed, or a kept row differs from the full commit")
+    n_live, n_win = int(live.sum()), int(win.sum())
+    da_bytes = W * 4 + n_live * 4 + n_win * T * 4 * 2
+    m = torch.minimum(n, torch.full_like(n, L)).clamp(min=0).long()
+    da_ops = int((m * (m - 1) // 2).sum())   # the later-lane scans' compares
+    # kernel and yardstick write the same records into one copy of the
+    # rings (where a buffer lies moves the time by a few percent at G·W
+    # rows), timed in turns (kernel, library, library, kernel, kernel,
+    # library); each keeps its median
+    buf_t, buf_p = buf.clone(), buf.clone()
 
+    def kern():
+        return ops.deque_apply_(buf_t, slot, rec, n)
+
+    def lib():
+        return buf_t.index_put_((w_idx, s_idx), vals)
+
+    runs = {kern: [], lib: []}
+    for fn in (kern, lib, lib, kern, kern, lib):
+        runs[fn].append(_device_ms(torch, fn))
     da = {
-        "ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
-        "plain_ms": _device_ms(torch, lambda: ref.deque_apply(buf, slot, rec, n)),
-        "library_ms": _device_ms(torch, lambda: buf.index_put((w_idx, s_idx), vals)),
-        "max_abs_err": err_da, "bytes": da_bytes, "ops": da_ops}
+        "ms": sorted(runs[kern])[1], "call_ms": _call_ms(torch, kern),
+        "plain_ms": _device_ms(torch, lambda: ref.deque_apply_(buf_p, slot, rec, n)),
+        "library_ms": sorted(runs[lib])[1],
+        "max_abs_err": err_da, "bytes": da_bytes, "ops": da_ops,
+        "live": n_live, "winners": n_win,
+        "turns": {"kernel": runs[kern], "library": runs[lib]}}
     da["bound_ms"], da["bound_by"] = _bound_ms(da_bytes, da_ops)
     return da
 
 
 def _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W):
-    """`steal_compact` and `deque_apply` against their plain versions at W
-    rows of capacity CAP_MAIN (exactly equal), timed with their bounds."""
+    """`steal_compact` (export widths GRANT_WIDTH and 4) and `deque_apply`
+    against their plain versions at W rows of capacity CAP_MAIN (exactly
+    equal), timed with their bounds."""
     dev = torch.device("cuda")
     C, T = CAP_MAIN, 4
     G = ref.GRANT_WIDTH
@@ -324,35 +365,52 @@ def _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W):
     size = rs.integers(0, C + 1, W)
     size[W // 8: W // 4] = rs.integers(0, 3, W // 8)   # grants > size
     grants = rs.integers(0, G + 1, W)
+    grants[W // 4: W // 3] += rs.integers(1, 4, W // 3 - W // 4)   # > the width
     bot, size, grants = t(bot), t(size), t(grants)
 
-    out_k = ops.steal_compact(buf, bot, size, grants)
-    out_p = ref.steal_compact(buf, bot, size, grants)
-    torch.cuda.synchronize()
-    err_sc = _max_abs_err(zip(out_k, out_p))
-    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
-        raise SystemExit(f"steal_compact disagrees with its plain version at "
-                         f"W={W} (max abs err {err_sc})")
-    g = torch.minimum(grants, size).clamp(min=0)
-    sc_bytes = (int(g.sum()) * 16 + W * G * 16 + 3 * W * 4 + 2 * W * 4)
-    sc_ops = W * G * 8
-    def kern():
-        return ops.steal_compact(buf, bot, size, grants)
+    sc = {}
+    for width in (G, 4):
+        out_k = ops.steal_compact(buf, bot, size, grants, width)
+        out_p = ref.steal_compact(buf, bot, size, grants, width)
+        torch.cuda.synchronize()
+        err_sc = _max_abs_err(zip(out_k, out_p))
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+            raise SystemExit(f"steal_compact disagrees with its plain version at "
+                             f"W={W}, width {width} (max abs err {err_sc})")
+        g = torch.minimum(grants.clamp(max=width), size).clamp(min=0)
+        sc_bytes = int(g.sum()) * 16 + W * width * 16 + 3 * W * 4 + 2 * W * 4
+        sc_ops = W * G * 8
 
-    sc = {
-        "ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
-        "plain_ms": _device_ms(torch, lambda: ref.steal_compact(buf, bot, size, grants)),
-        "library_ms": None, "max_abs_err": err_sc,
-        "bytes": sc_bytes, "ops": sc_ops}
-    sc["bound_ms"], sc["bound_by"] = _bound_ms(sc_bytes, sc_ops)
+        def kern(width=width):
+            return ops.steal_compact(buf, bot, size, grants, width)
+
+        r = {"ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+             "plain_ms": _device_ms(torch, lambda width=width: ref.steal_compact(
+                 buf, bot, size, grants, width)),
+             "library_ms": None, "max_abs_err": err_sc,
+             "bytes": sc_bytes, "ops": sc_ops}
+        r["bound_ms"], r["bound_by"] = _bound_ms(sc_bytes, sc_ops)
+        if width == G:
+            sc = r
+        else:
+            sc.update({f"width4_{k}": r[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+            sc["max_abs_err"] = max(sc["max_abs_err"], err_sc)
 
     da = _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L)
     for name, r in (("steal_compact", sc), ("deque_apply", da)):
+        extra = (f"; at width 4: kernel {r['width4_ms']:.6f} ms, plain "
+                 f"{r['width4_plain_ms']:.6f} ms, bound {r['width4_bound_ms']:.6f} ms"
+                 if name == "steal_compact" else
+                 f"; L={L}, {r['live']} live lanes, {r['winners']} winners, "
+                 f"library = in-place index_put_; medians of three in turns, "
+                 f"kernel {r['turns']['kernel']} ms, library "
+                 f"{r['turns']['library']} ms")
         print(f"[kernels] {name} at {W} rows, C={C}: exact; device per launch: "
               f"kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
               f"{r['library_ms']} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}, {r['bytes']} bytes); eager wrapper call "
-              f"{r['call_ms']:.6f} ms")
+              f"{r['call_ms']:.6f} ms{extra}")
     return sc, da
 
 
@@ -368,16 +426,19 @@ def phase_kernels(torch, np, ops, ref, deque, tasks):
     for main, grid in ((sc, sc_g), (da, da_g)):
         main["max_abs_err"] = max(main["max_abs_err"], grid["max_abs_err"])
         main.update({f"sweep_{k}": grid[k] for k in (
-            "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "width4_ms", "width4_bound_ms") if k in grid})
     # the launch floor: a one-element elementwise op in the same harness, a
     # yardstick for the tiny kernels (the port never calls it)
     one = torch.zeros(1, device=dev)
     floor = _device_ms(torch, lambda: one.add_(1.0))
     print(f"[kernels] launch floor: a one-element add_ takes {floor:.6f} ms a launch "
           f"on the device (graph replay, as every kernel time here); "
-          f"steal_compact's bound or the floor, whichever is larger: "
-          f"{max(sc['bound_ms'], floor):.6f} ms at {W_MAIN} rows, "
-          f"{max(sc_g['bound_ms'], floor):.6f} ms at {W_MAIN * len(SWEEP_GRID)}")
+          f"each kernel's bound or the floor, whichever is larger: "
+          f"steal_compact {max(sc['bound_ms'], floor):.6f} ms at {W_MAIN} rows, "
+          f"{max(sc_g['bound_ms'], floor):.6f} ms at {W_MAIN * len(SWEEP_GRID)}; "
+          f"deque_apply {max(da['bound_ms'], floor):.6f} ms at {W_MAIN} rows, "
+          f"{max(da_g['bound_ms'], floor):.6f} ms at {W_MAIN * len(SWEEP_GRID)}")
     return {"steal_compact": sc, "deque_apply": da}, floor
 
 
@@ -1157,8 +1218,10 @@ def phase_sweep(torch, np, sim, topo, tasks, ops, main_run):
         raise SystemExit("staged sweep: deque_apply was never launched")
     for i, r in zip(six, staged):
         _assert_equal(np, grid[i], r, what=f"staged sweep point {SWEEP_GRID[i]}")
+    it = max(r.events for r in staged)
     print(f"[sweep] staged backend, {len(six)} points (seed 0; G·W = "
-          f"{len(six) * W_MAIN}): {dt:.3f} s, every point equal to the loop "
+          f"{len(six) * W_MAIN}): {dt:.3f} s, {it} loop iterations, "
+          f"{dt / it * 1e3:.3f} ms an iteration; every point equal to the loop "
           f"sweep's; launches {staged_counts}")
     return ({"steal_compact": counts["steal_compact"],
              "deque_apply": staged_counts["deque_apply"]}, k_ms / k_n)
@@ -1405,11 +1468,14 @@ def _phase_faults(torch, np, sim, topo, tasks, ops, ref, deque, main_run, main_m
     da = _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L)
     da["lanes"] = L
     print(f"[faults] deque_apply at {W_MAIN} rows, C={CAP_MAIN}, L={L} lanes (the "
-          f"TC / pre-shed push log): exact; device per launch: kernel "
-          f"{da['ms']:.6f} ms, plain {da['plain_ms']:.6f} ms, library "
-          f"{da['library_ms']:.6f} ms (index_put), bound {da['bound_ms']:.6f} ms "
-          f"({da['bound_by']}, {da['bytes']} bytes); eager wrapper call "
-          f"{da['call_ms']:.6f} ms")
+          f"TC / pre-shed push log): exact, gated and n = 0 rows bit for bit; "
+          f"device per launch: kernel {da['ms']:.6f} ms, plain "
+          f"{da['plain_ms']:.6f} ms, library {da['library_ms']:.6f} ms (in-place "
+          f"index_put_), bound {da['bound_ms']:.6f} ms ({da['bound_by']}, "
+          f"{da['bytes']} bytes: {da['live']} live lanes, {da['winners']} "
+          f"winners); eager wrapper call {da['call_ms']:.6f} ms; medians of three "
+          f"in turns, kernel {da['turns']['kernel']} ms, library "
+          f"{da['turns']['library']} ms")
 
     # where the time goes under TC: a 300-tick window, timed, then profiled
     scen, extra = FAULT_RUNS["radiation/tc"]
@@ -1826,7 +1892,8 @@ def main() -> int:
          "call_ms": kern[name]["call_ms"],
          "main_path_device_ms": profiled[name],
          **{k: v for k, v in kern[name].items()
-            if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_", "faults_"))
+            if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_", "faults_",
+                              "width4_"))
             and k not in ("hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),

@@ -4,7 +4,8 @@ The owner pushes and pops at the top; thieves steal from the bottom. Each
 worker's deque is a ring buffer of capacity C holding [kind, a, b, c] int32
 records; the constellation's deques are one (W, C, T) tensor plus (W,)
 bottom indices and sizes. Every operation is masked per worker and
-functional: it returns new tensors and leaves its inputs untouched.
+functional: it returns new tensors and leaves its inputs untouched — all
+but `apply`, the staged commit, which writes into its base buffer.
 
 Writes use a dense formulation: each ring slot (or push-log lane) works out
 which record, if any, lands on it, and the result is a `torch.where` over
@@ -18,9 +19,11 @@ Staged mutations (`DequeOps`)
 `stage()` opens a delta against a frozen base buffer; the `stage_*` mirrors
 of the direct operations move *virtual* bottom/size cursors and record every
 push in a bounded per-worker log of (slot, record) lanes. `apply()` commits
-the whole log in one pass — the hand-written `deque_apply` kernel on the
-card. Mid-tick reads see pushes staged earlier in the same tick, so a staged
-sequence leaves exactly the deque the direct sequence leaves.
+the whole log in one pass, in place into the base buffer — the
+hand-written `deque_apply` kernel on the card, which writes only the slots
+the log names instead of copying the ring. Mid-tick reads see pushes staged
+earlier in the same tick, so a staged sequence leaves exactly the deque the
+direct sequence leaves.
 """
 
 from __future__ import annotations
@@ -130,18 +133,15 @@ def export_bottom(state: DequeState, grants: torch.Tensor, width: int):
     Returns (stolen, state): `stolen` is (W, width, T) with the first
     min(grants, size)[w] rows of worker w's bottom window and zeros beyond.
     The extraction is `kernels.ops.steal_compact`: the CUDA kernel on the
-    card, its plain version for CPU tensors.
+    card, its plain version for CPU tensors. It clamps each grant to
+    `width` itself, so the bottom never advances past what the staging
+    block exports; a width above its staging width raises.
     """
     from ..kernels import ops as kernel_ops
 
-    # never advance the bottom past what the staging block exports
-    grants = grants.clamp(max=width)
     stolen, new_bot, new_size = kernel_ops.steal_compact(
-        state.buf, state.bot, state.size, grants)
-    if stolen.shape[1] < width:
-        raise ValueError(f"export width {width} exceeds the steal_compact "
-                         f"staging width {stolen.shape[1]}")
-    return stolen[:, :width], DequeState(state.buf, new_bot, new_size)
+        state.buf, state.bot, state.size, grants, width)
+    return stolen, DequeState(state.buf, new_bot, new_size)
 
 
 def steal_bottom(state: DequeState, counts: torch.Tensor) -> DequeState:
@@ -170,8 +170,10 @@ def to_list(state: DequeState, worker: int) -> list[tuple[int, ...]]:
 class DequeOps(NamedTuple):
     """Delta record of staged mutations against a frozen base buffer.
 
-    `buf0` is the ring buffer at `stage()` time and is never written;
-    `bot`/`size` are the virtual cursors. Lane ``l < n[w]`` of the push log
+    `buf0` is the ring buffer at `stage()` time. Nothing writes it before
+    `apply`, which commits the log into it in place (so a caller that still
+    needs the tick-start ring keeps a copy); `bot`/`size` are the virtual
+    cursors. Lane ``l < n[w]`` of the push log
     holds a record staged for ring slot `slot[w, l]`, in staging order —
     a later lane to the same slot wins.
     """
@@ -384,11 +386,16 @@ def stage_place(ops: DequeOps, dst_w: torch.Tensor, rel_pos: torch.Tensor,
         size=ops.size + added, n=ops.n + added)
 
 
-def apply(ops: DequeOps) -> DequeState:
+def apply(ops: DequeOps, keep: torch.Tensor | None = None) -> DequeState:
     """Commit all staged mutations in one pass, lanes in staging order (the
-    last write to a slot wins), through `kernels.ops.deque_apply`: the CUDA
-    kernel on the card, its plain version for CPU tensors."""
+    last write to a slot wins), in place into `ops.buf0`, through
+    `kernels.ops.deque_apply_`: the CUDA kernel on the card, its plain
+    version for CPU tensors. Where the per-row mask `keep` is false the row
+    counts as having staged nothing, so its ring stays bit for bit (its
+    cursors are returned as staged: the caller masks those). Returns the
+    state whose `buf` is `ops.buf0`."""
     from ..kernels import ops as kernel_ops
 
-    buf = kernel_ops.deque_apply(ops.buf0, ops.slot, ops.rec, ops.n)
+    n = ops.n if keep is None else torch.where(keep, ops.n, 0)
+    buf = kernel_ops.deque_apply_(ops.buf0, ops.slot, ops.rec, n)
     return DequeState(buf, ops.bot, ops.size)

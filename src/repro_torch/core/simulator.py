@@ -50,7 +50,8 @@ replayed (`_replay_loop`).
 Deque backends: ``deque_backend="loop"`` commits each deque mutation on its
 own, exporting grants through the `steal_compact` kernel; ``"staged"``
 records a tick's mutations in a `deque.DequeOps` delta and commits them once
-through the `deque_apply` kernel. Auto (None) picks loop on every device:
+through the `deque_apply` kernel, in place into the running points' rows of
+the ring. Auto (None) picks loop on every device:
 on the card, under the captured loop, it took less time than staged at
 every measured point (PERF.md). The kernels' wrappers run their plain
 versions for CPU
@@ -322,13 +323,19 @@ class _Deques:
     deque layer sees as G·W rows. Loop backend (`lanes` None): every
     mutation commits its own buffer. Staged backend: mutations accumulate
     in a `deque.DequeOps` delta with an `lanes`-wide push log, and
-    `finish()` commits the tick in one pass."""
+    `finish()` commits the tick in one pass, in place into the ring it
+    started from (a view of `state.deque.buf`, or the fresh ring a rollback
+    put there), and only into the rows of the points whose per-point flag
+    `run` ((G, 1), None: every point) is set: a stopped point's ring stays
+    bit for bit, so the loop has no ring to mask afterwards."""
 
-    def __init__(self, state: dq.DequeState, lanes: int | None):
+    def __init__(self, state: dq.DequeState, lanes: int | None, run=None):
         self.gw = tuple(state.size.shape)
         rows = dq.DequeState(*(x.flatten(0, 1) for x in state))
         self.staged = lanes is not None
         self.st = dq.stage(rows, lanes) if self.staged else rows
+        self.keep = (None if run is None or not self.staged
+                     else run.expand(self.gw).flatten())
 
     @property
     def size(self):
@@ -404,7 +411,7 @@ class _Deques:
         return _transplant_acc(acc, src_mask, heir), overflow
 
     def finish(self) -> dq.DequeState:
-        rows = dq.apply(self.st) if self.staged else self.st
+        rows = dq.apply(self.st, self.keep) if self.staged else self.st
         return dq.DequeState(*(x.unflatten(0, self.gw) for x in rows))
 
 
@@ -581,15 +588,25 @@ def _lead(run: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return run.reshape(run.shape[:1] + (1,) * (x.dim() - 1))
 
 
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Are `a` and `b` one tensor's memory (the same object, or views of the
+    same elements with the same layout)? Then a masked select between them
+    is a no-op: the staged commit writes a point's ring in place and leaves
+    a stopped point's rows as they were."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype
+                      and a.shape == b.shape and a.stride() == b.stride())
+
+
 def _masked(run: torch.Tensor, new, old, lifted: dict | None = None):
     """`new` where `run`, else `old`, per point and leaf by leaf through the
-    state's named tuples; a leaf that is the same tensor on both sides is
-    kept. `lifted` caches `run` shaped for each leaf rank."""
+    state's named tuples; a leaf whose two sides share their memory
+    (`_same_storage`) is kept. `lifted` caches `run` shaped for each leaf
+    rank."""
     lifted = {} if lifted is None else lifted
     if isinstance(old, tuple):
         leaves = [_masked(run, n, o, lifted) for n, o in zip(new, old)]
         return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
-    if new is old:
+    if _same_storage(new, old):
         return old
     if new.dtype != old.dtype:  # the card's loop writes `new` into `old`
         raise TypeError(f"an iteration turned a {old.dtype} leaf into {new.dtype}")
@@ -984,11 +1001,13 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         return state._replace(sup_buf=sup_buf, sup_thief=sup_thief,
                               sup_n=sup_n.clamp(max=S - 1))
 
-    def tick_fn(state: SimState, snap, t: torch.Tensor, near, far):
+    def tick_fn(state: SimState, snap, t: torch.Tensor, near, far, run):
         """One tick with full semantics at each point's tick `t` ((G, 1)),
-        drawing from row 0 of `draws(t)`; returns (state, snap, live)."""
+        drawing from row 0 of `draws(t)`; returns (state, snap, live). The
+        staged commits write `state.deque`'s ring in place, in the rows of
+        the points whose flag `run` ((G, 1)) is set."""
         alive = state.alive
-        ses = _Deques(state.deque, lanes_full)
+        ses = _Deques(state.deque, lanes_full, run)
 
         # ------------- scheduled failures / shutdowns --------------------- #
         if faults is not None:
@@ -1049,7 +1068,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                 # ops commit here and a fresh session at the common lane
                 # budget carries the rest of the tick (two commits a tick)
                 deq_mid = ses.finish()
-                ses = _Deques(deq_mid, lanes_common)
+                ses = _Deques(deq_mid, lanes_common, run)
                 state = state._replace(deque=deq_mid)
                 snap = _masked(take, state, snap)
             state = state._replace(ckpt_count=state.ckpt_count + take.to(_I32))
@@ -1361,7 +1380,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         state, snap, t, live, iters = carry
         run = live & (t < cfg.max_ticks)
         near, far = draws(t)
-        new, snap, live_n = tick_fn(state, snap, t, near, far)
+        new, snap, live_n = tick_fn(state, snap, t, near, far, run)
         t_n = t + 1
         if leap_mode:
             ne = _next_event(new, t_n, ckpt, W, sp, faults)
@@ -1429,7 +1448,7 @@ def _replay_loop(body, carry, max_ticks: int):
     def step():  # the masked commit, written into the static buffers
         new, run = body(static)
         for src, dst in zip(_leaves(new), _leaves(static)):
-            if src is not dst:
+            if not _same_storage(src, dst):
                 torch.where(_lead(run, dst), src, dst, out=dst)
 
     side = torch.cuda.Stream()

@@ -30,11 +30,11 @@ _I = ctypes.c_int
 # C signatures of the launch functions (pointers and stream as void*)
 _SIGNATURES = {
     "steal_compact": {
-        "steal_compact_launch": [_P] * 7 + [_I, _I, _P],
+        "steal_compact_launch": [_P] * 7 + [_I] * 3 + [_P],
         "steal_compact_grant_width": [],
     },
     "deque_apply": {
-        "deque_apply_launch": [_P] * 5 + [_I, _I, _I, _P],
+        "deque_apply_launch": [_P] * 4 + [_I] * 3 + [_P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_P],

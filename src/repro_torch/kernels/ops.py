@@ -80,11 +80,15 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def steal_compact(buf, bot, size, grants):
-    """buf (W, C, 4), bot/size/grants (W,) int32 →
-    (stolen (W, GRANT_WIDTH, 4), new_bot, new_size)."""
+def steal_compact(buf, bot, size, grants, width: int = stealing.GRANT_WIDTH):
+    """buf (W, C, 4), bot/size/grants (W,) int32, an export width <=
+    GRANT_WIDTH → (stolen (W, width, 4), new_bot, new_size), each grant
+    clamped to `width` by the kernel (on the CPU, by the plain version)."""
+    if not 1 <= width <= stealing.GRANT_WIDTH:
+        raise ValueError(f"export width {width} is outside the steal_compact "
+                         f"staging width 1..{stealing.GRANT_WIDTH}")
     if buf.device.type == "cpu":
-        return ref.steal_compact(buf, bot, size, grants)
+        return ref.steal_compact(buf, bot, size, grants, width)
     W, C, T = buf.shape
     if T != 4:
         raise ValueError(f"steal_compact: record width must be 4, got {T}")
@@ -92,27 +96,28 @@ def steal_compact(buf, bot, size, grants):
                        ("size", size, (W,)), ("grants", grants, (W,))):
         _check(f"steal_compact.{nm}", t, shp)
     lib = build.load("steal_compact")
-    width = lib.steal_compact_grant_width()
-    if width != stealing.GRANT_WIDTH:
-        raise RuntimeError(f"steal_compact compiled with GRANT_WIDTH={width}, "
+    compiled = lib.steal_compact_grant_width()
+    if compiled != stealing.GRANT_WIDTH:
+        raise RuntimeError(f"steal_compact compiled with GRANT_WIDTH={compiled}, "
                            f"expected stealing.GRANT_WIDTH={stealing.GRANT_WIDTH}")
     stolen = torch.empty((W, width, T), dtype=torch.int32, device=buf.device)
     new_bot = torch.empty_like(bot)
     new_size = torch.empty_like(size)
     err = lib.steal_compact_launch(
         buf.data_ptr(), bot.data_ptr(), size.data_ptr(), grants.data_ptr(),
-        stolen.data_ptr(), new_bot.data_ptr(), new_size.data_ptr(), W, C,
+        stolen.data_ptr(), new_bot.data_ptr(), new_size.data_ptr(), W, C, width,
         _stream())
     _raise_on(err, "steal_compact")
     LAUNCHES["steal_compact"] += 1
     return stolen, new_bot, new_size
 
 
-def deque_apply(buf, slot, rec, n):
-    """buf (W, C, 4), slot (W, L), rec (W, L, 4), n (W,) int32 → new buffer
-    (W, C, 4) with lanes l < n[w] committed in lane order."""
+def deque_apply_(buf, slot, rec, n):
+    """In place: buf (W, C, 4), slot (W, L), rec (W, L, 4), n (W,) int32 →
+    `buf` itself, with lanes l < n[w] committed in lane order (a slot
+    outside [0, C) writes nothing, a row with n = 0 is not touched)."""
     if buf.device.type == "cpu":
-        return ref.deque_apply(buf, slot, rec, n)
+        return ref.deque_apply_(buf, slot, rec, n)
     W, C, T = buf.shape
     L = slot.shape[1]
     if T != 4:
@@ -121,13 +126,16 @@ def deque_apply(buf, slot, rec, n):
                        ("rec", rec, (W, L, T)), ("n", n, (W,))):
         _check(f"deque_apply.{nm}", t, shp)
     lib = build.load("deque_apply")
-    out = torch.empty_like(buf)
-    err = lib.deque_apply_launch(buf.data_ptr(), slot.data_ptr(),
-                                 rec.data_ptr(), n.data_ptr(), out.data_ptr(),
-                                 W, C, L, _stream())
+    err = lib.deque_apply_launch(buf.data_ptr(), slot.data_ptr(), rec.data_ptr(),
+                                 n.data_ptr(), W, C, L, _stream())
     _raise_on(err, "deque_apply")
     LAUNCHES["deque_apply"] += 1
-    return out
+    return buf
+
+
+def deque_apply(buf, slot, rec, n):
+    """`deque_apply_` into a copy of `buf`: a new buffer, `buf` untouched."""
+    return deque_apply_(buf.clone(), slot, rec, n)
 
 
 def _check_attention(name: str, lib, q: torch.Tensor, G: int):

@@ -21,15 +21,16 @@ from ..core.stealing import GRANT_WIDTH
 NEG_INF = -1e30
 
 
-def steal_compact(buf, bot, size, grants):
-    """Extract `grants[w]` records from each deque's bottom and advance it.
+def steal_compact(buf, bot, size, grants, width: int = GRANT_WIDTH):
+    """Extract `grants[w]` records, at most `width`, from each deque's bottom
+    and advance it.
 
     buf: (W, C, T) int32 ring buffers; bot, size, grants: (W,) int32.
-    Returns (stolen (W, GRANT_WIDTH, T) zero-padded, new_bot, new_size).
+    Returns (stolen (W, width, T) zero-padded, new_bot, new_size).
     """
     C, T = buf.shape[1:]
-    g = torch.minimum(grants, size)
-    ranks = torch.arange(GRANT_WIDTH, device=buf.device)[None, :]
+    g = torch.minimum(grants.clamp(max=width), size)
+    ranks = torch.arange(width, device=buf.device)[None, :]
     idx = torch.remainder(bot[:, None] + ranks, C).long()
     rows = torch.gather(buf, 1, idx[:, :, None].expand(-1, -1, T))
     stolen = torch.where((ranks < g[:, None])[:, :, None], rows, 0)
@@ -50,6 +51,31 @@ def deque_apply(buf, slot, rec, n):
         hit = (cols == slot[:, lane][:, None]) & (lane < n)[:, None]
         out = torch.where(hit[:, :, None], rec[:, lane][:, None, :], out)
     return out
+
+
+def deque_apply_(buf, slot, rec, n):
+    """`deque_apply` written into `buf` (contiguous), which it returns.
+
+    Each slot's writer is its last live lane (lane l < n[w] with the slot in
+    [0, C)), found by a scatter-max of lane indices. Every lane then writes
+    at its own slot (clamped into the ring) the record that slot ends up
+    with — its writer's record, else the slot as it was — so writes that
+    land on one slot carry one value and the scatter's order cannot change
+    the result. No host sync: the card can capture it in a graph.
+    """
+    W, C, T = buf.shape
+    dev = buf.device
+    lanes = torch.arange(slot.shape[1], device=dev)
+    live = (lanes < n[:, None]) & (slot >= 0) & (slot < C)
+    cell = torch.arange(W, device=dev)[:, None] * C + slot.long().clamp(0, C - 1)
+    last = torch.full((W * C,), -1, dtype=torch.long, device=dev).scatter_reduce_(
+        0, cell.flatten(), torch.where(live, lanes, -1).flatten(), reduce="amax")
+    lane = last[cell]                                                # (W, L)
+    flat = buf.view(W * C, T)
+    staged = torch.gather(rec, 1, lane.clamp(min=0)[:, :, None].expand(-1, -1, T))
+    val = torch.where((lane >= 0)[:, :, None], staged, flat[cell])
+    flat[cell.flatten()] = val.flatten(0, 1)
+    return buf
 
 
 def _softmax_pv(s, v, eq: str, out_dtype):

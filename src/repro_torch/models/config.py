@@ -83,7 +83,13 @@ class ModelConfig:
         return [p[i % len(p)] for i in range(self.n_layers)]
 
     def n_params(self) -> int:
-        """Analytic parameter count (matches init; used for 6·N·D roofline)."""
+        """Analytic parameter count, the reference's formula (pinned equal to
+        it). It does not match what `init` builds: for rwkv6-1.6b it gives
+        1,835,108,352 against the tree's 1,584,041,984 (+15.8%: it counts the
+        channel mix as 3·D·d_ff where the tree holds 2·D·d_ff + D²); for
+        recurrentgemma-9b 9,572,462,592 against 10,444,984,320 (−8.4%: it
+        leaves out the gates' wa and wx). Size nothing from it: count the
+        initialised tree."""
         d, hd = self.d_model, self.hd
         qkv = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads + hd * self.n_heads * d
         if self.qkv_bias:

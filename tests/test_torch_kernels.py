@@ -128,3 +128,45 @@ def test_cuda_kernels_match_plain_versions(cuda_device, W, C, L):
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
                             "steal_compact": 1, "deque_apply": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 2048])
+@pytest.mark.parametrize("L", [9, 83])
+def test_cuda_inplace_commit_matches_plain_version(cuda_device, L, C):
+    """The in-place `deque_apply` kernel through `deque.apply` with a
+    per-row gate, against the in-place plain version on a copy: equal
+    rings, written through the given buffer, with out-of-range slots
+    writing nothing and gated and n = 0 rows bit for bit."""
+    W = 4096 if C == 64 else 512
+    buf, slot, rec, n = apply_inputs(W, C, L)
+    out_of_range = RNG.random((W, L)) < 1 / 8
+    slot[out_of_range] = RNG.choice([-1, C, C + 3], int(out_of_range.sum()))
+    n[::5] = 0
+    keep = torch.as_tensor(RNG.random(W) < 0.75, device=cuda_device)
+    buf, slot, rec, n = (to_torch(a).to(cuda_device) for a in (buf, slot, rec, n))
+    d = pdq.DequeOps(buf0=buf.clone(), bot=n, size=n, slot=slot, rec=rec, n=n)
+    ops.reset_launch_counts()
+    got = pdq.apply(d, keep).buf
+    want = ref.deque_apply_(buf.clone(), slot, rec, torch.where(keep, n, 0))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["deque_apply"] == 1
+    assert got.data_ptr() == d.buf0.data_ptr()
+    assert torch.equal(got, want)
+    untouched = ~keep | (n == 0)
+    assert torch.equal(got[untouched], buf[untouched])
+
+
+@pytest.mark.gpu
+def test_cuda_steal_compact_at_a_narrow_width(cuda_device):
+    """The export kernel at width 4 with grants above it: equal to the
+    plain version, which clamps as the reference's `export_bottom` does."""
+    buf, bot, size, grants = steal_inputs(4096, 64)
+    grants = grants + RNG.integers(0, 5, grants.shape)
+    arrays = [to_torch(a).to(cuda_device) for a in (buf, bot, size, grants)]
+    got = ops.steal_compact(*arrays, 4)
+    want = ref.steal_compact(*arrays, 4)
+    torch.cuda.synchronize()
+    assert tuple(got[0].shape) == (4096, 4, 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
