@@ -88,7 +88,22 @@ Phases — any failure exits non-zero:
      events), TC and pre-shed exact; the radiation schedule under TC as one
      6-point sweep (checkpoint interval 0, 40, 80 x NEIGHBOR, GLOBAL), every
      point equal to its own run;
-  8-10. serve three models through `serve_loop.serve_requests` (one phase,
+  8. run time-varying link state (`phase_linkstate`): the reference's
+     benchmarks/bench_sim_throughput.py `_dynamic_constellation` at W=4096
+     (a wraparound 64x64 torus, orbit 1024 ticks x 2, 35% eclipse, 10% of
+     the satellites battery-limited and sleeping in it periodically with a
+     50-tick warning, seam handovers dark 10% of their 16-tick cycle; 359
+     epochs), its routing tables built once (routing "auto": sparse, 4
+     landmarks) — host seconds, the build report, the tables' bytes on the
+     card — then the [main] workload cut at 1500 ticks under NEIGHBOR,
+     ADAPTIVE and GLOBAL (leap, loop backend) and NEIGHBOR staged, with the
+     famine path off and in tick mode, each equal to NEIGHBOR's leap/loop
+     run but in `events`; ms/event against `[main]`'s; a profiled 300-tick
+     window; then drained W=100 runs of the same recipe (10x10, FIB n=26
+     cutoff=14): NEIGHBOR and GLOBAL on dense tables, NEIGHBOR on prebuilt
+     sparse tables with 5x5 patches, each equal to the reference's pinned
+     (result, ticks, events) and to the port's CPU run;
+  9-11. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
      exactly as its blocks say (an attention block `flash_attention` once in
@@ -1546,6 +1561,215 @@ def _phase_faults(torch, np, sim, topo, tasks, ops, ref, deque, main_run, main_m
     return launches, da
 
 
+# the [linkstate] phase: the reference's benchmarks/bench_sim_throughput.py
+# `_dynamic_constellation` scenario (a wraparound torus, an orbit of 16
+# ticks a plane, 35% eclipse, 10% of the satellites battery-limited and
+# sleeping in it with a warning, seam handovers dark 10% of their 16-tick
+# cycle), at W=4096 over 2 orbits (1024 ticks each) under the [main]
+# workload cut at 1500 ticks, routing "auto" (sparse at this size)
+LINK_ORBITS = {4096: 2, 100: 10}
+LINK_TAU = 5
+# the W=4096 runs: label, strategy, SimConfig fields beyond the run's base;
+# each NEIGHBOR mode must equal NEIGHBOR's leap/loop run, `events` aside
+LINK_RUNS = (("neighbor leap/loop", "neighbor", {}),
+             ("adaptive leap/loop", "adaptive", {}),
+             ("global leap/loop", "global", {}),
+             ("neighbor leap/staged", "neighbor", {"deque_backend": "staged"}),
+             ("neighbor leap/loop fb=0", "neighbor", {"famine_batch": 0}),
+             ("neighbor tick/loop", "neighbor", {"step_mode": "tick"}))
+# the drained W=100 runs: the same recipe on a 10x10 torus over 10 orbits of
+# 160 ticks (the horizon covers every run), FIB n=26 cutoff=14 (it drains
+# within ~1,500 ticks), capacity 64, the default famine batch, pre-shed
+# with the recipe's 20-tick warning; routing by label (sparse: prebuilt
+# tables with 5x5 patches, so landmark prices cross patches). The
+# reference's (`repro.core.simulator.simulate`, JAX on a CPU) (result,
+# ticks, events); every run is exact (121393)
+LINK_FIB100 = (26, 14)
+LINK_PINS = {"neighbor/dense": (121393, 687, 591),
+             "global/dense": (121393, 1505, 1278),
+             "neighbor/sparse 5x5": (121393, 1301, 906)}
+
+
+def _link_scenario(np, W: int):
+    """The dynamic constellation at W workers: (constellation, schedule,
+    simulate's schedule kwargs: the predictable deaths, wakes and periods)."""
+    from repro_torch.benchmarks.common import dynamic_constellation
+
+    con, sched, _ = dynamic_constellation(W, LINK_TAU, LINK_ORBITS[W])
+    kw = {"fail_time": np.where(sched.predictable, sched.fail_time, -1).astype(np.int32),
+          "wake_time": sched.wake_time, "fail_period": sched.fail_period}
+    return con, sched, kw
+
+
+def _link100(sim, np, label: str, device: str):
+    """One drained W=100 [linkstate] run on `device`: (result, wall s)."""
+    from repro_torch.core import linkstate as lstate
+    from repro_torch.core import tasks
+
+    con, sched, kw = _link_scenario(np, 100)
+    strategy, routing = label.split("/")
+    ls = sched.linkstate
+    if routing.startswith("sparse"):
+        ls, _ = lstate.build_tables(ls, con.mesh, routing="sparse", patch=(5, 5),
+                                    device=device)
+        routing = "sparse"
+    cfg = sim.SimConfig(strategy=sim.stealing.Strategy(strategy), hop_ticks=LINK_TAU,
+                        capacity=CAP_MAIN, preshed=True, warn_ticks=con.cfg.warn_ticks)
+    t0 = time.perf_counter()
+    r = sim.simulate(tasks.FibWorkload(n=LINK_FIB100[0], cutoff=LINK_FIB100[1]), con.mesh,
+                     cfg, linkstate=ls, routing_backend=routing, device=device, **kw)
+    return r, time.perf_counter() - t0
+
+
+def _linkstate_cpu_run(label: str):
+    """The port's CPU run of one drained W=100 [linkstate] configuration (in
+    a worker process, beside the card runs of the main process)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import simulator as sim
+
+    torch.set_num_threads(1)
+    return _link100(sim, np, label, "cpu")
+
+
+def phase_linkstate(torch, np, sim, ops, main_ms):
+    """Time-varying link state on the card. At W=4096: the dynamic
+    constellation's tables built once (host seconds, build report, resident
+    bytes), then NEIGHBOR, ADAPTIVE and GLOBAL leap/loop over them, and
+    NEIGHBOR staged, with the famine path off and in tick mode, each equal
+    to NEIGHBOR's leap/loop run (`events` aside); ms/event against
+    `[main]`'s; a profiled 300-tick window. At W=100, drained: each run
+    equal to the reference's pinned (result, ticks, events), exact, and
+    card == CPU. Returns the launches by kernel."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(len(LINK_PINS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    cpu = {label: pool.submit(_linkstate_cpu_run, label) for label in LINK_PINS}
+    try:
+        out = _phase_linkstate(torch, np, sim, ops, main_ms, cpu)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"[linkstate] phase {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def _phase_linkstate(torch, np, sim, ops, main_ms, cpu):
+    import dataclasses
+
+    from repro_torch.core import linkstate as lstate
+    from repro_torch.core import tasks
+
+    con, sched, kw = _link_scenario(np, W_MAIN)
+    mesh = con.mesh
+    wl = tasks.FibWorkload(n=48, cutoff=28, max_leaf_cost=2048)
+    base = dict(hop_ticks=LINK_TAU, capacity=CAP_MAIN, max_ticks=1500, preshed=True,
+                warn_ticks=con.cfg.warn_ticks)
+    ccfg = con.cfg
+    n_sleep = int((kw["fail_time"] >= 0).sum())
+    print(f"[linkstate] W={W_MAIN}: a {ccfg.planes}x{ccfg.sats_per_plane} wraparound "
+          f"torus, orbit {ccfg.orbit_ticks} ticks x {LINK_ORBITS[W_MAIN]}, tau_base "
+          f"{ccfg.tau_base}, inter-plane amplitude {ccfg.interplane_amp}, eclipse "
+          f"{ccfg.eclipse_fraction}, {n_sleep} battery-limited sleepers (periodic), "
+          f"seam outage {ccfg.seam_outage_frac} of a {con.handover_cycle()}-tick "
+          f"handover cycle, warn {ccfg.warn_ticks}; the [main] workload cut at "
+          f"{base['max_ticks']} ticks")
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    tbl, stats = lstate.build_tables(sched.linkstate, mesh, routing="auto", device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_b
+    print(f"[linkstate] tables built in {build_s:.3f} s (host, to the card): "
+          + " ".join(f"{k}={v}" for k, v in dataclasses.asdict(stats).items()))
+    print(f"[linkstate] routing tables {lstate.table_bytes(tbl)} bytes as the "
+          f"reference counts them (landmarks at 2 bytes); resident on the card "
+          f"{lstate.resident_bytes(tbl)} bytes, every table of the schedule "
+          f"(landmarks held in int32)")
+    launches = {"steal_compact": 0, "deque_apply": 0}
+
+    def run(label, cfg, ls, mesh_=mesh, wl_=wl, kw_=kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        r = sim.simulate(wl_, mesh_, cfg, linkstate=ls, **kw_)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts = {k: ops.LAUNCHES[k] for k in launches}
+        kernel = "deque_apply" if cfg.deque_backend == "staged" else "steal_compact"
+        if counts[kernel] == 0:
+            raise SystemExit(f"[linkstate] {label}: kernel {kernel} was never launched")
+        for k in launches:
+            launches[k] += counts[k]
+        return r, dt, counts
+
+    def cfg_of(strategy, extra, **more):
+        return sim.SimConfig(**{**base, **extra, **more},
+                             strategy=sim.stealing.Strategy(strategy))
+
+    # a short run of each backend first, untimed (capture, first use)
+    for backend in ("loop", "staged"):
+        sim.simulate(wl, mesh, cfg_of("neighbor", {"deque_backend": backend},
+                                      max_ticks=20), linkstate=tbl, **kw)
+    runs = {}
+    for label, strategy, extra in LINK_RUNS:
+        r, dt, counts = run(label, cfg_of(strategy, extra), tbl)
+        runs[label] = r
+        if r.ticks != base["max_ticks"] or r.nodes <= 0:
+            raise SystemExit(f"[linkstate] {label}: ticks {r.ticks} nodes {r.nodes}")
+        if label.startswith("neighbor") and label != "neighbor leap/loop":
+            _assert_equal(np, runs["neighbor leap/loop"], r, skip=("events",),
+                          what=f"[linkstate] neighbor leap/loop vs {label}")
+        if "tick" in label and r.events != r.ticks:
+            raise SystemExit(f"[linkstate] {label}: {r.events} events")
+        print(f"[linkstate] W={W_MAIN} {label}: ticks={r.ticks} events={r.events} "
+              f"wall={dt:.3f} s ms/event={dt / r.events * 1e3:.3f} "
+              f"({dt / r.events * 1e3 / main_ms:.2f}x [main]'s {main_ms:.3f}) "
+              f"nodes={r.nodes} attempts={r.attempts} successes={r.successes} "
+              f"overflow={r.overflow} launches={counts}")
+    print("[linkstate] NEIGHBOR staged, famine path off and tick mode: each equal to "
+          "its leap/loop run, field for field but events")
+    # where the time goes: a 300-tick window, timed, then profiled
+    win = cfg_of("neighbor", {}, max_ticks=300)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = sim.simulate(wl, mesh, win, linkstate=tbl, **kw).events
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    busy, n_dev, by_name = _profile(
+        torch, lambda: sim.simulate(wl, mesh, win, linkstate=tbl, **kw))
+    print(f"[profile] linkstate neighbor leap/loop W={W_MAIN}, 300 ticks, {ev} events: "
+          f"device busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+          f"{busy / wall_ms:.4f}); {n_dev} device activities = {n_dev / ev:.1f} per event")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+
+    # drained W=100: the reference's pins, exact, card == CPU
+    for label, pin in LINK_PINS.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rg, dt = _link100(sim, np, label, "cuda")
+        torch.cuda.synchronize()
+        counts = {k: ops.LAUNCHES[k] for k in launches}
+        if counts["steal_compact"] == 0:
+            raise SystemExit(f"[linkstate] W=100 {label}: steal_compact never launched")
+        for k in launches:
+            launches[k] += counts[k]
+        got = (rg.result, rg.ticks, rg.events)
+        if got != pin:
+            raise SystemExit(f"[linkstate] W=100 {label}: (result, ticks, events) "
+                             f"{got}, the reference's {pin}")
+        rc, dt_c = cpu[label].result()
+        _assert_equal(np, rg, rc, what=f"[linkstate] W=100 {label} card vs cpu")
+        print(f"[linkstate] W=100 {label}: result={rg.result} (exact) ticks={rg.ticks} "
+              f"events={rg.events} = the reference's; card {dt:.3f} s "
+              f"({dt / rg.events * 1e3:.3f} ms/event), cpu {dt_c:.3f} s in a worker "
+              f"process, card == cpu; launches={counts}")
+    return launches
+
+
 SERVE_BATCH, SERVE_NEW = 8, 64
 # the kernels' symbols in a profile, by wrapper name (the serving paths run
 # both attention kernels in bf16, through their tensor-core kernels, and
@@ -1846,6 +2070,8 @@ def main() -> int:
                                          main_run, main_ms)
     for name, n in fault_launches.items():
         by_path[name]["faults"] = n
+    for name, n in phase_linkstate(torch, np, sim, ops, main_ms).items():
+        by_path[name]["linkstate"] = n
     kern["deque_apply"].update({f"faults_{k}": da_tc[k] for k in (
         "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "lanes")})
     kern["deque_apply"]["max_abs_err"] = max(kern["deque_apply"]["max_abs_err"],

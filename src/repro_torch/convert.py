@@ -2,8 +2,9 @@
 fields and numpy arrays, so both packages run the same thing.
 
 The simulator has no weights: its inputs are a workload's fields, a mesh's
-``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields and, for the
-deque layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
+``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields, a link-state
+schedule's arrays or a constellation's config fields and, for the deque
+layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
 be any enum (or plain string) with the same values. A model's input is its
 parameter tree (`lm_params` for the dense transformer, `rwkv6_params` for
 rwkv6, `rglru_params` for the RG-LRU hybrid). This module imports nothing
@@ -15,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import constellation
 from .core import deque as dq
+from .core import linkstate as lstate
 from .core import simulator as sim
 from .core import stealing, tasks
 from .core import topology as topo
@@ -48,6 +51,23 @@ def sim_config(fields: dict) -> sim.SimConfig:
     if "recovery" in f:
         f["recovery"] = sim.Recovery(_value(f["recovery"]))
     return sim.SimConfig(**f)
+
+
+def linkstate_schedule(epoch_starts, link_tau, link_up, speed
+                       ) -> lstate.LinkStateSchedule:
+    """A `LinkStateSchedule` from the reference's four arrays (epoch starts,
+    per-link τ and availability, per-epoch speeds), copied as numpy."""
+    return lstate.LinkStateSchedule(
+        epoch_starts=np.array(epoch_starts, np.int32),
+        link_tau=np.array(link_tau, np.int32),
+        link_up=np.array(link_up, bool),
+        speed=np.array(speed, np.int32))
+
+
+def constellation_config(fields: dict) -> constellation.ConstellationConfig:
+    """A `ConstellationConfig` from a field dict (e.g. `dataclasses.asdict`
+    of the reference's config)."""
+    return constellation.ConstellationConfig(**fields)
 
 
 def deque_state(buf, bot, size, device="cpu") -> dq.DequeState:

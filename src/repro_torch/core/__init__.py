@@ -1,2 +1,3 @@
 """Simulator core of the port: rng → topology → tasks → deque → stealing →
-simulator, each the counterpart of the `repro.core` module of the same name."""
+linkstate → constellation → simulator, each the counterpart of the
+`repro.core` module of the same name."""

@@ -11,8 +11,12 @@ This module runs one root task with the reference's fault model — deaths
 by schedule (one-shot or periodic) under `Recovery.NONE`, `Recovery.TC`
 (coordinated snapshots, rollback, the dead's deques transplanted to their
 heirs) and `Recovery.SUPERVISION` (victims re-push what a dead thief took),
-wake-ups, straggler speeds and malleable pre-shed with a warning — and no
-link state, arrivals or tracing. It reproduces the reference JAX simulator
+wake-ups, straggler speeds and malleable pre-shed with a warning — and
+time-varying link state (`core.linkstate`: per-epoch link latencies,
+outages and speeds; flights priced along live routes, victims masked to
+live links and reachable workers, flights to another live-link component
+never launched, a severed reply denied its grant), but no arrivals or
+tracing. It reproduces the reference JAX simulator
 (`repro.core.simulator.simulate`) field for field on those inputs: the
 randomness is a pure function of ``(seed, tick)`` (`rng.fold_in`), every
 quantity is int32 with the same wrap-around, and the deque, selection,
@@ -71,6 +75,7 @@ import numpy as np
 import torch
 
 from . import deque as dq
+from . import linkstate as lstate
 from . import rng, stealing, tasks
 from . import topology as topo
 
@@ -465,13 +470,16 @@ def _first_active(x, sp):
 
 
 def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
-                        faults: _Faults | None = None, alive=None) -> torch.Tensor:
+                        faults: _Faults | None = None, alive=None,
+                        starts: torch.Tensor | None = None) -> torch.Tensor:
     """Clip `ne` at each point's scheduled events: deaths (and pre-shed
     warnings) of alive workers, wake-ups of dead ones — every cycle of a
-    periodic schedule — and the next periodic checkpoint. `ckpt` is None
-    when no point of the grid checkpoints, else per point (interval clamped
-    to >= 1, interval > 0). Link-state epochs and arrivals join with their
-    slices."""
+    periodic schedule — the next periodic checkpoint and the next link-state
+    epoch boundary after t (`starts`, the schedule's epoch starts; None
+    without a schedule): τ, links and speeds change there, so no leap or
+    famine window crosses one. `ckpt` is None when no point of the grid
+    checkpoints, else per point (interval clamped to >= 1, interval > 0).
+    Arrivals join with their slice."""
     if faults is not None:
         never = torch.full_like(alive, _NEVER, dtype=_I32)
         nf = _next_fire(faults.fail, faults.period, t)
@@ -487,25 +495,34 @@ def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
     if ckpt is not None:
         every, on = ckpt
         ne = torch.where(on, torch.minimum(ne, t + ((every - t % every) % every)), ne)
+    if starts is not None:
+        ne = torch.minimum(ne, lstate.next_change(starts, t, _NEVER))
     return ne
 
 
 def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
-                faults: _Faults | None = None) -> torch.Tensor:
+                faults: _Faults | None = None, can_try=None,
+                starts: torch.Tensor | None = None) -> torch.Tensor:
     """Per point, the first tick >= t at which any of its workers does more
     than a bulk decrement ((G, 1) int32, as `t`). Conservative: an early
-    answer costs one loop iteration, never correctness. `sp`: the (W,)
-    straggler speeds, None when all are 1."""
+    answer costs one loop iteration, never correctness. `sp`: the straggler
+    speeds ((W,), or (G, W) from a link-state epoch), None when all are 1;
+    `can_try`: which idle workers could launch a steal flight at t (under a
+    link-state schedule, the reference's `_can_attempt`), None when any
+    other worker is a reachable victim; `starts` the schedule's epoch
+    starts."""
     alive = state.alive
     run = (state.phase == PHASE_RUN) & alive
     t0 = _first_active(t, sp)
     # burning workers: event when work hits 0 on their work-th active tick
     burn_ev = t0 + state.work * (1 if sp is None else sp)
-    # work-exhausted workers expand (deque nonempty) or start a steal — with
-    # no link state, any other worker is a reachable victim — unless retired
-    # by a pre-shed warning
+    # work-exhausted workers expand (deque nonempty) or start a steal where
+    # a victim is reachable, unless retired by a pre-shed warning
     retired = _retired_mask(faults, t)
-    can_try = W > 1 if retired is None else ~retired & (W > 1)
+    if can_try is None:
+        can_try = W > 1
+    if retired is not None:
+        can_try = ~retired & can_try
     idle_acts = (state.deque.size > 0) | can_try
     never = torch.full_like(state.work, _NEVER)
     run_ev = torch.where(state.work > 0, burn_ev,
@@ -514,12 +531,13 @@ def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
     # in-flight steal messages arrive when the timer reaches 0
     flight = (state.phase != PHASE_RUN) & alive
     ev = torch.where(flight, t + (state.timer - 1).clamp(min=0), ev)
-    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive)
+    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive,
+                               starts)
 
 
 def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
-                    hop_ticks: torch.Tensor, victim_hops: torch.Tensor,
-                    sp=None, faults: _Faults | None = None) -> torch.Tensor:
+                    back: torch.Tensor, sp=None, faults: _Faults | None = None,
+                    starts: torch.Tensor | None = None) -> torch.Tensor:
     """Per point, the first tick >= t at which any deque size can change (or
     a death, wake, pre-shed warning or checkpoint fires): the famine
     window's horizon ((G, 1) int32).
@@ -531,8 +549,8 @@ def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
     every deque size stays frozen and every attempt in the window fails: the
     stretch reduces to burn-downs, flight timers and failing probe cycles,
     which the famine replay advances. Probe starts, arrivals and deliveries
-    of those failing cycles are not events here. `victim_hops` is each
-    worker's hop count to its current victim.
+    of those failing cycles are not events here. `back` is the ticks of each
+    worker's reply flight from its current victim, priced at t.
     """
     alive = state.alive
     nonempty = state.deque.size > 0
@@ -560,12 +578,12 @@ def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
     # a risky flier fails its present attempt, but its next draw may hit a
     # nonempty deque: the window ends before that probe starts, at its first
     # active tick after the delivery
-    back = victim_hops * hop_ticks
     deliver = torch.where(is_req, arrive + (back - 1).clamp(min=0), arrive)
     flight_ev = torch.minimum(flight_ev, torch.where(
         risky, _first_active(deliver + 1, sp), never))
     ev = torch.where((state.phase != PHASE_RUN) & alive, flight_ev, ev)
-    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive)
+    return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive,
+                               starts)
 
 
 def _min_draw_hops(mesh: topo.MeshTopology, code: int) -> int:
@@ -631,8 +649,6 @@ def _map(fn, tree):
 
 # options not ported yet: what each is, and its ROADMAP Queue 1 item
 _NOT_PORTED = {
-    "linkstate": ("time-varying link state (linkstate)", 10),
-    "routing_backend": ("the link-state routing tables (routing_backend)", 10),
     "trace": ("the flight recorder (trace)", 11),
     "arrivals": ("open-loop arrivals (arrivals, arrival_gap_q8)", 12),
     "devices": ("a grid sharded over several devices (devices)", "13b"),
@@ -680,12 +696,36 @@ def _check_params(p: SimParams):
         raise _not_ported("arrivals")
 
 
-def _check_unported(linkstate, routing_backend, arrivals):
-    for name, arg in (("linkstate", linkstate), ("arrivals", arrivals)):
-        if arg is not None:
-            raise _not_ported(name)
-    if routing_backend != "auto":
-        raise _not_ported("routing_backend")
+def _check_unported(arrivals):
+    if arrivals is not None:
+        raise _not_ported("arrivals")
+
+
+def _check_linkstate(linkstate, speed):
+    """A schedule carries its own per-epoch speeds: the static `speed`
+    argument beside it is refused, as the reference refuses it."""
+    if linkstate is None:
+        return
+    if speed is not None:
+        raise ValueError(
+            "pass straggler speeds through the LinkStateSchedule's per-epoch "
+            "`speed` field, not the static `speed` argument, when simulating "
+            "under a link-state schedule")
+    if not isinstance(linkstate, (lstate.LinkStateSchedule, lstate.LinkStateArrays)):
+        raise TypeError("linkstate must be a LinkStateSchedule or LinkStateArrays, "
+                        f"got {type(linkstate).__name__}")
+
+
+def _linkstate_tables(linkstate, mesh: topo.MeshTopology, routing: str,
+                      device: torch.device):
+    """The run's link-state tables on `device`: a schedule is compiled
+    (`linkstate.build_tables` under `routing`), prebuilt `LinkStateArrays`
+    pass through (moved to `device`); None without a schedule."""
+    if linkstate is None:
+        return None
+    if isinstance(linkstate, lstate.LinkStateArrays):
+        return lstate.to_device(linkstate, device)
+    return lstate.device_tables(linkstate, mesh, routing=routing, device=device)
 
 
 class _Schedules(NamedTuple):
@@ -764,13 +804,67 @@ def core_count() -> int:
     return _CORE_COUNT
 
 
+class _Link(NamedTuple):
+    """A link-state schedule's tables on the device, for one run: the
+    compiled `ls`, and per epoch (leading axis E) the victim tables the
+    reference masks at every tick — built once, before the loop — and the
+    rows the horizons read. None where the run needs none (no ADAPTIVE
+    point, no outage epoch, every speed 1)."""
+    ls: lstate.LinkStateArrays
+    nbr: torch.Tensor              # (E, W, 4) neighbors over live links
+    near: torch.Tensor | None      # (E, W, 4) ADAPTIVE: the cheapest of them
+    r2: torch.Tensor               # (E, W, 12) radius-2, same component; (W, 12)
+    nbr_live: torch.Tensor         # (E, W) some live neighbor
+    r2_any: torch.Tensor | None    # (E, W) ADAPTIVE: some reachable radius-2 worker
+    multi: torch.Tensor | None     # (E, W) component of more than one worker
+    tau_min: torch.Tensor          # (E,) least link τ of the epoch
+    speed: torch.Tensor | None     # (E, W) straggler divisors
+    outage: bool                   # some epoch has a dead link
+    partitioned: bool              # some epoch has more than one component
+
+
+def _link_tables(ls: lstate.LinkStateArrays, tbl: dict, adaptive: bool) -> _Link:
+    """The per-epoch tables of `_Link` from the compiled schedule `ls` and
+    the mesh's victim tables `tbl` (host facts read once, here)."""
+    nbrs = tbl["neighbors"]
+    E = ls.epoch_starts.shape[0]
+    outage = lstate.has_outage_tables(ls)
+    nbr = torch.where(ls.link_up & (nbrs >= 0), nbrs, topo.NO_NEIGHBOR)
+    r2 = tbl["radius2"]
+    multi = None
+    if outage:
+        r2 = stealing.mask_reachable(r2.expand(E, -1, -1), ls.comp)
+        comp = ls.comp.long()
+        size = torch.zeros_like(ls.comp).scatter_add_(-1, comp, torch.ones_like(ls.comp))
+        multi = size.gather(-1, comp) > 1
+    return _Link(
+        ls=ls, nbr=nbr,
+        near=stealing.cheapest_live_table(nbr, ls.link_tau) if adaptive else None,
+        r2=r2, nbr_live=(nbr >= 0).any(-1),
+        r2_any=(r2 >= 0).any(-1).expand(E, -1) if adaptive else None,
+        multi=multi, tau_min=ls.link_tau.flatten(1).amin(1),
+        speed=ls.speed if bool((ls.speed != 1).any()) else None,
+        outage=outage, partitioned=outage and bool((ls.comp != 0).any()))
+
+
+def _at(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Each point's row of a per-epoch table `x` (E, ...) at its epoch `e`
+    ((G, 1)): (G, ...), and (G, 1) for an (E,) table."""
+    if x.dim() == 1:
+        return x[e.long()]
+    return x.index_select(0, e.flatten().long())
+
+
 def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
-              p: SimParams, device: torch.device, sched: _Schedules | None = None):
+              p: SimParams, device: torch.device, sched: _Schedules | None = None,
+              ls: lstate.LinkStateArrays | None = None):
     """Run the grid `p` (`stack_params`: G points) through one loop on
     `device`, every point under the schedules `sched` (None: no failure,
-    wake-up or straggler). Returns (state, ticks, iters): every state leaf
-    with a leading G axis, per-point scalars as (G, 1) columns; ticks and
-    iters (G,)."""
+    wake-up or straggler) and the link state `ls` (compiled on `device`;
+    None: every link up at each point's τ), each point in the epoch of its
+    own clock. Returns (state, ticks, iters): every state leaf with a
+    leading G axis, per-point scalars as (G, 1) columns; ticks and iters
+    (G,)."""
     global _CORE_COUNT
     _CORE_COUNT += 1
     W = mesh.num_workers
@@ -827,6 +921,58 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             warn=col(p.warn_ticks) if cfg.preshed else None)
     if sched is not None and (sched.speed != 1).any():
         sp = dev_i32(sched.speed)
+    link = (None if ls is None
+            else _link_tables(ls, tbl, stealing.ADAPTIVE_CODE in present))
+    starts = None if ls is None else ls.epoch_starts
+    outage = link is not None and link.outage
+    warr = torch.arange(W, dtype=_I32, device=device)
+    torus_full = mesh.torus_full()
+
+    def epoch(t):  # each point's epoch at its tick t ((G, 1))
+        return None if ls is None else lstate.epoch_index(starts, t)
+
+    def speed_at(e):
+        """The straggler speeds at epoch `e`: the schedule's row per point,
+        or the static (W,) speeds without one; None when all are 1."""
+        if link is None:
+            return sp
+        return None if link.speed is None else _at(link.speed, e)
+
+    def flight(e, src, dst):  # ticks of the flights src → dst from epoch e
+        return lstate.flight_ticks(ls, e, src, dst, mesh.rows, mesh.cols, torus_full)
+
+    def flight_pair(e, src1, dst1, src2, dst2):
+        """The flights src1 → dst1 and src2 → dst2 from epoch e, priced in
+        one call (one set of launches for both)."""
+        a = torch.broadcast_tensors(src1, dst1, src2, dst2)
+        out = flight(e[None], torch.stack([a[0], a[2]]), torch.stack([a[1], a[3]]))
+        return out[0], out[1]
+
+    def reachable(e, a, b):
+        return lstate.same_component(ls, e, a, b)
+
+    def can_attempt(e, fails):
+        """Which idle workers could launch a steal flight in epoch `e` (the
+        reference's `_can_attempt`, by each point's strategy): radius-1
+        strategies need a live neighbor, ADAPTIVE's escalated thieves a
+        reachable radius-2 worker, multi-hop strategies another worker in
+        their component. None without a schedule (any other worker)."""
+        if link is None:
+            return None
+        multi = (_at(link.multi, e) if outage
+                 else torch.full_like(fails, W > 1, dtype=torch.bool))
+        out = None
+        for c in present:
+            if c == stealing.NEIGHBOR_CODE:
+                v = _at(link.nbr_live, e)
+            elif c == stealing.ADAPTIVE_CODE:
+                v = _at(link.nbr_live, e) | (_at(link.r2_any, e)
+                                              & (fails >= escalate_after))
+            else:
+                v = multi
+            out = v if out is None else torch.where(code == c, v, out)
+        return out
+
     preshed = faults is not None and cfg.preshed
     recovery = cfg.recovery if faults is not None else Recovery.NONE
     # TC rolls back only at points that checkpoint: with no such point it
@@ -844,9 +990,14 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     # collapse), so a LIFELINE point replays no tick
     FB = cfg.famine_batch if leap_mode and drawn else 0
     # each probe cycle takes >= 2·h·τ − 1 ticks (>= 1), so a famine window of
-    # FB ticks holds at most `rounds` draws per worker; the shortest cycle of
-    # the grid's famine points sets it (extra rounds draw nothing)
+    # FB ticks holds at most `rounds` reachable draws per worker; the
+    # shortest cycle of the grid's famine points sets it (extra rounds draw
+    # nothing). Under a schedule τ is the least link τ of any epoch: a
+    # flight of h hops costs at least h·τ there (a draw in another
+    # component launches nothing and the replay skips it)
     h_min = {c: _min_draw_hops(mesh, c) for c in drawn}
+    if ls is not None:
+        taus = [int(link.tau_min.min())] * len(codes)
     min_cycle = min((max(2 * h_min[c] * tau - 1, 1)
                      for c, tau in zip(codes, taus) if c in h_min), default=1)
     rounds = -(-FB // min_cycle)
@@ -884,33 +1035,84 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         arr_dropped=scalar(0), arr_done=scalar(0), soj_lo=scalar(0),
         soj_hi=scalar(0))
 
-    def probe(nonempty, fails):
-        """Each point's `stealing.probe_may_succeed`, by its strategy
-        (LIFELINE points take the first strategy's: their famine replay is
-        gated off)."""
-        risky = None
-        for c in drawn:
-            r = stealing.probe_may_succeed(
-                stealing.CODE_STRATEGIES[c], nonempty, fails, tbl["neighbors"],
-                tbl["radius2"], escalate_after=escalate_after, window=FB,
-                min_cycle=probe_cycle, num_workers=W)
-            risky = r if risky is None else torch.where(code == c, r, risky)
-        return risky
+    def probe(e):
+        """Each point's `stealing.probe_may_succeed` at its epoch `e`, by
+        its strategy (LIFELINE points take the first strategy's: their
+        famine replay is gated off): a function of (nonempty, fails)."""
+        nbr_tab, r2_tab, comp_row, cycle = (tbl["neighbors"], tbl["radius2"],
+                                            None, probe_cycle)
+        if link is not None:
+            nbr_tab = _at(link.nbr, e)
+            if outage:
+                r2_tab, comp_row = _at(link.r2, e), _at(ls.comp, e)
+            # the reference's bound on a probe cycle in the epoch
+            cycle = (2 * _at(link.tau_min, e) - 1).clamp(min=1)
 
-    def draws(t: torch.Tensor):
+        def risky_of(nonempty, fails):
+            risky = None
+            for c in drawn:
+                r = stealing.probe_may_succeed(
+                    stealing.CODE_STRATEGIES[c], nonempty, fails, nbr_tab,
+                    r2_tab, escalate_after=escalate_after, window=FB,
+                    min_cycle=cycle, num_workers=W, comp_row=comp_row)
+                risky = r if risky is None else torch.where(code == c, r, risky)
+            return risky
+        return risky_of
+
+    # the tables each drawn strategy reads: (near, far) by table name
+    draw_names = {stealing.NEIGHBOR_CODE: ("neighbors", "radius2"),
+                  stealing.ADAPTIVE_CODE: ("near", "radius2"),
+                  stealing.GLOBAL_CODE: ("neighbors", "radius2")}
+
+    def draw_tables(e0, e1):
+        """The victim tables of the draws' rows under a link-state schedule,
+        per point: row 0 (this tick) at epoch `e0`, rows 1.. (the famine
+        window from the next tick) at `e1`; a pair of (G, 1, W, D) tables
+        each, by table name, for the drawn strategies that read them (GLOBAL
+        reads none). The rows' uniforms are drawn once and mapped through
+        them (`stealing._pick_from_list`)."""
+        def rows(x):
+            if x.dim() == 2:  # the same in every epoch
+                return x
+            first = _at(x, e0)[:, None]
+            return first if not FB else (first, _at(x, e1)[:, None])
+        src = {"neighbors": link.nbr, "near": link.near, "radius2": link.r2}
+        used = {n for c in drawn if c != stealing.GLOBAL_CODE for n in draw_names[c]}
+        return {n: rows(src[n]) if n in used else tbl[n] if n in tbl else None
+                for n in src}
+
+    def draws(t: torch.Tensor, e0=None, e1=None):
         """All-thieves victim draws of ticks t .. t + FB, one (G, 1 + FB, W)
         block by each point's strategy, key and tick
         (`stealing.batched_victim_draws`, each strategy on its own points):
-        row 0 serves this tick, rows 1.. the famine replay. `far`,
-        ADAPTIVE's escalated draws (the near ones for the other points), is
-        None when no point is ADAPTIVE; (None, None) when every point is
-        LIFELINE, which selects per tick with its own key."""
+        row 0 serves this tick, rows 1.. the famine replay; under a
+        link-state schedule through the masked tables of epochs `e0` (row 0)
+        and `e1` (rows 1..). `far`, ADAPTIVE's escalated draws (the near
+        ones for the other points), is None when no point is ADAPTIVE;
+        (None, None) when every point is LIFELINE, which selects per tick
+        with its own key."""
         if not drawn:
             return None, None
+        tabs = {"neighbors": tbl["neighbors"], "radius2": tbl["radius2"]}
+        if link is not None:
+            tabs = draw_tables(e0, e1)
+
+        def table(name, c):
+            x = tabs.get(name)
+            if x is None:  # ADAPTIVE without a schedule: the plain neighbors
+                x = tabs["neighbors"]
+            if isinstance(x, tuple):
+                return tuple(table_of(y, c) for y in x)
+            return table_of(x, c)
+
+        def table_of(x, c):  # the table rows of strategy c's points
+            return x if x.dim() == 2 or sel[c] is None else x[sel[c]]
+
         blocks = {c: stealing.batched_victim_draws(
             stealing.CODE_STRATEGIES[c], keys[c],
-            t if sel[c] is None else t[sel[c]], 1 + FB, tbl["neighbors"],
-            tbl["radius2"], num_workers=W) for c in drawn}
+            t if sel[c] is None else t[sel[c]], 1 + FB,
+            *(table(n, c) for n in draw_names[c]), num_workers=W)
+            for c in drawn}
 
         def join(parts):
             out = parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -1001,12 +1203,14 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         return state._replace(sup_buf=sup_buf, sup_thief=sup_thief,
                               sup_n=sup_n.clamp(max=S - 1))
 
-    def tick_fn(state: SimState, snap, t: torch.Tensor, near, far, run):
+    def tick_fn(state: SimState, snap, t: torch.Tensor, near, far, run, e):
         """One tick with full semantics at each point's tick `t` ((G, 1)),
-        drawing from row 0 of `draws(t)`; returns (state, snap, live). The
-        staged commits write `state.deque`'s ring in place, in the rows of
-        the points whose flag `run` ((G, 1)) is set."""
+        in its link-state epoch `e` (None without a schedule), drawing from
+        row 0 of `draws(t)`; returns (state, snap, live). The staged commits
+        write `state.deque`'s ring in place, in the rows of the points whose
+        flag `run` ((G, 1)) is set."""
         alive = state.alive
+        sp = speed_at(e)
         ses = _Deques(state.deque, lanes_full, run)
 
         # ------------- scheduled failures / shutdowns --------------------- #
@@ -1109,12 +1313,23 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             victim_new = (parked if victim_new is None else torch.where(
                 code == stealing.LIFELINE_CODE, parked, victim_new))
         has_victim = victim_new >= 0
+        if outage:
+            # route-around: a victim in another live-link component is
+            # unreachable, so the flight never departs (no attempt) and the
+            # thief draws again at its next active tick
+            has_victim = has_victim & reachable(e, warr, victim_new)
         vhops = torch.where(has_victim, topo.hop_dist(mesh, coords, victim_new), 0)
-        req_ticks = vhops * hop_ticks
         start_req = idle & has_victim & alive
+        victim = torch.where(start_req, victim_new, state.victim)
+        if ls is None:
+            req_ticks = vhops * hop_ticks
+        else:
+            # both legs in this tick's epoch: a request departing now, and
+            # the reply of a request arriving now (victim → thief)
+            req_fl, back_fl = flight_pair(e, warr, victim_new, victim, warr)
+            req_ticks = torch.where(has_victim, req_fl, 0)
         phase = torch.where(start_req, PHASE_REQ, state.phase)
         timer = torch.where(start_req, req_ticks, state.timer)
-        victim = torch.where(start_req, victim_new, state.victim)
         attempts = state.attempts + start_req.to(_I32)
         hop_units = torch.where(start_req, vhops, 0).sum(-1, keepdim=True)
 
@@ -1124,6 +1339,10 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         arriving = in_req & (timer == 0)
         # victims must be alive to grant (dead satellites drop requests)
         valid_victim = arriving & alive.gather(-1, victim.clamp(0, W - 1).long())
+        if outage:
+            # an epoch change mid-request severed the reply path: no grant
+            # (the empty-handed reply is priced as the timeout below)
+            valid_victim = valid_victim & reachable(e, victim, warr)
         plan = stealing.resolve_grants(torch.where(valid_victim, victim, -1),
                                        ses.size, max_grants)
         v = plan.victim.clamp(0, W - 1).long()
@@ -1138,7 +1357,11 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         resp_start = arriving
         phase = torch.where(resp_start, PHASE_RESP, phase)
         back_hops = torch.where(resp_start, topo.hop_dist(mesh, coords, victim), 0)
-        timer = torch.where(resp_start, back_hops * hop_ticks, timer)
+        if ls is None:
+            back_ticks = back_hops * hop_ticks
+        else:  # priced victim → thief in the arrival epoch
+            back_ticks = torch.where(resp_start, back_fl, 0)
+        timer = torch.where(resp_start, back_ticks, timer)
         hop_units = hop_units + torch.where(resp_start, back_hops, 0).sum(-1, keepdim=True)
         loot = torch.where(resp_start[..., None], stolen, state.loot)
         got_flight = torch.where(resp_start, got, state.got)
@@ -1178,23 +1401,26 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                 + got_left.sum(-1, keepdim=True)) > 0
         return new_state, snap, live
 
-    def active_in(t, a, b):
+    def active_in(t, a, b, sp):
         """Each worker's straggler-active ticks in [t + a, t + b)."""
         if sp is None:
             return b - a
         return (torch.div(t + b + sp - 1, sp, rounding_mode="floor")
                 - torch.div(t + a + sp - 1, sp, rounding_mode="floor"))
 
-    def leap(state: SimState, t, live, ne):
-        """Fused fast-forward over the dead ticks in [t, ne), per point.
-        Returns (state, t, live). If the window's bulk burn consumes a
-        point's LAST pending work, land right after the final burn tick
-        (where the one-tick stepper exits) and clear its live flag."""
+    def leap(state: SimState, t, live, ne, sp):
+        """Fused fast-forward over the dead ticks in [t, ne), per point, at
+        the speeds `sp` (one epoch covers the window: `ne` stops at the next
+        boundary). Returns (state, t, live). If the window's bulk burn
+        consumes a point's LAST pending work, land right after the final
+        burn tick (where the one-tick stepper exits) and clear its live
+        flag."""
         delta = (ne.clamp(max=cfg.max_ticks) - t).clamp(min=0)
         delta = torch.where(live, delta, 0)
         burning = (state.phase == PHASE_RUN) & state.alive & (state.work > 0)
         # burners: one work unit per straggler-active tick in the window
-        nact = torch.where(burning, torch.minimum(active_in(t, 0, delta), state.work), 0)
+        nact = torch.where(burning, torch.minimum(active_in(t, 0, delta, sp),
+                                                  state.work), 0)
         drained = (state.deque.size.sum(-1, keepdim=True)
                    + (state.work - nact).sum(-1, keepdim=True)
                    + state.got.sum(-1, keepdim=True)) == 0
@@ -1205,19 +1431,27 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         delta = torch.where(live & drained,
                             torch.minimum(delta, (exit_t - t).clamp(min=0)),
                             delta)
-        nact = torch.where(burning, torch.minimum(active_in(t, 0, delta), state.work), 0)
+        nact = torch.where(burning, torch.minimum(active_in(t, 0, delta, sp),
+                                                  state.work), 0)
         # in-flight messages: timers tick down, thieves accumulate wait
-        flight = (state.phase != PHASE_RUN) & state.alive
-        dflt = torch.where(flight, delta, 0)
+        flight_ = (state.phase != PHASE_RUN) & state.alive
+        dflt = torch.where(flight_, delta, 0)
         return state._replace(
             timer=state.timer - dflt, steal_wait=state.steal_wait + dflt,
             work=state.work - nact, busy=state.busy + nact), \
             t + delta, live & ~drained
 
-    def famine_ff(state: SimState, t, live, ne_all, near, far):
+    def next_event(state: SimState, t, e):
+        """`_next_event` at each point's tick `t`, in its epoch `e`."""
+        return _next_event(state, t, ckpt, W, speed_at(e), faults,
+                           can_attempt(e, state.fails), starts)
+
+    def famine_ff(state: SimState, t, live, ne_all, near, far, e):
         """Advance up to FB ticks of deterministically failing probe cycles
-        in this iteration (the famine fast path), per point. Returns (state,
-        t, live, ne), `ne` the `_next_event` horizon of the returned state.
+        in this iteration (the famine fast path), per point, in its epoch
+        `e` (the window never crosses an epoch boundary). Returns (state, t,
+        live, ne, e), `ne` the `_next_event` horizon of the returned state
+        and `e` the epoch of its tick.
 
         `_famine_horizon` certifies that deque sizes are frozen over the
         window, so only burn-downs, probe flights and their counters move;
@@ -1229,17 +1463,25 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         straggler-active tick — then, unless it is retired, probe cycles: a
         draw at an active tick d from row d of `near`/`far`
         (`stealing.batched_victim_draws`, the same ``fold_in(key0, t)`` keys
-        as the per-tick path), the request arriving at d + max(L − 1, 0) and
-        the empty-handed reply landing max(L − 1, 0) later, L = h·τ, the
-        next draw at the first active tick after. Each round below takes
-        every worker's next draw at once; `rounds` bounds the draws a window
+        as the per-tick path), the request arriving at d + max(Lq − 1, 0)
+        and the empty-handed reply landing max(Lr − 1, 0) later — Lq and Lr
+        the request's and the reply's flight ticks, h·τ each without a
+        schedule, `flight_ticks` in the window's epoch with one — the next
+        draw at the first active tick after. A draw into another live-link
+        component (GLOBAL's, under a partition) launches nothing: the thief
+        draws again at its next active tick, so each worker takes the next
+        reachable draw at or after its tick. Each round below takes every
+        worker's next draw at once; `rounds` bounds the draws a window
         holds. The number of replayed ticks `n` is where the reference's
         scan stops (its `act = pred & live & (j < delta)`): 0 when the gate
         `pred` is closed, which leaves everything as it was.
         """
-        # every worker's hops to its current victim (its reply's flight)
+        sp = speed_at(e)
+        # the reply flight of every worker's current victim, priced now
         hv = topo.hop_dist(mesh, coords, state.victim)
-        ne_risky = _famine_horizon(state, t, ckpt, W, probe, hop_ticks, hv, sp, faults)
+        back = hv * hop_ticks if ls is None else flight(e, state.victim, warr)
+        ne_risky = _famine_horizon(state, t, ckpt, W, probe(e), back, sp,
+                                   faults, starts)
         hi = ne_risky.clamp(max=cfg.max_ticks)
         delta = (hi - t).clamp(0, FB)
         # profitable only when probe-cycle events (counted by _next_event
@@ -1257,10 +1499,9 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         is_req = (phase == PHASE_REQ) & alive
         # the flight under way: arrival a0 and delivery dv0 (relative ticks;
         # a reply already in flight arrived before the window, a0 = -1)
-        lv = hv * hop_ticks
         t_arr = (timer - 1).clamp(min=0)
         a0 = torch.where(is_req, t_arr, -1)
-        dv0 = torch.where(is_req, t_arr + (lv - 1).clamp(min=0), t_arr)
+        dv0 = torch.where(is_req, t_arr + (back - 1).clamp(min=0), t_arr)
         # a worker may burn from b0 (after its delivery if in flight); it
         # burns at its active ticks from b1 on and has no work left after
         # tick `last_burn` - 1. A dead worker's work never burns
@@ -1273,7 +1514,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         # unless frozen deques or loot keep the system live
         n = torch.where(pred, torch.where(frozen > 0, delta,
                                           torch.minimum(delta, last_burn)), 0)
-        burned = torch.where(alive, torch.minimum(active_in(t, b0, n).clamp(min=0), work), 0)
+        burned = torch.where(alive, torch.minimum(active_in(t, b0, n, sp).clamp(min=0),
+                                                  work), 0)
 
         # the flight under way: its reply, its delivery, where it stands
         arrived = is_req & (a0 < n)
@@ -1283,7 +1525,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         fails = fails + (delivered & ~state.got).to(_I32)
         steal_wait = state.steal_wait + torch.where(
             in_flight, torch.minimum(dv0 + 1, n), 0)
-        resp_len = torch.where(is_req, lv, timer + 1)
+        resp_len = torch.where(is_req, back, timer + 1)
         # (PHASE_RESP = PHASE_REQ + 1: a flight that has arrived replies)
         phase = torch.where(in_flight, torch.where(
             delivered, PHASE_RUN, PHASE_REQ + (a0 < n).to(_I32)), phase)
@@ -1292,13 +1534,20 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             timer)
 
         # probe cycles: an idle worker with an empty deque draws at tick d
-        # from row d; a draw of h hops is back 2·max(h·τ − 1, 0) ticks later:
-        # a flight of max(2·h·τ − 1, 1) ticks, and the next draw follows at
-        # the first active tick after it. A worker whose table row is empty
-        # draws no victim all window.
-        def cycles(draw):  # (G, FB, W, 3): victim, hops, flight length
+        # from row d; the request flies Lq ticks and the reply Lr, so the
+        # draw is back max(Lq − 1, 0) + max(Lr − 1, 0) ticks later and the
+        # next follows at the first active tick after: a cycle of that + 1
+        # ticks. A worker whose table row is empty draws no victim all
+        # window (the window's tables are one epoch's).
+        e3 = None if e is None else e[..., None]
+
+        def cycles(draw):  # (G, FB, W, F): victim, hops, cycle[, Lq, Lr]
             h = topo.hop_dist(mesh, coords, draw)
-            return torch.stack([draw, h, (h * tau2 - 1).clamp(min=1)], -1)
+            if ls is None:  # both legs h·τ: a cycle of max(2·h·τ − 1, 1)
+                return torch.stack([draw, h, (h * tau2 - 1).clamp(min=1)], -1)
+            lq, lr = flight_pair(e3, warr, draw, draw, warr)
+            return torch.stack([draw, h, (lq - 1).clamp(min=0)
+                                + (lr - 1).clamp(min=0) + 1, lq, lr], -1)
 
         near_c, has_near = cycles(near), near[:, 0] >= 0
         idle = alive & (state.deque.size == 0)
@@ -1309,14 +1558,35 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             idle = idle & has_near
         else:
             far_c, has_far = cycles(far), far[:, 0] >= 0
-        d0 = torch.where(idle, b1 + spw, _NEVER)
+        next_ok = None
+        if link is not None and link.partitioned and stealing.GLOBAL_CODE in drawn:
+            # each worker's next row at or after j whose draw it can launch
+            # (reachable, and at an active tick of a straggler): the
+            # radius-1 and radius-2 tables are masked already, so only
+            # GLOBAL's draws skip
+            rows = torch.arange(FB, device=device)
+            ok = reachable(e3, warr, near)
+            if sp is not None:
+                ok = ok & ((t[..., None] + rows[:, None]) % sp[:, None] == 0)
+            idx = torch.where(ok, rows[:, None].to(_I32), _NEVER)
+            next_ok = torch.flip(torch.cummin(torch.flip(idx, [1]), 1).values, [1])
+        gaps = sp is not None or next_ok is not None
+
+        def first_ok(d):  # the next launchable draw at or after d
+            if next_ok is None:
+                return d
+            j = next_ok.gather(1, d.clamp(max=FB - 1).long()[:, None])[:, 0]
+            return torch.where(d < FB, j, d)
+
+        d0 = first_ok(torch.where(idle, b1 + spw, _NEVER))
         d, attempts, victim = d0, state.attempts, state.victim
         hops_sum = torch.zeros_like(d)
-        d_last, h_last = d0, hops_sum
+        d_last, h_last, q_last, r_last = d0, hops_sum, hops_sum, hops_sum
         flown, c_last = hops_sum, hops_sum
+        F = near_c.shape[-1]
         for r in range(rounds):
             # each worker's next draw: row d of its own point's block
-            row = d.clamp(max=FB - 1).long()[:, None, :, None].expand(G, 1, W, 3)
+            row = d.clamp(max=FB - 1).long()[:, None, :, None].expand(G, 1, W, F)
             g = near_c.gather(1, row)[:, 0]
             ok = d < n
             if far is not None:
@@ -1325,36 +1595,43 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                 esc = fails >= escalate_after - r
                 g = torch.where(esc[..., None], far_c.gather(1, row)[:, 0], g)
                 ok = ok & torch.where(esc, has_far, has_near)
-            ch, h, cycle = g.unbind(-1)
+            ch, h, cycle = g.unbind(-1)[:3]
             attempts = attempts + ok
             hops_sum = hops_sum + h * ok
             victim = torch.where(ok, ch, victim)
             d_last = torch.where(ok, d, d_last)
             h_last = torch.where(ok, h, h_last)
-            if sp is not None:
+            if ls is not None:  # (without one, both legs are h·τ)
+                q_last = torch.where(ok, g[..., 3], q_last)
+                r_last = torch.where(ok, g[..., 4], r_last)
+            if gaps:
                 # a straggler idles between a delivery and its next active
-                # tick: the flights' ticks are summed apart from the draws'
+                # tick, and a thief skips unreachable draws: the flights'
+                # ticks are summed apart from the draws'
                 flown = flown + cycle * ok
                 c_last = torch.where(ok, cycle, c_last)
+            if sp is not None:
                 cycle = torch.div(cycle + sp - 1, sp, rounding_mode="floor") * sp
-            d = torch.where(ok, d + cycle, _NEVER)
+            d = torch.where(ok, first_ok(d + cycle), _NEVER)
         # every draw but the last was delivered (the next followed it): the
         # counters telescope, and the last draw's flight is where it stands
         draws_n = attempts - state.attempts
         drew = draws_n > 0
-        length = h_last * hop_ticks
-        wait = (length - 1).clamp(min=0)
-        a = d_last + wait
-        dv = a + wait
+        if ls is None:
+            q_last = r_last = h_last * hop_ticks
+        wait_q = (q_last - 1).clamp(min=0)
+        a = d_last + wait_q
+        dv = a + (wait_q if ls is None else (r_last - 1).clamp(min=0))
         fails = fails + draws_n - (drew & (dv >= n)).to(_I32)
         hop_w = hop_w + 2 * hops_sum - torch.where(drew & (a >= n), h_last, 0)
         loot_zero = loot_zero | (drew & ((draws_n > 1) | (a < n)))
-        before = d0 if sp is None else d_last - (flown - c_last)
+        before = d_last - (flown - c_last) if gaps else d0
         steal_wait = steal_wait + torch.where(drew, torch.minimum(dv + 1, n) - before, 0)
         phase = torch.where(drew, torch.where(
             dv < n, PHASE_RUN, PHASE_REQ + (a < n).to(_I32)), phase)
         timer = torch.where(drew, torch.where(
-            dv < n, 0, length - (n - torch.where(a < n, a, d_last))), timer)
+            dv < n, 0, torch.where(a < n, r_last - (n - a),
+                                   q_last - (n - d_last))), timer)
 
         # hop units: the reference adds each tick's sum to the low lane and
         # carries; adding the window's sum at once gives the same lanes
@@ -1368,7 +1645,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             hops_hi=state.hops_hi + (lo >> _HOP_LANE_BITS).to(_I32))
         t_out = t + n
         live_out = torch.where(n > 0, (frozen > 0) | (n < last_burn), live)
-        return new_state, t_out, live_out, _next_event(new_state, t_out, ckpt, W, sp, faults)
+        e_out = epoch(t_out)
+        return new_state, t_out, live_out, next_event(new_state, t_out, e_out), e_out
 
     def iteration(carry):
         """One loop iteration of device tensors only — tick, next event,
@@ -1379,16 +1657,17 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         iteration count `events` included, stay as they were."""
         state, snap, t, live, iters = carry
         run = live & (t < cfg.max_ticks)
-        near, far = draws(t)
-        new, snap, live_n = tick_fn(state, snap, t, near, far, run)
-        t_n = t + 1
+        e0, e1 = epoch(t), epoch(t + 1)
+        near, far = draws(t, e0, e1)
+        new, snap, live_n = tick_fn(state, snap, t, near, far, run, e0)
+        t_n, e_n = t + 1, e1
         if leap_mode:
-            ne = _next_event(new, t_n, ckpt, W, sp, faults)
+            ne = next_event(new, t_n, e_n)
             if FB:
-                new, t_n, live_n, ne = famine_ff(
+                new, t_n, live_n, ne, e_n = famine_ff(
                     new, t_n, live_n, ne, near[:, 1:],
-                    None if far is None else far[:, 1:])
-            new, t_n, live_n = leap(new, t_n, live_n, ne)
+                    None if far is None else far[:, 1:], e_n)
+            new, t_n, live_n = leap(new, t_n, live_n, ne, speed_at(e_n))
         return (new, snap, t_n, live_n, iters + 1), run
 
     # only TC consumes snapshots: other runs carry none
@@ -1524,16 +1803,19 @@ def stack_params(params_list) -> SimParams:
 
 
 def _run_grid(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
-              points: list, device, sched: _Schedules) -> list[SimResult]:
+              points: list, device, sched: _Schedules, linkstate=None,
+              routing: str = "auto") -> list[SimResult]:
     """Check and run a grid of `SimParams` points in one `_sim_core` call,
-    every point under the schedules `sched`; one `SimResult` per point, in
-    order."""
+    every point under the schedules `sched` and the link state `linkstate`
+    (a schedule compiled under `routing`, or prebuilt tables); one
+    `SimResult` per point, in order."""
     _check_static(cfg)
     for p in points:
         _check_params(p)
     dev = _resolve_device(device, cfg)
+    ls = _linkstate_tables(linkstate, mesh, routing, dev)
     state, ticks, iters = _sim_core(workload, mesh, cfg, stack_params(points), dev,
-                                    sched)
+                                    sched, ls)
     # to the host: what the results read (not the rings, loot or ledger)
     host = _map(torch.Tensor.cpu, state._replace(
         deque=(), loot=(), sup_buf=(), sup_thief=(), sup_n=()))
@@ -1554,13 +1836,21 @@ def simulate(workload, mesh: topo.MeshTopology, cfg: SimConfig | None = None,
     deque (-1: never; after its death), `fail_period[w]` the cycle of a
     periodic (fail, wake) schedule (-1: one-shot), `speed[w]` its straggler
     divisor (1: nominal); `cfg.recovery`, `cfg.preshed` and
-    `cfg.warn_ticks` say what a death costs. The link-state and arrival
-    arguments must be None, and `routing_backend` "auto", until their
-    slices are ported (`NotImplementedError` names the ROADMAP item)."""
+    `cfg.warn_ticks` say what a death costs. With `linkstate` (a
+    `linkstate.LinkStateSchedule`, or prebuilt `LinkStateArrays` taken as
+    they are) hop latency, link availability and speeds follow the
+    piecewise-constant schedule instead of `cfg.hop_ticks` (then unused;
+    `speed` must be None), and `routing_backend` picks the outage tables'
+    layout ('dense', 'sparse', or 'auto': sparse from
+    `linkstate.SPARSE_AUTO_MIN_WORKERS` workers). `arrivals` must be None
+    until its slice is ported (`NotImplementedError` names the ROADMAP
+    item)."""
     cfg = cfg or SimConfig()
-    _check_unported(linkstate, routing_backend, arrivals)
+    _check_unported(arrivals)
+    _check_linkstate(linkstate, speed)
     sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
-    return _run_grid(workload, mesh, cfg.static, [cfg.params], device, sched)[0]
+    return _run_grid(workload, mesh, cfg.static, [cfg.params], device, sched,
+                     linkstate, routing_backend)[0]
 
 
 def simulate_batch(workload, mesh: topo.MeshTopology,
@@ -1569,15 +1859,17 @@ def simulate_batch(workload, mesh: topo.MeshTopology,
                    fail_period=None, routing_backend: str = "auto",
                    arrivals=None, *, device=None) -> list[SimResult]:
     """One simulation per seed, all in one grid: every seed shares `cfg`
-    (whose own `seed` is ignored) and the schedules; the grid runs until its
-    slowest seed ends. Returns one `SimResult` per seed, each equal to
-    `simulate` with that seed, `events` included. Other arguments as
-    `simulate`'s."""
+    (whose own `seed` is ignored), the schedules and the link state; the
+    grid runs until its slowest seed ends. Returns one `SimResult` per seed,
+    each equal to `simulate` with that seed, `events` included. Other
+    arguments as `simulate`'s."""
     cfg = cfg or SimConfig()
-    _check_unported(linkstate, routing_backend, arrivals)
+    _check_unported(arrivals)
+    _check_linkstate(linkstate, speed)
     sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
     return _run_grid(workload, mesh, cfg.static,
-                     [cfg.params._replace(seed=int(s)) for s in seeds], device, sched)
+                     [cfg.params._replace(seed=int(s)) for s in seeds], device, sched,
+                     linkstate, routing_backend)
 
 
 def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
@@ -1591,13 +1883,15 @@ def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     whose per-point fields are ignored); `params_list` is the grid, a
     sequence of `SimParams` or `SimConfig`s, whose `warn_ticks` and
     `ckpt_interval` are per point; every point shares the failure, wake-up
-    and straggler schedules. Returns one `SimResult` per point, in order,
+    and straggler schedules and the link state (each point in the epoch of
+    its own clock). Returns one `SimResult` per point, in order,
     each equal to `simulate` of that point, `events` included. `devices`
     may name one device (it then stands for `device`); a grid sharded over
     several raises `NotImplementedError` (ROADMAP Queue 1 item 13b). Other
     arguments as `simulate`'s."""
     scfg = cfg.static if isinstance(cfg, SimConfig) else cfg
-    _check_unported(linkstate, routing_backend, arrivals)
+    _check_unported(arrivals)
+    _check_linkstate(linkstate, speed)
     sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
     if devices is not None:
         devices = list(devices)
@@ -1608,4 +1902,5 @@ def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     pts = [p.params if isinstance(p, SimConfig) else p for p in params_list]
     if not pts:
         return []
-    return _run_grid(workload, mesh, scfg, pts, device, sched)
+    return _run_grid(workload, mesh, scfg, pts, device, sched, linkstate,
+                     routing_backend)

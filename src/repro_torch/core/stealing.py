@@ -11,9 +11,13 @@ Selection is vectorized over workers and keyed by a threefry key
 (`core.rng`, ints or device tensors), drawing exactly the victims
 `jax.random` draws. Conflicts are resolved by `resolve_grants`: thieves
 that pick the same victim are ranked by (priority, worker id) and served one
-bottom task each while the victim's tasks and per-round budget last. The
-famine fast path's support — which workers' probes may succeed, and a batch
-of consecutive ticks' victim draws in one pass — closes the module.
+bottom task each while the victim's tasks and per-round budget last. Under a
+time-varying link state (`core.linkstate`) victim tables are masked: dead
+links out of the radius-1 set (ADAPTIVE's near draw prefers the cheapest live
+neighbor, `cheapest_live_table`) and unreachable workers out of the radius-2
+set (`mask_reachable`). The famine fast path's support — which workers'
+probes may succeed, and a batch of consecutive ticks' victim draws in one
+pass — closes the module.
 """
 
 from __future__ import annotations
@@ -125,15 +129,31 @@ def lifeline_list(num_workers: int, degree: int = 0) -> np.ndarray:
 # Selection (vectorized; `key` is the round's threefry key: a key of (F, 1)
 # tensors draws F rounds at once, giving (F, W) victims)
 # --------------------------------------------------------------------------- #
-def _pick_from_list(key, table: torch.Tensor, is_thief: torch.Tensor):
-    """Uniform choice among the valid (!= -1) entries of each worker's row."""
-    W = table.shape[0]
+def _pick_from_list(key, table, is_thief: torch.Tensor):
+    """Uniform choice among the valid (!= -1) entries of each worker's row.
+    `table` is (W, D), or (..., W, D) with leading axes that broadcast
+    against the key's (per-point tables), or a pair ``(first, rest)`` of
+    such tables for a batch of rows (the key's second-to-last axis): the
+    first maps row 0, the second every row after it. The uniforms are drawn
+    once, whatever the tables."""
+    if isinstance(table, tuple):
+        first, rest = table
+        r = rng.uniform(key, first.shape[-2], first.device)
+        return torch.cat([_pick_uniform(r[..., :1, :], first, is_thief),
+                          _pick_uniform(r[..., 1:, :], rest, is_thief)], dim=-2)
+    r = rng.uniform(key, table.shape[-2], table.device)
+    return _pick_uniform(r, table, is_thief)
+
+
+def _pick_uniform(r: torch.Tensor, table: torch.Tensor, is_thief: torch.Tensor):
+    """The entry of each worker's row of `table` that the uniform `r[..., w]`
+    picks among its valid ones (`_pick_from_list` after its draw)."""
     valid = table != topo.NO_NEIGHBOR
-    n_valid = valid.sum(dim=1).to(torch.int32).clamp(min=1)
-    r = rng.uniform(key, W, table.device)
+    n_valid = valid.sum(dim=-1, dtype=torch.int32).clamp(min=1)
     pick = torch.minimum((r * n_valid).to(torch.int32), n_valid - 1)
-    # rank of each valid slot; the pick-th valid entry of each row
-    order = torch.cumsum(valid.to(torch.int32), dim=1) - 1
+    # rank of each valid slot (on the table's own shape, before it meets
+    # the draws' rows); the pick-th valid entry of each row
+    order = torch.cumsum(valid, dim=-1, dtype=torch.int32) - 1
     hit = valid & (order == pick[..., None])
     victim = torch.where(hit, table, topo.NO_NEIGHBOR).amax(dim=-1)
     return torch.where(is_thief & (victim >= 0), victim, topo.NO_NEIGHBOR)
@@ -172,6 +192,54 @@ def choose_adaptive(key, neighbor_table: torch.Tensor,
     """Neighbor-only, escalating to radius-2 after repeated failures."""
     k1, k2 = rng.split(key)
     near = _pick_from_list(k1, neighbor_table, is_thief)
+    far = _pick_from_list(k2, radius2_table, is_thief)
+    return torch.where(is_thief & (fails >= escalate_after), far, near)
+
+
+def _row_gather(row: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """row[..., table[..., w, d]]: a (..., W) row read at every entry of a
+    (W, D) or (..., W, D) table of worker ids (clipped to the row)."""
+    idx = table.clamp(0, row.shape[-1] - 1).long()
+    lead = torch.broadcast_shapes(row.shape[:-1], idx.shape[:-2])
+    idx = idx.expand(*lead, *idx.shape[-2:])
+    return row.expand(*lead, row.shape[-1]).gather(
+        -1, idx.flatten(-2)).view(idx.shape)
+
+
+def cheapest_live_table(neighbor_table: torch.Tensor,
+                        link_tau: torch.Tensor) -> torch.Tensor:
+    """`neighbor_table` (dead links already NO_NEIGHBOR) masked down to each
+    worker's live neighbors of least τ (`link_tau`, the epoch's (W, 4)
+    latencies): ADAPTIVE's near set under a link-state schedule. Leading
+    axes broadcast."""
+    valid = neighbor_table != topo.NO_NEIGHBOR
+    cost = torch.where(valid, link_tau, torch.iinfo(torch.int32).max)
+    cheapest = valid & (cost == cost.amin(dim=-1, keepdim=True))
+    return torch.where(cheapest, neighbor_table, topo.NO_NEIGHBOR)
+
+
+def mask_reachable(table: torch.Tensor, comp_row: torch.Tensor) -> torch.Tensor:
+    """A (W, D) victim table masked down to the entries in the thief's
+    live-link component (`comp_row`, (W,) component ids); a table and
+    component rows with leading axes ((..., W, D) and (..., W)) are masked
+    row by row."""
+    ok = ((table != topo.NO_NEIGHBOR)
+          & (_row_gather(comp_row, table) == comp_row[..., None]))
+    return torch.where(ok, table, topo.NO_NEIGHBOR)
+
+
+def choose_adaptive_linkaware(key, neighbor_table: torch.Tensor,
+                              radius2_table: torch.Tensor,
+                              link_tau: torch.Tensor, fails: torch.Tensor,
+                              is_thief: torch.Tensor, escalate_after: int = 4):
+    """ADAPTIVE under a link-state schedule: uniform among the cheapest live
+    neighbors (`neighbor_table` with dead links masked, `link_tau` the
+    epoch's (W, 4) latencies), escalating to radius-2 after
+    `escalate_after` consecutive failures. Under uniform τ it draws what
+    `choose_adaptive` draws."""
+    k1, k2 = rng.split(key)
+    near = _pick_from_list(k1, cheapest_live_table(neighbor_table, link_tau),
+                           is_thief)
     far = _pick_from_list(k2, radius2_table, is_thief)
     return torch.where(is_thief & (fails >= escalate_after), far, near)
 
@@ -275,19 +343,12 @@ def resolve_grants_pairwise(victim: torch.Tensor, sizes: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Famine fast path support (the simulator's probe-cycle replay)
 # --------------------------------------------------------------------------- #
-def _link_state_not_ported(what: str):
-    return NotImplementedError(
-        f"{what} (link-state masking) is not ported to repro_torch yet "
-        "(ROADMAP.md, Queue 1 item 10)")
-
-
 def _any_nonempty(table: torch.Tensor, nonempty: torch.Tensor) -> torch.Tensor:
-    """Per worker: does any valid (!= NO_NEIGHBOR) entry of `table` index a
-    worker of the same point with a nonempty deque? `nonempty` is (..., W)."""
-    W = nonempty.shape[-1]
+    """Per worker: does any valid (!= NO_NEIGHBOR) entry of `table` (W, D),
+    or per point (G, W, D), index a worker of the same point with a
+    nonempty deque? `nonempty` is (..., W)."""
     valid = table != topo.NO_NEIGHBOR
-    hit = nonempty[..., table.clamp(0, W - 1).long()] & valid
-    return hit.any(dim=-1)
+    return (_row_gather(nonempty, table) & valid).any(dim=-1)
 
 
 def probe_may_succeed(strategy: Strategy, nonempty: torch.Tensor,
@@ -301,22 +362,26 @@ def probe_may_succeed(strategy: Strategy, nonempty: torch.Tensor,
     makes sure of that), every probe the worker issues in the window fails,
     so its probe cycles can be replayed without deque operations.
 
-    GLOBAL: any nonempty deque anywhere keeps every thief risky. NEIGHBOR:
-    a nonempty direct neighbor. ADAPTIVE: a nonempty neighbor, or a
-    nonempty radius-2 worker when the thief can escalate inside the window
-    (each failed attempt takes at least `min_cycle` ticks, so a thief
-    `k` failures short of escalating draws no radius-2 victim before
-    (k - 1)·min_cycle ticks). LIFELINE falls back to global draws and is
-    always risky. `comp_row` (link-state components) belongs to the
-    link-state slice and raises. A grid of points gives `nonempty` and
-    `fails` leading axes, (G, W), and per-point `escalate_after` and
-    `min_cycle` of shape (G, 1); each point's workers see only its own
-    deques."""
-    if comp_row is not None:
-        raise _link_state_not_ported("probe_may_succeed(comp_row=...)")
+    GLOBAL: a nonempty deque of another worker (in the thief's live-link
+    component, given `comp_row`: a probe to another component never
+    departs). NEIGHBOR: a nonempty direct neighbor. ADAPTIVE: a nonempty
+    neighbor, or a nonempty radius-2 worker when the thief can escalate
+    inside the window (each failed attempt takes at least `min_cycle` ticks,
+    so a thief `k` failures short of escalating draws no radius-2 victim
+    before (k - 1)·min_cycle ticks). LIFELINE falls back to global draws and
+    is always risky. Under a link-state schedule the tables come with dead
+    links and unreachable victims masked. A grid of points gives `nonempty`,
+    `fails` and `comp_row` leading axes, (G, W), the tables per-point ones
+    ((G, W, D)) or none, and per-point `escalate_after` and `min_cycle` of
+    shape (G, 1); each point's workers see only its own deques."""
     W = num_workers
     if strategy == Strategy.GLOBAL:
-        return (nonempty.any(-1, keepdim=True) & (W > 1)).expand_as(nonempty)
+        if comp_row is None:
+            return (nonempty.any(-1, keepdim=True) & (W > 1)).expand_as(nonempty)
+        ne = nonempty.to(torch.int32)
+        comp = comp_row.long().expand_as(ne)
+        in_comp = torch.zeros_like(ne).scatter_add_(-1, comp, ne)
+        return (in_comp.gather(-1, comp) - ne) > 0
     if strategy == Strategy.LIFELINE:
         return torch.ones_like(nonempty, dtype=torch.bool)
     near = _any_nonempty(neighbor_table, nonempty)
@@ -338,10 +403,8 @@ def probe_may_succeed_code(code, nonempty: torch.Tensor, fails: torch.Tensor,
     enum version; a code tensor computes every strategy's predicate and
     selects per code, as the reference's traced version does (LIFELINE and
     unknown codes answer all-True)."""
-    if comp_row is not None:
-        raise _link_state_not_ported("probe_may_succeed_code(comp_row=...)")
     kw = dict(escalate_after=escalate_after, window=window,
-              min_cycle=min_cycle, num_workers=num_workers)
+              min_cycle=min_cycle, num_workers=num_workers, comp_row=comp_row)
     if not isinstance(code, torch.Tensor):
         return probe_may_succeed(CODE_STRATEGIES[int(code)], nonempty, fails,
                                  neighbor_table, radius2_table, **kw)
@@ -377,12 +440,17 @@ def batched_victim_draws(strategy: Strategy, key0, t0, count: int,
     For a grid of G points, `t0` and the key's words are per-point columns
     of shape (G, 1): the keys are then (G, count, 1) and the draws (G,
     count, W), point g's rows drawn with its own key from its own tick.
-    `link_tau_row` (cheapest live neighbor) belongs to the link-state slice
-    and raises."""
-    if link_tau_row is not None:
-        raise _link_state_not_ported("batched_victim_draws(link_tau_row=...)")
+    Under a link-state schedule the tables come masked (dead links, and for
+    ADAPTIVE's radius-2 set unreachable victims) and ADAPTIVE takes the
+    epoch's `link_tau_row` (its near draw prefers the cheapest live
+    neighbor); tables and τ rows may carry leading axes that broadcast
+    against the draws' (G, count), per point, and a table (with its τ row)
+    may be a pair ``(first, rest)``: row 0 through the first, the rows after
+    it through the second (a tick's epoch and the next tick's), all from one
+    draw of uniforms (`_pick_from_list`)."""
     W = num_workers
-    dev = neighbor_table.device
+    dev = (neighbor_table[0] if isinstance(neighbor_table, tuple)
+           else neighbor_table).device
     all_thieves = torch.ones((W,), dtype=torch.bool, device=dev)
     ticks = t0 + torch.arange(count, dtype=torch.int64, device=dev)
     # (count, 1), or (G, count, 1) for a grid
@@ -392,8 +460,14 @@ def batched_victim_draws(strategy: Strategy, key0, t0, count: int,
     if strategy == Strategy.NEIGHBOR:
         return choose_neighbor(keys, neighbor_table, all_thieves), None
     if strategy == Strategy.ADAPTIVE:
+        near_tab = neighbor_table
+        if link_tau_row is not None and isinstance(near_tab, tuple):
+            near_tab = tuple(cheapest_live_table(n, t)
+                             for n, t in zip(near_tab, link_tau_row))
+        elif link_tau_row is not None:
+            near_tab = cheapest_live_table(near_tab, link_tau_row)
         k1, k2 = rng.split(keys)
-        return (_pick_from_list(k1, neighbor_table, all_thieves),
+        return (_pick_from_list(k1, near_tab, all_thieves),
                 _pick_from_list(k2, radius2_table, all_thieves))
     raise ValueError(f"no batched draws for {strategy}")
 
@@ -427,3 +501,24 @@ def batched_victim_draws_code(code, key0, t0, count: int,
                        torch.where(code == NEIGHBOR_CODE, n, g))
     far = torch.where(code == ADAPTIVE_CODE, af, near)
     return near, far
+
+
+def attach_hops(plan: StealPlan, mesh) -> StealPlan:
+    """`plan` with each thief's hop distance to its victim (0 without one).
+    `mesh` is a `topology.MeshTopology` (hops priced from its coordinates,
+    no (W, W) table), or a dense (W, W) distance matrix, deprecated."""
+    W = plan.victim.shape[-1]
+    if isinstance(mesh, topo.MeshTopology):
+        coords = torch.as_tensor(mesh.coords, device=plan.victim.device)
+        hops = topo.hop_dist(mesh, coords, plan.victim)
+    else:
+        import warnings
+
+        warnings.warn(
+            "attach_hops(plan, <dense distance matrix>) is deprecated; pass "
+            "the MeshTopology instead (hops are priced from coordinates)",
+            DeprecationWarning, stacklevel=2)
+        v = plan.victim.clamp(0, W - 1).long()
+        hops = torch.as_tensor(np.asarray(mesh), device=v.device)[
+            torch.arange(W, device=v.device), v].to(torch.int32)
+    return plan._replace(hops=torch.where(plan.victim >= 0, hops, 0))

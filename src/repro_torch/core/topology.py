@@ -24,6 +24,11 @@ DIRECTIONS: tuple[tuple[int, int], ...] = ((-1, 0), (1, 0), (0, -1), (0, 1))
 NUM_DIRECTIONS = len(DIRECTIONS)
 NO_NEIGHBOR = -1
 
+# Path cost of a worker pair with no live route between them: small enough
+# that sums with real link latencies never overflow int32, large enough that
+# `cost < UNREACHABLE` separates routable pairs.
+UNREACHABLE = np.int32(1 << 28)
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshTopology:
@@ -107,3 +112,72 @@ def hop_dist(mesh: MeshTopology, coords: torch.Tensor,
         dr = torch.minimum(dr, mesh.rows - dr)
         dc = torch.minimum(dc, mesh.cols - dc)
     return (dr + dc).to(torch.int32)
+
+
+# Default edge length of a routing patch of the sparse link-state backend:
+# an axis shorter than twice the target is one patch, so every ring arc of a
+# same-patch pair stays inside it; otherwise a patch spans at most half the
+# axis, so the shorter ring arc of a same-patch pair is the direct one.
+PATCH_TARGET = 32
+
+
+def patch_dims(mesh: MeshTopology, target: int = PATCH_TARGET) -> tuple[int, int]:
+    """(patch_rows, patch_cols) block shape for hierarchical routing."""
+    if target < 1:
+        raise ValueError("patch target must be >= 1")
+
+    def pick(n: int) -> int:
+        return n if n < 2 * target else target
+
+    return pick(mesh.rows), pick(mesh.cols)
+
+
+def patch_ids(mesh: MeshTopology, pr: int, pc: int) -> tuple[np.ndarray, int]:
+    """((W,) int32 patch index per worker, number of patches): (pr, pc)
+    blocks tiling the grid row-major, the trailing ones ragged."""
+    if not (1 <= pr <= mesh.rows and 1 <= pc <= mesh.cols):
+        raise ValueError(f"patch dims ({pr}, {pc}) outside grid "
+                         f"{mesh.rows}x{mesh.cols}")
+    npc = -(-mesh.cols // pc)
+    r, c = mesh.coords[:, 0], mesh.coords[:, 1]
+    pid = ((r // pr) * npc + (c // pc)).astype(np.int32)
+    npr = -(-mesh.rows // pr)
+    return pid, int(npr * npc)
+
+
+def patch_centers(mesh: MeshTopology, pr: int, pc: int) -> np.ndarray:
+    """(P,) int32 worker at the center of each patch, in patch-id order:
+    the sparse routing backend's base landmarks."""
+    npr = -(-mesh.rows // pr)
+    npc = -(-mesh.cols // pc)
+    out = np.empty(npr * npc, np.int32)
+    for i in range(npr):
+        r0, r1 = i * pr, min((i + 1) * pr, mesh.rows)
+        rc = (r0 + r1 - 1) // 2
+        for j in range(npc):
+            c0, c1 = j * pc, min((j + 1) * pc, mesh.cols)
+            cc = (c0 + c1 - 1) // 2
+            out[i * npc + j] = rc * mesh.cols + cc
+    return out
+
+
+def detour_matrix(mesh: MeshTopology, link_tau: np.ndarray,
+                  link_up: np.ndarray) -> np.ndarray:
+    """(W, W) all-pairs shortest-path costs over live links: the dense
+    Floyd–Warshall oracle (O(W^3), host side) of the link-state tables.
+    `link_tau`/`link_up` are (W, 4) rows in `DIRECTIONS` order; dead or
+    missing links add no edge; pairs with no live route cost
+    `UNREACHABLE`."""
+    W = mesh.num_workers
+    inf = np.int64(1) << 40
+    d = np.full((W, W), inf, np.int64)
+    np.fill_diagonal(d, 0)
+    nbr = mesh.neighbor_table
+    for w in range(W):
+        for k in range(NUM_DIRECTIONS):
+            v = int(nbr[w, k])
+            if v != NO_NEIGHBOR and bool(link_up[w, k]):
+                d[w, v] = min(d[w, v], int(link_tau[w, k]))
+    for k in range(W):
+        d = np.minimum(d, d[:, k : k + 1] + d[k : k + 1, :])
+    return np.minimum(d, UNREACHABLE).astype(np.int32)

@@ -135,20 +135,38 @@ def test_batched_victim_draws_match_reference(W, torus):
 
 
 def test_link_state_arguments_raise_naming_item_10():
+    """The three link-state calls that raised (naming ROADMAP item 10)
+    before the link-state slice was ported — `probe_may_succeed` and
+    `probe_may_succeed_code` with a component row, the batched ADAPTIVE
+    draws with an epoch's τ row — now equal the reference on the same
+    inputs."""
     nbr, r2 = _tables(9, False)
-    nonempty, fails = torch.zeros(9, dtype=torch.bool), torch.zeros(9, dtype=torch.int32)
+    rs = np_rng(19)
+    nonempty = rs.random(9) < 0.3
+    fails = rs.integers(0, 6, 9).astype(np.int32)
+    comp = np.asarray([0, 0, 0, 0, 4, 0, 0, 0, 0], np.int32)
+    tau = rs.integers(1, 5, (9, 4)).astype(np.int32)
     kw = dict(escalate_after=4, window=8, min_cycle=1, num_workers=9)
-    nt, rt = to_torch(nbr), to_torch(r2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pst.probe_may_succeed(pst.Strategy.GLOBAL, nonempty, fails, nt, rt,
-                              comp_row=torch.zeros(9, dtype=torch.int32), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pst.probe_may_succeed_code(0, nonempty, fails, nt, rt,
-                                   comp_row=torch.zeros(9, dtype=torch.int32), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pst.batched_victim_draws(pst.Strategy.ADAPTIVE, rng.PRNGKey(0), 0, 4, nt,
-                                 rt, num_workers=9,
-                                 link_tau_row=torch.zeros((9, 4), dtype=torch.int32))
+    want = rst.probe_may_succeed(rst.Strategy.GLOBAL, jnp.asarray(nonempty),
+                                 to_jax(fails), to_jax(nbr), to_jax(r2),
+                                 comp_row=to_jax(comp), **kw)
+    assert_same(want, pst.probe_may_succeed(
+        pst.Strategy.GLOBAL, torch.as_tensor(nonempty), to_torch(fails),
+        to_torch(nbr), to_torch(r2), comp_row=to_torch(comp), **kw))
+    want = rst.probe_may_succeed_code(jnp.int32(0), jnp.asarray(nonempty),
+                                      to_jax(fails), to_jax(nbr), to_jax(r2),
+                                      comp_row=to_jax(comp), **kw)
+    assert_same(want, pst.probe_may_succeed_code(
+        0, torch.as_tensor(nonempty), to_torch(fails), to_torch(nbr), to_torch(r2),
+        comp_row=to_torch(comp), **kw))
+    wn, wf = rst.batched_victim_draws(rst.Strategy.ADAPTIVE, jax.random.PRNGKey(0),
+                                      0, 4, to_jax(nbr), to_jax(r2), num_workers=9,
+                                      link_tau_row=to_jax(tau))
+    gn, gf = pst.batched_victim_draws(pst.Strategy.ADAPTIVE, rng.PRNGKey(0), 0, 4,
+                                      to_torch(nbr), to_torch(r2), num_workers=9,
+                                      link_tau_row=to_torch(tau))
+    assert_same(wn, gn, "near")
+    assert_same(wf, gf, "far")
 
 
 def test_defaults_match_reference():

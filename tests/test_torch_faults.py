@@ -177,7 +177,8 @@ def test_supervision_ledger_wraps_at_its_last_slot(reference):
 
 def _second_cycle_wake():
     """tests/test_simulator.py's `_conf_second_cycle_wake` schedule without
-    its link-state epochs (ROADMAP Queue 1 item 10): worker 5 sleeps in [5,
+    its link-state epochs (the whole scenario, epochs included, is in
+    tests/test_torch_simulator_linkstate_conf.py): worker 5 sleeps in [5,
     40) and again from 75 (period 70)."""
     W = EQ_MESH.num_workers
     ft, wt, fp = (-np.ones(W, np.int32) for _ in range(3))

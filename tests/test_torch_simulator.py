@@ -139,10 +139,8 @@ def test_plain_kernels_refused_on_cuda(monkeypatch):
 @pytest.mark.parametrize("kwargs,cfg_kw", [
     ({}, {"trace": object()}),
     ({}, {"arrival_gap_q8": 256}),
-    ({"linkstate": object()}, {}),
     ({"arrivals": object()}, {}),
-    ({"routing_backend": "sparse"}, {}),
-], ids=["trace", "arrivals_gap", "linkstate", "arrivals", "routing_backend"])
+], ids=["trace", "arrivals_gap", "arrivals"])
 def test_unported_options_raise(kwargs, cfg_kw):
     cfg = psim.SimConfig(capacity=16, **cfg_kw)
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item \d+"):

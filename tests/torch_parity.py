@@ -48,21 +48,35 @@ def assert_results_equal(ref, port, skip=()):
             assert a == b, f"{f}: reference {a!r} != port {b!r}"
 
 
+def port_linkstate(ls):
+    """The port's `LinkStateSchedule` of the reference's (None passes)."""
+    from repro_torch import convert
+
+    if ls is None:
+        return None
+    return convert.linkstate_schedule(ls.epoch_starts, ls.link_tau, ls.link_up,
+                                      ls.speed)
+
+
 def port_simulate(workload, mesh, cfg, schedule=None, **overrides):
     """Run the port on the CPU with the reference's workload, mesh and
     `SimConfig` (carried across by `repro_torch.convert`), with `overrides`
     applied to the config's fields and `schedule` (a dict of `fail_time`,
-    `wake_time`, `fail_period`, `speed` numpy arrays) passed on."""
+    `wake_time`, `fail_period`, `speed` numpy arrays, and `linkstate`, a
+    reference `LinkStateSchedule`, with `routing_backend`) passed on."""
     import dataclasses
 
     from repro_torch import convert
     from repro_torch.core import simulator as psim
 
     fields = {**dataclasses.asdict(cfg), **overrides}
+    schedule = dict(schedule or {})
+    if "linkstate" in schedule:
+        schedule["linkstate"] = port_linkstate(schedule["linkstate"])
     return psim.simulate(
         convert.workload(type(workload).__name__, dataclasses.asdict(workload)),
         convert.mesh(mesh.num_workers, mesh.rows, mesh.cols, mesh.torus),
-        convert.sim_config(fields), device="cpu", **(schedule or {}))
+        convert.sim_config(fields), device="cpu", **schedule)
 
 
 # (step_mode, deque_backend, use_steal_kernel): the port's stepper x backend
