@@ -73,8 +73,12 @@ Phases — any failure exits non-zero:
      300-tick window of the grid, and a staged-backend sweep of the 6
      seed-0 points (`deque_apply` at 24,576 rows) equal to the loop sweep;
   6. run the port's crossover benchmark (`repro_torch.benchmarks.sweep`) at
-     BENCH_crossover.json's settings, one grid a size; every point's ticks
-     must equal the reference's, pinned in CROSSOVER_TICKS;
+     BENCH_crossover.json's settings, one grid a size, with the flight
+     recorder's RTT rows (one traced grid of both strategies at N=64, tau
+     5); every point's ticks must equal the reference's, pinned in
+     CROSSOVER_TICKS, and every RTT row's resolved attempts, grants and mean
+     round trip the reference's, pinned in RTT_PINS (NEIGHBOR's exactly
+     2·tau); the document goes to chiprun_out/BENCH_crossover_torch.json;
   7. run the fault model (`phase_faults`) at the main path's configuration
      (W=4096, 1500 ticks) under schedules made with numpy from seed 0 after
      examples/constellation_sim.py's constellation (eclipse: 614 workers
@@ -103,7 +107,20 @@ Phases — any failure exits non-zero:
      cutoff=14): NEIGHBOR and GLOBAL on dense tables, NEIGHBOR on prebuilt
      sparse tables with 5x5 patches, each equal to the reference's pinned
      (result, ticks, events) and to the port's CPU run;
-  9-11. serve three models through `serve_loop.serve_requests` (one phase,
+  9. run the flight recorder (`phase_trace`, `SimConfig(trace=...)`): the
+     main path traced (a ring of 2^20 rows, 64 bins of 32 ticks) leap/loop,
+     leap/staged, famine batch 0 and tick mode — every ring and time series
+     equal, every other field equal to step 3's untraced run but `events`,
+     and `events`, `emitted` and the ring's sha256 the reference's
+     (TRACE_PINS); ms/event and device activities an event traced against
+     untraced in profiled 300-tick windows; step 8's dynamic constellation
+     traced under NEIGHBOR and GLOBAL (epoch events, the inclusive epoch
+     clip, unreachable draws), each equal to its untraced run but in
+     `events` and to its tick-mode run in the ring; drained W=100 runs (the
+     three strategies, GLOBAL across a partitioned schedule at famine batch
+     64, radiation under TC), card == CPU and the reference's pins; a traced
+     3-seed `simulate_batch`, each seed equal to its own traced run;
+  10-12. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
      exactly as its blocks say (an attention block `flash_attention` once in
@@ -1257,12 +1274,20 @@ CROSSOVER_TICKS = {
     (36, 5, "neighbor"): [1016, 899, 925], (36, 5, "global"): [989, 1021, 1272],
     (64, 2, "neighbor"): [639, 727, 703], (64, 2, "global"): [621, 773, 600],
     (64, 5, "neighbor"): [808, 954, 817], (64, 5, "global"): [975, 1100, 1164]}
+# the reference's RTT rows at the same settings (`benchmarks.sweep._measure_rtt`:
+# one traced run per strategy at N=64, tau 5): (resolved attempts, granted,
+# measured mean round trip in ticks); NEIGHBOR's is exactly 2·tau
+RTT_PINS = {"neighbor": (4139, 265, 10.0), "global": (946, 157, 51.575052854122625)}
 
 
 def phase_crossover(torch, ops):
     """The port's crossover benchmark at BENCH_crossover.json's settings, one
-    grid a size on the card; every point's ticks must equal the
-    reference's (CROSSOVER_TICKS). Returns steal_compact's launches."""
+    grid a size on the card, with the flight recorder's RTT rows; every
+    point's ticks must equal the reference's (CROSSOVER_TICKS), and every RTT
+    row's resolved attempts, grants and mean round trip (RTT_PINS). Writes
+    the document to chiprun_out/BENCH_crossover_torch.json beside this
+    script. Returns steal_compact's launches."""
+    from repro_torch.core import jsonio
     from repro_torch.benchmarks import sweep
     from repro_torch.core import tasks
 
@@ -1271,9 +1296,16 @@ def phase_crossover(torch, ops):
     t0 = time.perf_counter()
     doc = sweep.crossover((16, 25, 36, 64), taus=(2, 5), runs=3,
                           workload=tasks.FibWorkload(n=26, cutoff=12, max_leaf_cost=16),
-                          capacity=2048, max_ticks=5_000_000)
+                          capacity=2048, max_ticks=5_000_000, rtt_hists=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    rtt = {h["strategy"]: (h["resolved_attempts"], h["granted"], h["measured_mean_rtt"])
+           for h in doc["rtt"]}
+    if rtt != RTT_PINS or rtt["neighbor"][2] != 2 * 5:
+        raise SystemExit(f"crossover: RTT rows {rtt}, the reference's {RTT_PINS}")
+    out = Path(__file__).resolve().parent / "chiprun_out" / "BENCH_crossover_torch.json"
+    out.parent.mkdir(exist_ok=True)
+    jsonio.write(out, doc, indent=2)
     launches = ops.LAUNCHES["steal_compact"]
     got = {(p["N"], p["tau"], p["strategy"]): p["ticks"] for p in doc["points"]}
     if got != CROSSOVER_TICKS:
@@ -1289,6 +1321,12 @@ def phase_crossover(torch, ops):
           + ", ".join(f"N={c['N']} tau={c['tau']}: {c['ratio_neighbor_over_global']:.4f}"
                       for c in doc["crossover"])
           + f"; steal_compact launches {launches}")
+    for h in doc["rtt"]:
+        print(f"[crossover] rtt {h['strategy']} N={h['num_workers']} tau={h['tau']:g}: "
+              f"resolved {h['resolved_attempts']}, granted {h['granted']}, mean round "
+              f"trip {h['measured_mean_rtt']!r} ticks (analytic {h['analytic_rtt']!r}), "
+              f"p {h['p_success']:.4f} = the reference's")
+    print(f"[crossover] wrote {out}")
     return launches
 
 
@@ -1641,7 +1679,9 @@ def phase_linkstate(torch, np, sim, ops, main_ms):
     to NEIGHBOR's leap/loop run (`events` aside); ms/event against
     `[main]`'s; a profiled 300-tick window. At W=100, drained: each run
     equal to the reference's pinned (result, ticks, events), exact, and
-    card == CPU. Returns the launches by kernel."""
+    card == CPU. Returns (the launches by kernel, the W=4096 runs' context:
+    the tables, the schedule's kwargs, mesh, base config and the runs by
+    label)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1767,6 +1807,330 @@ def _phase_linkstate(torch, np, sim, ops, main_ms, cpu):
               f"events={rg.events} = the reference's; card {dt:.3f} s "
               f"({dt / rg.events * 1e3:.3f} ms/event), cpu {dt_c:.3f} s in a worker "
               f"process, card == cpu; launches={counts}")
+    return launches, {"tbl": tbl, "kw": kw, "mesh": mesh, "base": base, "runs": runs}
+
+
+# the [trace] phase's partitioned link state at W=100: the 5x5 corner of the
+# 10x10 mesh cut off (every link across its edge down) for ticks
+# [TRACE_CUT[0], TRACE_CUT[1]), uniform tau 5: GLOBAL's thieves draw across
+# the cut in famine windows, which the replay re-emits as EV_NO_LIVE_VICTIM
+TRACE_CUT = (300, 2000)
+
+
+def trace_partition(np, lstate, mesh):
+    """The partitioned schedule on `mesh` (a 10x10 `MeshTopology`) as
+    `lstate.LinkStateSchedule` (the port's module, or any with its
+    constructor)."""
+    W = mesh.num_workers
+    up = np.ones((3, W, 4), bool)
+    nbr = mesh.neighbor_table
+    corner = (mesh.coords[:, 0] < 5) & (mesh.coords[:, 1] < 5)
+    for w in range(W):
+        for d in range(4):
+            if nbr[w, d] >= 0 and corner[w] != corner[nbr[w, d]]:
+                up[1, w, d] = False
+    return lstate.LinkStateSchedule(
+        np.asarray((0,) + TRACE_CUT, np.int32), np.full((3, W, 4), LINK_TAU, np.int32),
+        up, np.ones((3, W), np.int32)).validate(mesh)
+
+
+# the [trace] phase: the flight recorder (`repro_torch.core.tracing`) on the
+# main path. Recorder shapes (ring rows, bins, bin ticks): the W=4096 runs
+# emit 670,905 events over 1500 ticks (64 bins of 32 ticks: 32·4096·64 <
+# 2^31, so no channel wraps), the dynamic constellation's fewer than 2^21;
+# the drained W=100 runs fewer than 2^16 over fewer than 16,384 ticks
+TRACE_MAIN = (1 << 20, 64, 32)
+TRACE_LINK = (1 << 21, 64, 32)
+TRACE_100 = (1 << 16, 256, 64)
+# the main path's traced runs: label, SimConfig fields beyond the base
+TRACE_MODES = (("leap/loop", {}),
+               ("leap/staged", {"deque_backend": "staged"}),
+               ("leap/loop fb=0", {"famine_batch": 0}),
+               ("tick/staged", {"step_mode": "tick", "deque_backend": "staged"}))
+# the reference's (`repro.core.simulator.simulate` with `repro.core.tracing`,
+# JAX on a CPU) traced runs: (events, emitted, sha256 of the written ring as
+# little-endian int32). The main path at famine batch 64 and 0 (the bin
+# boundaries add iterations: 287 and 667 untraced); the drained W=100 runs
+# (FIB n=34 cutoff=18, tau 5, capacity 64, famine batch 64): the three
+# strategies, GLOBAL on the partitioned schedule (`trace_partition`) and the
+# radiation schedule under TC (checkpoint every 80)
+TRACE_RING_MAIN = "4ea8f91ebfcd6ecd77e5656b4c8f3b9f5ee0a2a28f83df28ffa3f37e41fa9e1e"
+TRACE_PINS = {
+    "main": (309, 670905, TRACE_RING_MAIN),
+    "main fb=0": (684, 670905, TRACE_RING_MAIN),
+    "neighbor": (4115, 37003,
+                 "e68a029c61f7d3803b9102adfa03538c0a4204ae591496559b6e5cee3cb6fc8f"),
+    "global": (2795, 2791,
+               "c52609cf269194b2b82d51ca77550ce83ae565dfe8093ca1c987fd1c409f4e81"),
+    "adaptive": (3998, 21111,
+                 "e70b72efee6f93b789f17faa14f14291109a1c0aad723f14b62a468a8e5259d7"),
+    "global/partition": (3205, 8155,
+                         "fbb9e814bbee961ae99dab4f002cfcca590e59a2750185345a9c093f7e8f6031"),
+    "radiation/tc": (4897, 53073,
+                     "da9bfa9d6232b0874efe694030aedd33c941e5edf04cec74e1dcef0a7dc6599a"),
+}
+# the drained W=100 runs' backends (each also on the CPU); on the card the
+# three strategies run as one 3-point sweep
+TRACE_100_BACKEND = {"neighbor": "staged", "global": "staged", "adaptive": "staged",
+                     "global/partition": "loop", "radiation/tc": "staged"}
+TRACE_100_SWEEP = ("neighbor", "global", "adaptive")
+_UNTRACED = ("events", "trace", "timeseries", "sojourn")
+
+
+def ring_sha(np, trace) -> str:
+    """sha256 of a run's written ring, little-endian int32, row-major."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(trace.events, dtype="<i4")
+                          .tobytes()).hexdigest()
+
+
+def _same_trace(np, a, b, what: str, ring_only: bool = False):
+    """Two runs' recorders equal: the ring elementwise, `emitted`, `dropped`
+    and the time series (and, unless `ring_only`, every other field)."""
+    ta, tb = a.trace, b.trace
+    if ((ta.emitted, ta.dropped, ta.ring_capacity) != (tb.emitted, tb.dropped,
+                                                       tb.ring_capacity)
+            or ta.events.shape != tb.events.shape
+            or not np.array_equal(ta.events, tb.events)):
+        raise SystemExit(f"{what}: rings differ ({ta.emitted} vs {tb.emitted} emitted)")
+    if not np.array_equal(a.timeseries.data, b.timeseries.data):
+        raise SystemExit(f"{what}: time series differ")
+    if not ring_only:
+        _assert_equal(np, a, b, skip=("trace", "timeseries"), what=what)
+
+
+def _trace100(sim, np, label: str, device: str):
+    """One drained W=100 [trace] run on `device` (`label` a tuple of
+    strategies: their sweep): (result or results, wall s)."""
+    from repro_torch.core import linkstate as lstate
+    from repro_torch.core import tasks, tracing
+    from repro_torch.core import topology as topo
+
+    mesh = topo.MeshTopology.square(100)
+    wl = tasks.FibWorkload(n=34, cutoff=18)
+    first = label[0] if isinstance(label, tuple) else label
+    cfg = dict(hop_ticks=5, capacity=CAP_MAIN, trace=tracing.TraceConfig(*TRACE_100),
+               deque_backend=TRACE_100_BACKEND[first])
+    kw = {}
+    if label == "radiation/tc":
+        cfg.update(recovery=sim.Recovery.TC, ckpt_interval=FAULT_CKPT)
+        kw = fault_schedules(np, 100, DRAINED_TICKS // 2)["radiation"]
+    else:
+        cfg["strategy"] = sim.stealing.Strategy(first.split("/")[0])
+        if first.endswith("partition"):
+            kw = {"linkstate": trace_partition(np, lstate, mesh)}
+    cfg = sim.SimConfig(**cfg)
+    t0 = time.perf_counter()
+    if isinstance(label, tuple):
+        code = sim.stealing.strategy_code
+        r = sim.simulate_sweep(wl, mesh, cfg, [cfg.params._replace(strategy=code(s))
+                                               for s in label], device=device)
+    else:
+        r = sim.simulate(wl, mesh, cfg, device=device, **kw)
+    return r, time.perf_counter() - t0
+
+
+def _trace_cpu_run(label: str):
+    """The port's CPU run of one drained W=100 [trace] configuration (in a
+    worker process, beside the card runs of the main process)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import simulator as sim
+
+    torch.set_num_threads(1)
+    return _trace100(sim, np, label, "cpu")
+
+
+def phase_trace(torch, np, sim, topo, tasks, ops, main_run, main_ms, link):
+    """The flight recorder on the card. At W=4096: the main path traced in
+    four modes (leap/loop, leap/staged, famine batch 0, tick mode), every
+    ring and time series equal, every other field equal to `[main]`'s
+    untraced run but `events`; `events`, `emitted` and the ring's sha256 the
+    reference's; ms/event and device activities an event traced against
+    untraced in profiled 300-tick windows; the dynamic constellation
+    (`link`: `phase_linkstate`'s tables and runs) traced under NEIGHBOR and
+    GLOBAL, each equal to its untraced run but in `events` and to its
+    tick-mode run in the ring. At W=100, drained: the three strategies, GLOBAL
+    across a partition (the famine replay's NO_LIVE events) and radiation
+    under TC, each card == CPU and equal to the reference's pinned (events,
+    emitted, ring sha256); a traced 3-seed `simulate_batch`, each seed its
+    own `simulate`. Returns the launches by kernel."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(len(TRACE_100_BACKEND),
+                               mp_context=multiprocessing.get_context("spawn"))
+    cpu = {label: pool.submit(_trace_cpu_run, label) for label in TRACE_100_BACKEND}
+    try:
+        out = _phase_trace(torch, np, sim, topo, tasks, ops, main_run, main_ms, link, cpu)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"[trace] phase {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def _phase_trace(torch, np, sim, topo, tasks, ops, main_run, main_ms, link, cpu):
+    import dataclasses
+
+    from repro_torch.core import tracing
+
+    mesh, wl, base = _main_setup(sim, topo, tasks)
+    tc = tracing.TraceConfig(*TRACE_MAIN)
+    launches = {"steal_compact": 0, "deque_apply": 0}
+
+    def run(label, wl_, mesh_, cfg, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        r = sim.simulate(wl_, mesh_, cfg, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts = {k: ops.LAUNCHES[k] for k in launches}
+        kernel = "deque_apply" if cfg.deque_backend == "staged" else "steal_compact"
+        if counts[kernel] == 0:
+            raise SystemExit(f"[trace] {label}: kernel {kernel} was never launched")
+        for k in launches:
+            launches[k] += counts[k]
+        if r.trace.dropped:
+            raise SystemExit(f"[trace] {label}: the ring dropped {r.trace.dropped} events")
+        return r, dt, counts
+
+    def pinned(label, r, pin):
+        got = (r.events, r.trace.emitted, ring_sha(np, r.trace))
+        if got != pin:
+            raise SystemExit(f"[trace] {label}: (events, emitted, ring sha256) {got}, "
+                             f"the reference's {pin}")
+
+    print(f"[trace] W={W_MAIN}, the [main] configuration traced: ring {tc.ring_capacity} "
+          f"rows ({(tc.ring_capacity + 1) * tracing.NUM_LANES * 4} bytes on the card), "
+          f"{tc.bins} bins of {tc.bin_ticks} ticks")
+    # a short traced run of each backend first, untimed (capture, first use)
+    for backend in ("loop", "staged"):
+        sim.simulate(wl, mesh, sim.SimConfig(**{**base, "max_ticks": 20},
+                                             deque_backend=backend, trace=tc))
+    first = None
+    for label, extra in TRACE_MODES:
+        r, dt, counts = run(label, wl, mesh, sim.SimConfig(**base, **extra, trace=tc))
+        _assert_equal(np, main_run, r, skip=_UNTRACED,
+                      what=f"[trace] {label} vs [main]'s untraced run")
+        first = first or r
+        _same_trace(np, first, r, f"[trace] leap/loop vs {label}", ring_only=True)
+        if label.startswith("leap"):
+            pinned(label, r, TRACE_PINS["main fb=0" if "fb=0" in label else "main"])
+        elif r.events != r.ticks:
+            raise SystemExit(f"[trace] {label}: {r.events} events")
+        kinds = ", ".join(f"{k} {v}" for k, v in r.trace.counts().items() if v)
+        print(f"[trace] W={W_MAIN} {label}: ticks={r.ticks} events={r.events} "
+              f"wall={dt:.3f} s ms/event={dt / r.events * 1e3:.3f} emitted="
+              f"{r.trace.emitted} dropped={r.trace.dropped} ({kinds}) launches={counts}")
+    print(f"[trace] W={W_MAIN}: the four modes' rings and time series equal; every "
+          f"untraced field equals [main]'s; events, emitted and the ring's sha256 equal "
+          f"the reference's ({TRACE_PINS['main'][0]} and {TRACE_PINS['main fb=0'][0]} "
+          f"events at famine batch 64 and 0)")
+    # where the time goes: 300-tick windows, untraced and traced, timed, then
+    # profiled (the graph replays' kernels)
+    per = {}
+    for tag, trace in (("untraced", None), ("traced", tc)):
+        win = sim.SimConfig(**{**base, "max_ticks": 300}, trace=trace)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev = sim.simulate(wl, mesh, win).events
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        busy, n_dev, by_name = _profile(torch, lambda: sim.simulate(wl, mesh, win))
+        per[tag] = (wall_ms / ev, n_dev / ev, busy / ev)
+        print(f"[profile] trace {tag} leap/loop W={W_MAIN}, 300 ticks, {ev} events: "
+              f"wall {wall_ms:.3f} ms ({wall_ms / ev:.3f} ms/event), device busy "
+              f"{busy:.3f} ms (busy share {busy / wall_ms:.4f}; {busy / ev:.3f} ms an "
+              f"event); {n_dev} device activities = {n_dev / ev:.1f} per event")
+        for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+    (wu, au, bu), (wt, at, bt) = per["untraced"], per["traced"]
+    print(f"[trace] traced / untraced, 300-tick windows: ms/event {wt:.3f} / {wu:.3f} = "
+          f"{wt / wu:.3f}x; activities an event {at:.1f} / {au:.1f} = {at / au:.3f}x "
+          f"(+{at - au:.1f}); device busy an event {bt:.3f} / {bu:.3f} ms = "
+          f"{bt / bu:.3f}x; [main]'s full untraced run {main_ms:.3f} ms/event")
+
+    # the dynamic constellation, traced: NEIGHBOR and GLOBAL leap/loop, each
+    # against its untraced [linkstate] run and its own tick-mode run
+    tcl = tracing.TraceConfig(*TRACE_LINK)
+    for strategy in ("neighbor", "global"):
+        untraced = link["runs"][f"{strategy} leap/loop"]
+        got = {}
+        for mode in ("leap", "tick"):
+            cfg = sim.SimConfig(**link["base"], strategy=sim.stealing.Strategy(strategy),
+                                step_mode=mode, trace=tcl)
+            r, dt, counts = run(f"linkstate {strategy} {mode}", wl, link["mesh"], cfg,
+                                linkstate=link["tbl"], **link["kw"])
+            _assert_equal(np, untraced, r, skip=_UNTRACED,
+                          what=f"[trace] linkstate {strategy} {mode} vs untraced")
+            got[mode] = r
+            c = r.trace.counts()
+            print(f"[trace] linkstate W={W_MAIN} {strategy} {mode}: events={r.events} "
+                  f"(untraced leap {untraced.events}) wall={dt:.3f} s ms/event="
+                  f"{dt / r.events * 1e3:.3f} emitted={r.trace.emitted} epoch={c['epoch']} "
+                  f"death={c['death']} wake={c['wake']} no_live={c['no_live_victim']} "
+                  f"severed={c['severed_denial']} launches={counts}")
+        if got["tick"].events != got["tick"].ticks:
+            raise SystemExit(f"[trace] linkstate {strategy} tick: {got['tick'].events} events")
+        _same_trace(np, got["leap"], got["tick"], f"[trace] linkstate {strategy} leap vs tick",
+                    ring_only=True)
+    print("[trace] linkstate: traced runs equal their untraced runs but in events, and "
+          "their tick-mode runs in the ring and time series")
+
+    # drained W=100: card == CPU, the reference's pins (the three strategies
+    # as one sweep on the card, each point against its own CPU run)
+    card_runs = (TRACE_100_SWEEP,) + tuple(k for k in TRACE_100_BACKEND
+                                           if k not in TRACE_100_SWEEP)
+    for label in card_runs:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rgs, dt = _trace100(sim, np, label, "cuda")
+        torch.cuda.synchronize()
+        counts = {k: ops.LAUNCHES[k] for k in launches}
+        labels = label if isinstance(label, tuple) else (label,)
+        rgs = rgs if isinstance(label, tuple) else [rgs]
+        backend = TRACE_100_BACKEND[labels[0]]
+        kernel = "deque_apply" if backend == "staged" else "steal_compact"
+        if counts[kernel] == 0:
+            raise SystemExit(f"[trace] W=100 {label}: {kernel} never launched")
+        for k in launches:
+            launches[k] += counts[k]
+        iters = max(r.events for r in rgs)
+        for one, rg in zip(labels, rgs):
+            pinned(f"W=100 {one}", rg, TRACE_PINS[one])
+            if rg.result != 5702887:
+                raise SystemExit(f"[trace] W=100 {one}: result {rg.result} not exact")
+            rc, dt_c = cpu[one].result()
+            _same_trace(np, rg, rc, f"[trace] W=100 {one} card vs cpu")
+            c = rg.trace.counts()
+            print(f"[trace] W=100 {one} ({backend}): ticks={rg.ticks} events={rg.events} "
+                  f"emitted={rg.trace.emitted} = the reference's, ring sha256 too; "
+                  f"no_live={c['no_live_victim']} severed={c['severed_denial']} "
+                  f"granted={c['granted']} death={c['death']}; cpu {dt_c:.3f} s in a "
+                  f"worker process, card == cpu")
+        print(f"[trace] W=100 {' + '.join(labels)} on the card: {dt:.3f} s, {iters} loop "
+              f"iterations ({dt / iters * 1e3:.3f} ms each); launches={counts}")
+
+    # a traced batch: a ring per seed, each its own traced run
+    wl26, mesh100 = tasks.FibWorkload(n=26, cutoff=14), topo.MeshTopology.square(100)
+    cfg = sim.SimConfig(hop_ticks=5, capacity=CAP_MAIN, trace=tracing.TraceConfig(*TRACE_100))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    batch = sim.simulate_batch(wl26, mesh100, cfg, seeds=(0, 1, 2))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches["steal_compact"] += ops.LAUNCHES["steal_compact"]
+    for seed, rb in zip((0, 1, 2), batch):
+        one, _, _ = run(f"batch seed {seed}", wl26, mesh100, dataclasses.replace(cfg, seed=seed))
+        _same_trace(np, one, rb, f"[trace] batch seed {seed} vs its own run")
+    print(f"[trace] simulate_batch of seeds 0, 1, 2 at W=100 (FIB n=26 cutoff=14): "
+          f"{dt:.3f} s, emitted {[r.trace.emitted for r in batch]}; each seed equal to "
+          f"its own traced simulate, ring included")
     return launches
 
 
@@ -2070,8 +2434,13 @@ def main() -> int:
                                          main_run, main_ms)
     for name, n in fault_launches.items():
         by_path[name]["faults"] = n
-    for name, n in phase_linkstate(torch, np, sim, ops, main_ms).items():
+    link_launches, link = phase_linkstate(torch, np, sim, ops, main_ms)
+    for name, n in link_launches.items():
         by_path[name]["linkstate"] = n
+    for name, n in phase_trace(torch, np, sim, topo, tasks, ops, main_run, main_ms,
+                               link).items():
+        by_path[name]["trace"] = n
+    del link
     kern["deque_apply"].update({f"faults_{k}": da_tc[k] for k in (
         "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "lanes")})
     kern["deque_apply"]["max_abs_err"] = max(kern["deque_apply"]["max_abs_err"],

@@ -7,9 +7,10 @@ runs through ONE `_sim_core` call per constellation size, on the card one
 captured CUDA graph whose every replay advances every point. `crossover`
 runs the headline experiment on top — NEIGHBOR/GLOBAL makespan ratio vs W
 with the analytic `latency.py` bound as overlay — and writes one
-`BENCH_crossover_torch.json` (and the figure). The per-strategy RTT
-distributions of the flight recorder are not ported yet (ROADMAP Queue 1
-item 11): the document's ``"rtt"`` list stays empty.
+`BENCH_crossover_torch.json` (and the figure), with, per strategy, the
+measured per-attempt RTT distribution from the flight recorder
+(`tracing.attempt_latency_hist`, one traced grid at the largest N and the
+middle τ) against the §3.3 analytic round trip.
 
 Every headline number is a seed-matched ratio or a tick count
 (deterministic), never a wall-clock time; seeds are summarised as median +
@@ -28,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from ..core import jsonio, latency, simulator, stealing, tasks, topology
+from ..core import jsonio, latency, simulator, stealing, tasks, topology, tracing
 from .common import emit
 
 DEFAULT_SIZES = (16, 25, 36, 64, 100)
@@ -119,21 +120,16 @@ def crossover(sizes=DEFAULT_SIZES, taus=(2, 5, 10),
               workload: tasks.FibWorkload | None = None,
               capacity: int = 2048, max_ticks: int = 5_000_000,
               assert_single_compile: bool = False,
-              rtt_hists: bool = False, device=None) -> dict:
+              rtt_hists: bool = True, device=None) -> dict:
     """The paper's crossover experiment on the sweep engine.
 
     For each constellation size N runs the full (strategy × τ × seed)
     factorial in one `simulate_sweep` call on `device` (default: the CUDA
     device), then reports per τ the seed-matched NEIGHBOR/GLOBAL makespan
-    ratio (median + IQR) against the Ineq. 2 analytic prediction. Returns
-    the JSON document, in the reference's schema; its ``"rtt"`` list is
-    empty, and ``rtt_hists=True`` (the flight recorder's RTT rows) raises
-    `NotImplementedError` (ROADMAP Queue 1 item 11).
+    ratio (median + IQR) against the Ineq. 2 analytic prediction, and with
+    `rtt_hists` each strategy's measured RTT distribution (`_measure_rtt`).
+    Returns the JSON document, in the reference's schema.
     """
-    if rtt_hists:
-        raise NotImplementedError(
-            "the crossover's RTT rows need the flight recorder, which is not "
-            "ported to repro_torch yet (ROADMAP.md, Queue 1 item 11)")
     wl = workload if workload is not None else tasks.FibWorkload(
         n=26, cutoff=12, max_leaf_cost=16)
     codes = [stealing.strategy_code(s) for s in strategies]
@@ -221,7 +217,33 @@ def crossover(sizes=DEFAULT_SIZES, taus=(2, 5, 10),
                  f"analytic={_fmt(analytic_ratio)};"
                  f"Pg/Pn={_fmt(pg_over_pn, '.2f')};"
                  f"threshold={float(latency.threshold(n)):.2f}")
+    if rtt_hists:
+        doc["rtt"] = _measure_rtt(wl, max(sizes), sorted(taus)[len(taus) // 2],
+                                  codes, capacity, max_ticks, device)
     return doc
+
+
+def _measure_rtt(wl, n, tau, codes, capacity, max_ticks, device=None):
+    """One traced run per strategy at (N, τ), the strategies as one grid (one
+    `simulate_sweep`, on the card one captured graph): the measured
+    per-attempt RTT distribution against the §3.3 analytic expectation."""
+    mesh = topology.MeshTopology.square(n)
+    tc = tracing.TraceConfig(ring_capacity=1 << 15, bins=128, bin_ticks=64)
+    cfg = simulator.SimConfig(hop_ticks=tau, capacity=capacity, max_ticks=max_ticks,
+                              trace=tc)
+    results = simulator.simulate_sweep(
+        wl, mesh, cfg, [cfg.params._replace(strategy=c) for c in codes], device=device)
+    hists = []
+    for c, r in zip(codes, results):
+        strat = stealing.CODE_STRATEGIES[c]
+        h = tracing.attempt_latency_hist(r.trace, strategy=strat,
+                                         num_workers=n, tau=tau)
+        hists.append(h)
+        emit(f"crossover/rtt/{strat.value}/N={n}/tau={tau}", 0.0,
+             f"mean_rtt={h['measured_mean_rtt']:.1f};"
+             f"analytic={h['analytic_rtt']:.1f};"
+             f"p={h['p_success']:.3f};n={h['resolved_attempts']}")
+    return hists
 
 
 # --------------------------------------------------------------------------
@@ -229,15 +251,19 @@ def crossover(sizes=DEFAULT_SIZES, taus=(2, 5, 10),
 # --------------------------------------------------------------------------
 
 def plot_crossover(doc: dict, path: str) -> bool:
-    """Ratio-vs-W crossover curve with the analytic overlay. Returns False
-    when matplotlib is unavailable (plot skipped, JSON still complete)."""
+    """Ratio-vs-W crossover curve (+ analytic overlay) and the measured
+    per-strategy RTT distributions. Returns False when matplotlib is
+    unavailable (plot skipped, JSON still complete)."""
     try:
         import matplotlib
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
     except ImportError:
         return False
-    fig, ax = plt.subplots(1, 1, figsize=(6, 4.2))
+    has_rtt = bool(doc.get("rtt"))
+    fig, axs = plt.subplots(1, 2 if has_rtt else 1,
+                            figsize=(11 if has_rtt else 6, 4.2))
+    ax = axs[0] if has_rtt else axs
     for tau in doc["taus"]:
         pts = sorted((c for c in doc["crossover"] if c["tau"] == tau),
                      key=lambda c: c["N"])
@@ -261,6 +287,23 @@ def plot_crossover(doc: dict, path: str) -> bool:
     ax.set_ylabel("NEIGHBOR / GLOBAL makespan")
     ax.set_title("Crossover: neighbor-only wins below 1.0")
     ax.legend(fontsize=8)
+    if has_rtt:
+        axr = axs[1]
+        for h in doc["rtt"]:
+            edges = np.asarray(h["edges"])
+            counts = np.asarray(h["counts"], dtype=np.float64)
+            total = counts.sum()
+            if total > 0:
+                counts = counts / total
+            line, = axr.step(edges[:-1], counts, where="post",
+                             label=f"{h['strategy']} (p={h['p_success']:.2f})")
+            axr.axvline(h["analytic_rtt"], color=line.get_color(),
+                        ls="--", alpha=0.7)
+        axr.set_xlabel("per-attempt RTT (ticks)")
+        axr.set_ylabel("fraction of resolved attempts")
+        axr.set_title(f"Measured RTT vs §3.3 analytic (dashed), "
+                      f"W={max(doc['sizes'])}")
+        axr.legend(fontsize=8)
     fig.tight_layout()
     fig.savefig(path, dpi=130)
     plt.close(fig)
@@ -289,8 +332,7 @@ def main():
     ap.add_argument("--plot", default="crossover_torch.png")
     ap.add_argument("--no-plot", action="store_true")
     ap.add_argument("--no-rtt", action="store_true",
-                    help="skip the RTT rows (the only mode until the flight "
-                         "recorder is ported)")
+                    help="skip the traced RTT-distribution runs")
     ap.add_argument("--assert-single-compile", action="store_true",
                     help="fail unless each size's grid is one _sim_core call")
     ap.add_argument("--device", default=None,
@@ -306,7 +348,7 @@ def main():
     doc = crossover(sizes, tuple(args.taus), tuple(args.strategies),
                     runs=args.runs, workload=wl,
                     assert_single_compile=args.assert_single_compile,
-                    device=args.device)
+                    rtt_hists=not args.no_rtt, device=args.device)
     print(f"# wall {time.perf_counter() - t0:.3f} s on {_device_name(args.device)}")
     jsonio.write(args.out, doc, indent=2)
     print(f"# wrote {args.out}")

@@ -2,7 +2,8 @@
 fields and numpy arrays, so both packages run the same thing.
 
 The simulator has no weights: its inputs are a workload's fields, a mesh's
-``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields, a link-state
+``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields (its
+`trace` a dict of `TraceConfig` fields, or a config), a link-state
 schedule's arrays or a constellation's config fields and, for the deque
 layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
 be any enum (or plain string) with the same values. A model's input is its
@@ -13,6 +14,8 @@ of the reference package.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -22,6 +25,7 @@ from .core import linkstate as lstate
 from .core import simulator as sim
 from .core import stealing, tasks
 from .core import topology as topo
+from .core import tracing
 from .models import layers
 from .models.config import ModelConfig
 
@@ -50,6 +54,10 @@ def sim_config(fields: dict) -> sim.SimConfig:
         f["strategy"] = stealing.Strategy(_value(f["strategy"]))
     if "recovery" in f:
         f["recovery"] = sim.Recovery(_value(f["recovery"]))
+    if f.get("trace") is not None:
+        t = f["trace"]
+        f["trace"] = tracing.TraceConfig(**(t if isinstance(t, dict)
+                                            else dataclasses.asdict(t)))
     return sim.SimConfig(**f)
 
 

@@ -15,8 +15,10 @@ wake-ups, straggler speeds and malleable pre-shed with a warning — and
 time-varying link state (`core.linkstate`: per-epoch link latencies,
 outages and speeds; flights priced along live routes, victims masked to
 live links and reachable workers, flights to another live-link component
-never launched, a severed reply denied its grant), but no arrivals or
-tracing. It reproduces the reference JAX simulator
+never launched, a severed reply denied its grant) — and, with
+``SimConfig(trace=tracing.TraceConfig(...))``, the flight recorder
+(`core.tracing`: the event ring, the binned time series and
+`SimResult.sojourn`), but no arrivals. It reproduces the reference JAX simulator
 (`repro.core.simulator.simulate`) field for field on those inputs: the
 randomness is a pure function of ``(seed, tick)`` (`rng.fold_in`), every
 quantity is int32 with the same wrap-around, and the deque, selection,
@@ -60,8 +62,17 @@ on the card, under the captured loop, it took less time than staged at
 every measured point (PERF.md). The kernels' wrappers run their plain
 versions for CPU
 tensors, so on the card the simulator always runs the kernels, and
-``use_steal_kernel=False`` there raises. Options not ported yet raise
+``use_steal_kernel=False`` there raises. Open-loop arrivals and a grid
+sharded over several devices are not ported yet: they raise
 `NotImplementedError` and name the ROADMAP item that brings them.
+
+The flight recorder rides the loop's carry beside the state (a TC rollback
+never rewinds it). Each tick emits its events in the reference's order as
+one block of candidates (one cumulative sum, one scatter into the ring, in
+place); the famine replay, which has no per-tick loop, builds its window's
+events from each worker's rounds and orders them by (tick, group, worker),
+the order the reference's replayed ticks emit them in. With ``trace=None``
+no function of `core.tracing` is called.
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from . import deque as dq
 from . import linkstate as lstate
 from . import rng, stealing, tasks
 from . import topology as topo
+from . import tracing
 
 PHASE_RUN = 0
 PHASE_REQ = 1   # steal request in flight (thief → victim)
@@ -135,7 +147,10 @@ class SimConfig:
     preshed: bool = False
     arrival_gap_q8: int = 0
     arrival_batch: int = 1
-    trace: object = None
+    # the flight recorder: None = off (no function of `core.tracing` is
+    # called); a `tracing.TraceConfig` turns on the event ring and the
+    # binned time series
+    trace: "tracing.TraceConfig | None" = None
 
     @property
     def static(self) -> "StaticConfig":
@@ -173,7 +188,7 @@ class StaticConfig:
     recovery: Recovery = Recovery.NONE
     supervision_slots: int = 64
     preshed: bool = False
-    trace: object = None
+    trace: "tracing.TraceConfig | None" = None
 
 
 class SimParams(NamedTuple):
@@ -247,8 +262,9 @@ class SimResult(NamedTuple):
     per_worker_hiwater: np.ndarray | None = None
     per_worker_attempts: np.ndarray | None = None
     per_worker_successes: np.ndarray | None = None
-    trace: object = None
-    timeseries: object = None
+    # the flight recorder's output (None unless cfg.trace is set)
+    trace: "tracing.Trace | None" = None
+    timeseries: "tracing.TimeSeries | None" = None
     arrivals_injected: int = 0
     arrivals_dropped: int = 0
     requests_done: int = 0
@@ -471,7 +487,8 @@ def _first_active(x, sp):
 
 def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
                         faults: _Faults | None = None, alive=None,
-                        starts: torch.Tensor | None = None) -> torch.Tensor:
+                        starts: torch.Tensor | None = None,
+                        trace: tracing.TraceConfig | None = None) -> torch.Tensor:
     """Clip `ne` at each point's scheduled events: deaths (and pre-shed
     warnings) of alive workers, wake-ups of dead ones — every cycle of a
     periodic schedule — the next periodic checkpoint and the next link-state
@@ -479,7 +496,11 @@ def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
     without a schedule): τ, links and speeds change there, so no leap or
     famine window crosses one. `ckpt` is None when no point of the grid
     checkpoints, else per point (interval clamped to >= 1, interval > 0).
-    Arrivals join with their slice."""
+    With the flight recorder (`trace`) the next time-series bin boundary
+    clips too, and an epoch boundary at t itself: the EPOCH event is stamped
+    by the tick at the flip, so a window never starts at a boundary the
+    stepper has not run (a window of 0 ticks, then the tick). Arrivals join
+    with their slice."""
     if faults is not None:
         never = torch.full_like(alive, _NEVER, dtype=_I32)
         nf = _next_fire(faults.fail, faults.period, t)
@@ -496,13 +517,18 @@ def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
         every, on = ckpt
         ne = torch.where(on, torch.minimum(ne, t + ((every - t % every) % every)), ne)
     if starts is not None:
-        ne = torch.minimum(ne, lstate.next_change(starts, t, _NEVER))
+        # traced: the first boundary at or after t (after t - 1)
+        ne = torch.minimum(ne, lstate.next_change(
+            starts, t if trace is None else t - 1, _NEVER))
+    if trace is not None:
+        ne = torch.minimum(ne, tracing.next_bin_boundary(trace, t, _NEVER))
     return ne
 
 
 def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
                 faults: _Faults | None = None, can_try=None,
-                starts: torch.Tensor | None = None) -> torch.Tensor:
+                starts: torch.Tensor | None = None,
+                trace: tracing.TraceConfig | None = None) -> torch.Tensor:
     """Per point, the first tick >= t at which any of its workers does more
     than a bulk decrement ((G, 1) int32, as `t`). Conservative: an early
     answer costs one loop iteration, never correctness. `sp`: the straggler
@@ -510,7 +536,7 @@ def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
     `can_try`: which idle workers could launch a steal flight at t (under a
     link-state schedule, the reference's `_can_attempt`), None when any
     other worker is a reachable victim; `starts` the schedule's epoch
-    starts."""
+    starts; `trace` the flight recorder's configuration (None: off)."""
     alive = state.alive
     run = (state.phase == PHASE_RUN) & alive
     t0 = _first_active(t, sp)
@@ -532,12 +558,13 @@ def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
     flight = (state.phase != PHASE_RUN) & alive
     ev = torch.where(flight, t + (state.timer - 1).clamp(min=0), ev)
     return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive,
-                               starts)
+                               starts, trace)
 
 
 def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
                     back: torch.Tensor, sp=None, faults: _Faults | None = None,
-                    starts: torch.Tensor | None = None) -> torch.Tensor:
+                    starts: torch.Tensor | None = None,
+                    trace: tracing.TraceConfig | None = None) -> torch.Tensor:
     """Per point, the first tick >= t at which any deque size can change (or
     a death, wake, pre-shed warning or checkpoint fires): the famine
     window's horizon ((G, 1) int32).
@@ -583,7 +610,7 @@ def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
         risky, _first_active(deliver + 1, sp), never))
     ev = torch.where((state.phase != PHASE_RUN) & alive, flight_ev, ev)
     return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive,
-                               starts)
+                               starts, trace)
 
 
 def _min_draw_hops(mesh: topo.MeshTopology, code: int) -> int:
@@ -649,7 +676,6 @@ def _map(fn, tree):
 
 # options not ported yet: what each is, and its ROADMAP Queue 1 item
 _NOT_PORTED = {
-    "trace": ("the flight recorder (trace)", 11),
     "arrivals": ("open-loop arrivals (arrivals, arrival_gap_q8)", 12),
     "devices": ("a grid sharded over several devices (devices)", "13b"),
 }
@@ -675,7 +701,10 @@ def _check_static(cfg: StaticConfig):
     if not isinstance(cfg.recovery, Recovery):
         raise ValueError(f"recovery must be a Recovery, got {cfg.recovery!r}")
     if cfg.trace is not None:
-        raise _not_ported("trace")
+        if not isinstance(cfg.trace, tracing.TraceConfig):
+            raise TypeError("trace must be a repro_torch.core.tracing.TraceConfig "
+                            f"or None, got {type(cfg.trace).__name__}")
+        cfg.trace.validate()
 
 
 def _check_params(p: SimParams):
@@ -862,9 +891,10 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     `device`, every point under the schedules `sched` (None: no failure,
     wake-up or straggler) and the link state `ls` (compiled on `device`;
     None: every link up at each point's τ), each point in the epoch of its
-    own clock. Returns (state, ticks, iters): every state leaf with a
+    own clock. Returns (state, ticks, iters, tr): every state leaf with a
     leading G axis, per-point scalars as (G, 1) columns; ticks and iters
-    (G,)."""
+    (G,); `tr` the flight recorder's `tracing.TraceState` (() when
+    `cfg.trace` is None)."""
     global _CORE_COUNT
     _CORE_COUNT += 1
     W = mesh.num_workers
@@ -1001,6 +1031,9 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     min_cycle = min((max(2 * h_min[c] * tau - 1, 1)
                      for c, tau in zip(codes, taus) if c in h_min), default=1)
     rounds = -(-FB // min_cycle)
+    # GLOBAL's draws into another live-link component launch nothing: the
+    # famine replay skips them (and, traced, replays them as NO_LIVE events)
+    skips = link is not None and link.partitioned and stealing.GLOBAL_CODE in drawn
     # the reference's bound on a probe cycle, per point, and 2·τ against the
     # (G, FB, W) draws
     probe_cycle = (2 * hop_ticks - 1).clamp(min=1)
@@ -1034,6 +1067,49 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         arr_t=scalar(_NEVER), arr_k=scalar(0), arr_injected=scalar(0),
         arr_dropped=scalar(0), arr_done=scalar(0), soj_lo=scalar(0),
         soj_hi=scalar(0))
+    # the flight recorder: () when off, and every use below sits behind a
+    # host-side `if trc is not None`. It rides the carry beside the state,
+    # so a TC rollback keeps the discarded timeline
+    trc = cfg.trace
+    tr0 = (tracing.init(trc, W, deques.size.sum(-1, keepdim=True) == 0)
+           if trc is not None else ())
+    if trc is not None:
+        # a tick's candidate events in the reference's order — DEATH, WAKE,
+        # EPOCH, NO_LIVE_VICTIM, (ARRIVAL and SOJOURN: with open-loop
+        # arrivals, ROADMAP Queue 1 item 12), the attempt resolutions,
+        # OVERFLOW, FAMINE_ENTER, FAMINE_EXIT — the groups this run can
+        # produce, each with its lanes that never change
+        life = {tracing.LANE_VICTIM: -1}
+        layout = {}
+        if faults is not None:
+            layout["death"] = (W, {tracing.LANE_KIND: tracing.EV_DEATH,
+                                   tracing.LANE_WORKER: warr, **life})
+            if faults.wake is not None:
+                layout["wake"] = (W, {tracing.LANE_KIND: tracing.EV_WAKE,
+                                      tracing.LANE_WORKER: warr, **life})
+        if ls is not None:
+            layout["epoch"] = (1, {tracing.LANE_KIND: tracing.EV_EPOCH,
+                                   tracing.LANE_WORKER: -1, **life})
+        if outage:
+            layout["no_live"] = (W, {tracing.LANE_KIND: tracing.EV_NO_LIVE_VICTIM,
+                                     tracing.LANE_WORKER: warr})
+        layout["resolved"] = (W, {tracing.LANE_WORKER: warr})
+        layout["overflow"] = (W, {tracing.LANE_KIND: tracing.EV_OVERFLOW,
+                                  tracing.LANE_WORKER: warr, **life})
+        for name, kind in (("enter", tracing.EV_FAMINE_ENTER),
+                           ("exit", tracing.EV_FAMINE_EXIT)):
+            layout[name] = (1, {tracing.LANE_KIND: kind, tracing.LANE_WORKER: -1, **life})
+        tick_block = tracing.Block(G, layout.values(), device)
+        tick_group = {name: i for i, name in enumerate(layout)}
+        if FB:
+            # a famine window's candidates: the unreachable draws (one a
+            # worker a replayed tick) and the resolutions (the flight under
+            # way, then one a round)
+            layout = [((rounds + 1) * W, {tracing.LANE_WORKER: warr.repeat(rounds + 1)})]
+            if skips:
+                layout.insert(0, (FB * W, {tracing.LANE_KIND: tracing.EV_NO_LIVE_VICTIM,
+                                           tracing.LANE_WORKER: warr.repeat(FB)}))
+            window_block = tracing.Block(G, layout, device)
 
     def probe(e):
         """Each point's `stealing.probe_may_succeed` at its epoch `e`, by
@@ -1203,12 +1279,15 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         return state._replace(sup_buf=sup_buf, sup_thief=sup_thief,
                               sup_n=sup_n.clamp(max=S - 1))
 
-    def tick_fn(state: SimState, snap, t: torch.Tensor, near, far, run, e):
+    def tick_fn(state: SimState, snap, tr, t: torch.Tensor, near, far, run, e):
         """One tick with full semantics at each point's tick `t` ((G, 1)),
         in its link-state epoch `e` (None without a schedule), drawing from
-        row 0 of `draws(t)`; returns (state, snap, live). The staged commits
-        write `state.deque`'s ring in place, in the rows of the points whose
-        flag `run` ((G, 1)) is set."""
+        row 0 of `draws(t)`; returns (state, snap, tr, live). The staged
+        commits write `state.deque`'s ring in place, and the flight recorder
+        `tr` its ring and time series, in the rows of the points whose flag
+        `run` ((G, 1)) is set."""
+        st_in = state  # the tick's entry state: its time-series baseline
+        dying = waking = None
         alive = state.alive
         sp = speed_at(e)
         ses = _Deques(state.deque, lanes_full, run)
@@ -1313,11 +1392,14 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             victim_new = (parked if victim_new is None else torch.where(
                 code == stealing.LIFELINE_CODE, parked, victim_new))
         has_victim = victim_new >= 0
+        fails_sel = state.fails  # the fail counts the draw saw
+        reach = None
         if outage:
             # route-around: a victim in another live-link component is
             # unreachable, so the flight never departs (no attempt) and the
             # thief draws again at its next active tick
-            has_victim = has_victim & reachable(e, warr, victim_new)
+            reach = reachable(e, warr, victim_new)
+            has_victim = has_victim & reach
         vhops = torch.where(has_victim, topo.hop_dist(mesh, coords, victim_new), 0)
         start_req = idle & has_victim & alive
         victim = torch.where(start_req, victim_new, state.victim)
@@ -1389,6 +1471,54 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         # backend: already committed, a no-op here)
         deque_ = ses.finish()
 
+        if trc is not None:
+            # the tick's events, one block in the reference's fixed order
+            # (`tick_block`): only the lanes that change are written
+            blk, grp = tick_block, tick_group
+            blk.set(tracing.LANE_TICK, t)
+            masks = []
+            if dying is not None:
+                masks.append(dying)
+            if waking is not None:
+                masks.append(waking)
+            if ls is not None:
+                blk.set(tracing.LANE_EPOCH, e)
+                masks.append((t > 0) & (starts == t[..., None]).any(-1))
+            if outage:
+                # a draw into another component never departs; it is an event
+                # only for workers that could attempt in this epoch (the
+                # reference's `_can_attempt`, with the fails the draw saw)
+                masks.append(idle & (victim_new >= 0) & ~reach & can_attempt(e, fails_sel))
+                blk.set(tracing.LANE_VICTIM, victim_new, grp["no_live"])
+                blk.set(tracing.LANE_HOPS, topo.hop_dist(mesh, coords, victim_new),
+                        grp["no_live"])
+            # a resolution at request arrival prices the whole round trip:
+            # the request leg was banked at departure
+            req_lane = torch.where(start_req, req_ticks, tr.req_ticks)
+            blk.set(tracing.LANE_KIND, torch.where(
+                valid_victim, torch.where(got, tracing.EV_GRANTED, tracing.EV_EMPTY_VICTIM),
+                tracing.EV_SEVERED_DENIAL), grp["resolved"])
+            blk.set(tracing.LANE_VICTIM, victim, grp["resolved"])
+            blk.set(tracing.LANE_HOPS, back_hops, grp["resolved"])
+            blk.set(tracing.LANE_RTT, req_lane + back_ticks, grp["resolved"])
+            masks.append(arriving)
+            # the net increase only: a TC rollback can rewind the counter
+            ovf_delta = overflow - st_in.overflow
+            blk.set(tracing.LANE_RTT, ovf_delta, grp["overflow"])
+            masks.append(ovf_delta > 0)
+            famine_now = deque_.size.sum(-1, keepdim=True) == 0
+            masks += [famine_now & ~tr.famine, ~famine_now & tr.famine]
+            tr = blk.append(tr._replace(req_ticks=req_lane, famine=famine_now), trc,
+                            masks, run)
+            # the tick's time-series deltas against its entry state (under
+            # TC a rollback makes them negative, as in the reference)
+            tot = torch.stack([busy - st_in.busy, deque_.size,
+                               steal_wait - st_in.steal_wait,
+                               attempts - st_in.attempts,
+                               successes - st_in.successes, alive.to(_I32)],
+                              1).sum(-1)
+            tr = tracing.ts_add_row(tr, trc, t, tot, run)
+
         got_left = got_flight & ~delivered
         new_state = state._replace(
             deque=deque_, acc=acc, work=work, fails=fails, phase=phase,
@@ -1399,7 +1529,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             hiwater=torch.maximum(state.hiwater, deque_.size))
         live = (deque_.size.sum(-1, keepdim=True) + work.sum(-1, keepdim=True)
                 + got_left.sum(-1, keepdim=True)) > 0
-        return new_state, snap, live
+        return new_state, snap, tr, live
 
     def active_in(t, a, b, sp):
         """Each worker's straggler-active ticks in [t + a, t + b)."""
@@ -1408,13 +1538,15 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         return (torch.div(t + b + sp - 1, sp, rounding_mode="floor")
                 - torch.div(t + a + sp - 1, sp, rounding_mode="floor"))
 
-    def leap(state: SimState, t, live, ne, sp):
+    def leap(state: SimState, tr, t, live, ne, sp, run):
         """Fused fast-forward over the dead ticks in [t, ne), per point, at
         the speeds `sp` (one epoch covers the window: `ne` stops at the next
-        boundary). Returns (state, t, live). If the window's bulk burn
+        boundary). Returns (state, tr, t, live). If the window's bulk burn
         consumes a point's LAST pending work, land right after the final
         burn tick (where the one-tick stepper exits) and clear its live
-        flag."""
+        flag. The window's time-series contribution lands in t's bin (`ne`
+        stops at the next bin boundary too), at the points whose flag `run`
+        is set."""
         delta = (ne.clamp(max=cfg.max_ticks) - t).clamp(min=0)
         delta = torch.where(live, delta, 0)
         burning = (state.phase == PHASE_RUN) & state.alive & (state.work > 0)
@@ -1436,22 +1568,29 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         # in-flight messages: timers tick down, thieves accumulate wait
         flight_ = (state.phase != PHASE_RUN) & state.alive
         dflt = torch.where(flight_, delta, 0)
+        if trc is not None:
+            # sizes and liveness are frozen over the window
+            tot = torch.stack([nact, state.deque.size * delta, dflt,
+                               torch.zeros_like(nact), torch.zeros_like(nact),
+                               state.alive * delta], 1).sum(-1)
+            tr = tracing.ts_add_row(tr, trc, t, tot, run)
         return state._replace(
             timer=state.timer - dflt, steal_wait=state.steal_wait + dflt,
             work=state.work - nact, busy=state.busy + nact), \
-            t + delta, live & ~drained
+            tr, t + delta, live & ~drained
 
     def next_event(state: SimState, t, e):
         """`_next_event` at each point's tick `t`, in its epoch `e`."""
         return _next_event(state, t, ckpt, W, speed_at(e), faults,
-                           can_attempt(e, state.fails), starts)
+                           can_attempt(e, state.fails), starts, trc)
 
-    def famine_ff(state: SimState, t, live, ne_all, near, far, e):
+    def famine_ff(state: SimState, tr, t, live, ne_all, near, far, e, run):
         """Advance up to FB ticks of deterministically failing probe cycles
         in this iteration (the famine fast path), per point, in its epoch
-        `e` (the window never crosses an epoch boundary). Returns (state, t,
-        live, ne, e), `ne` the `_next_event` horizon of the returned state
-        and `e` the epoch of its tick.
+        `e` (the window never crosses an epoch boundary). Returns (state, tr,
+        t, live, ne, e): the flight recorder `tr` written at the points whose
+        flag `run` is set, `ne` the `_next_event` horizon of the returned
+        state and `e` the epoch of its tick.
 
         `_famine_horizon` certifies that deque sizes are frozen over the
         window, so only burn-downs, probe flights and their counters move;
@@ -1481,7 +1620,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         hv = topo.hop_dist(mesh, coords, state.victim)
         back = hv * hop_ticks if ls is None else flight(e, state.victim, warr)
         ne_risky = _famine_horizon(state, t, ckpt, W, probe(e), back, sp,
-                                   faults, starts)
+                                   faults, starts, trc)
         hi = ne_risky.clamp(max=cfg.max_ticks)
         delta = (hi - t).clamp(0, FB)
         # profitable only when probe-cycle events (counted by _next_event
@@ -1558,16 +1697,17 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             idle = idle & has_near
         else:
             far_c, has_far = cycles(far), far[:, 0] >= 0
-        next_ok = None
-        if link is not None and link.partitioned and stealing.GLOBAL_CODE in drawn:
+        next_ok = reach_rows = active_rows = None
+        if skips:
             # each worker's next row at or after j whose draw it can launch
             # (reachable, and at an active tick of a straggler): the
             # radius-1 and radius-2 tables are masked already, so only
             # GLOBAL's draws skip
             rows = torch.arange(FB, device=device)
-            ok = reachable(e3, warr, near)
+            reach_rows = ok = reachable(e3, warr, near)
             if sp is not None:
-                ok = ok & ((t[..., None] + rows[:, None]) % sp[:, None] == 0)
+                active_rows = (t[..., None] + rows[:, None]) % sp[:, None] == 0
+                ok = ok & active_rows
             idx = torch.where(ok, rows[:, None].to(_I32), _NEVER)
             next_ok = torch.flip(torch.cummin(torch.flip(idx, [1]), 1).values, [1])
         gaps = sp is not None or next_ok is not None
@@ -1578,8 +1718,13 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             j = next_ok.gather(1, d.clamp(max=FB - 1).long()[:, None])[:, 0]
             return torch.where(d < FB, j, d)
 
-        d0 = first_ok(torch.where(idle, b1 + spw, _NEVER))
+        c0 = torch.where(idle, b1 + spw, _NEVER)
+        d0 = first_ok(c0)
         d, attempts, victim = d0, state.attempts, state.victim
+        # for the flight recorder: each round's draw, and (where draws skip)
+        # the stretches [candidate, draw) an idle worker spends redrawing
+        drawn_rounds = [] if trc is not None else None
+        redraw = ([c0], [d0]) if trc is not None and skips else None
         hops_sum = torch.zeros_like(d)
         d_last, h_last, q_last, r_last = d0, hops_sum, hops_sum, hops_sum
         flown, c_last = hops_sum, hops_sum
@@ -1610,9 +1755,15 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                 # ticks are summed apart from the draws'
                 flown = flown + cycle * ok
                 c_last = torch.where(ok, cycle, c_last)
+            if drawn_rounds is not None:
+                drawn_rounds.append((d, ok, g))
             if sp is not None:
                 cycle = torch.div(cycle + sp - 1, sp, rounding_mode="floor") * sp
-            d = torch.where(ok, first_ok(d + cycle), _NEVER)
+            cand = d + cycle
+            d = torch.where(ok, first_ok(cand), _NEVER)
+            if redraw is not None:
+                redraw[0].append(torch.where(ok, cand, _NEVER))
+                redraw[1].append(d)
         # every draw but the last was delivered (the next followed it): the
         # counters telescope, and the last draw's flight is where it stands
         draws_n = attempts - state.attempts
@@ -1643,10 +1794,97 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             attempts=attempts, steal_wait=steal_wait,
             hops_lo=(lo & _HOP_LANE_MASK).to(_I32),
             hops_hi=state.hops_hi + (lo >> _HOP_LANE_BITS).to(_I32))
+        if trc is not None:
+            tr = window_events(tr, state, t, n, run, e, a0, arrived, hv, back, drawn_rounds,
+                               redraw, near, reach_rows, active_rows)
+            # the request leg of each worker's last draw, banked at departure
+            tr = tr._replace(req_ticks=torch.where(drew, q_last, tr.req_ticks))
+            # the window's bulk time series: sizes, liveness and (by the
+            # certificate) successes are frozen, and the window ends at the
+            # next bin boundary, so it lands in t's bin
+            tot = torch.stack([burned, state.deque.size * n, steal_wait - state.steal_wait,
+                               attempts - state.attempts, torch.zeros_like(burned),
+                               alive * n], 1).sum(-1)
+            tr = tracing.ts_add_row(tr, trc, t, tot, run)
         t_out = t + n
         live_out = torch.where(n > 0, (frozen > 0) | (n < last_burn), live)
         e_out = epoch(t_out)
-        return new_state, t_out, live_out, next_event(new_state, t_out, e_out), e_out
+        return (new_state, tr, t_out, live_out, next_event(new_state, t_out, e_out),
+                e_out)
+
+    def window_events(tr, state, t, n, run, e, a0, arrived, hv, back, drawn_rounds,
+                      redraw, near, reach_rows, active_rows):
+        """The events of a famine window of n ticks from t, in the order the
+        reference's replayed ticks emit them: tick by tick, first the
+        unreachable draws (EV_NO_LIVE_VICTIM), then the resolutions of the
+        requests arriving, each group in worker order. A worker has at most
+        one event of a group a tick, so the order is that of the key (j·2 +
+        group)·W + w over the window's relative ticks j; each event's slot is
+        its rank among the keys of its point's events. Every arrival fails
+        (the window's certificate): EV_EMPTY_VICTIM where the victim is
+        alive and in the thief's component, else EV_SEVERED_DENIAL. The
+        rows are `window_block`'s: the unreachable draws (FB·W candidates,
+        where GLOBAL draws across a partition) and the resolutions ((R + 1)·W:
+        the flight under way, then each round's draw)."""
+        blk, R1 = window_block, (rounds + 1, W)
+        res_g = len(blk.spans) - 1
+        if ls is not None:
+            blk.set(tracing.LANE_EPOCH, e)
+        # the flight under way (its request leg banked at departure), then
+        # each round's draw, arriving max(Lq − 1, 0) after it; the rounds as
+        # one (G, R, W) block
+        d = torch.stack([x[0] for x in drawn_rounds], 1)
+        g = torch.stack([x[2] for x in drawn_rounds], 1)        # (G, R, W, F)
+        lq = g[..., 1] * hop_ticks[..., None] if ls is None else g[..., 3]
+        at = torch.cat([a0[:, None], d + (lq - 1).clamp(min=0)], 1)   # (G, R + 1, W)
+        vic = torch.cat([state.victim[:, None], g[..., 0]], 1)
+        blk.set(tracing.LANE_TICK, t[..., None] + at, res_g, R1)
+        blk.set(tracing.LANE_VICTIM, vic, res_g, R1)
+        blk.set(tracing.LANE_HOPS, torch.cat([hv[:, None], g[..., 1]], 1), res_g, R1)
+        blk.set(tracing.LANE_RTT, torch.cat([(tr.req_ticks + back)[:, None],
+                                             2 * lq if ls is None else lq + g[..., 4]], 1),
+                res_g, R1)
+        valid = state.alive.gather(-1, vic.clamp(0, W - 1).long().flatten(1)).view(vic.shape)
+        if outage:
+            valid = valid & reachable(e[..., None], warr, vic)
+        blk.set(tracing.LANE_KIND, torch.where(valid, tracing.EV_EMPTY_VICTIM,
+                                               tracing.EV_SEVERED_DENIAL), res_g, R1)
+        res = (torch.cat([arrived[:, None], torch.stack([x[1] for x in drawn_rounds], 1)], 1)
+               & (at < n[..., None]) & run[..., None])
+        # each resolution's cell in a (G, FB, groups, W) grid of the window
+        at = torch.where(res, at, FB)
+        occ = torch.zeros((G, FB + 1, W), dtype=_I32, device=device).scatter_(
+            1, at.long(), 1)[:, :FB]
+        key = at.clamp(max=FB - 1) * W + warr
+        if redraw is not None:
+            # the unreachable draws: the rows an idle worker spends in
+            # [candidate, draw) at its active ticks, by GLOBAL's points only
+            # (the radius tables are masked to reachable victims), where it
+            # could attempt at all
+            lo = torch.stack(redraw[0], 1).clamp(max=FB).long()
+            hi = torch.stack(redraw[1], 1).clamp(max=FB).long()
+            span = torch.zeros((G, FB + 1, W), dtype=_I32, device=device)
+            span.scatter_add_(1, lo, torch.ones_like(lo, dtype=_I32))
+            span.scatter_add_(1, hi, torch.full_like(hi, -1, dtype=_I32))
+            rows = torch.arange(FB, device=device)
+            no_live = ((span.cumsum(1, dtype=_I32)[:, :FB] > 0) & (near >= 0)
+                       & ~reach_rows & (rows[:, None] < n[..., None])
+                       & can_attempt(e, state.fails)[:, None] & run[..., None])
+            if active_rows is not None:
+                no_live = no_live & active_rows
+            occ = torch.stack([no_live.to(_I32), occ], 2)          # (G, FB, 2, W)
+            key = key + (at.clamp(max=FB - 1) + 1) * W
+        flat = occ.flatten(1)
+        rank = flat.cumsum(1, dtype=_I32) - flat
+        res_rank = rank.gather(1, key.flatten(1).long())
+        if redraw is None:
+            return blk.append(tr, trc, res.flatten(1), rank=res_rank)
+        blk.set(tracing.LANE_TICK, t[..., None] + rows[:, None], 0, (FB, W))
+        blk.set(tracing.LANE_VICTIM, near, 0, (FB, W))
+        blk.set(tracing.LANE_HOPS, topo.hop_dist(mesh, coords, near), 0, (FB, W))
+        return blk.append(tr, trc, torch.cat([no_live.flatten(1), res.flatten(1)], 1),
+                          rank=torch.cat([rank.view(G, FB, 2, W)[:, :, 0].flatten(1),
+                                          res_rank], 1))
 
     def iteration(carry):
         """One loop iteration of device tensors only — tick, next event,
@@ -1655,28 +1893,35 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         max_ticks)`` of the carry before it: the loop keeps a point's new
         carry only where its flag is set, so a finished point's fields, its
         iteration count `events` included, stay as they were."""
-        state, snap, t, live, iters = carry
+        state, snap, t, live, iters, tr = carry
         run = live & (t < cfg.max_ticks)
         e0, e1 = epoch(t), epoch(t + 1)
         near, far = draws(t, e0, e1)
-        new, snap, live_n = tick_fn(state, snap, t, near, far, run, e0)
+        new, snap, tr, live_n = tick_fn(state, snap, tr, t, near, far, run, e0)
         t_n, e_n = t + 1, e1
         if leap_mode:
             ne = next_event(new, t_n, e_n)
             if FB:
-                new, t_n, live_n, ne, e_n = famine_ff(
-                    new, t_n, live_n, ne, near[:, 1:],
-                    None if far is None else far[:, 1:], e_n)
-            new, t_n, live_n = leap(new, t_n, live_n, ne, speed_at(e_n))
-        return (new, snap, t_n, live_n, iters + 1), run
+                new, tr, t_n, live_n, ne, e_n = famine_ff(
+                    new, tr, t_n, live_n, ne, near[:, 1:],
+                    None if far is None else far[:, 1:], e_n, run)
+            new, tr, t_n, live_n = leap(new, tr, t_n, live_n, ne, speed_at(e_n), run)
+        return (new, snap, t_n, live_n, iters + 1, tr), run
 
     # only TC consumes snapshots: other runs carry none
     snap0 = _map(torch.clone, state0) if tc else ()
     carry = (state0, snap0, scalar(0),
-             torch.ones((G, 1), dtype=torch.bool, device=device), scalar(0))
+             torch.ones((G, 1), dtype=torch.bool, device=device), scalar(0), tr0)
     loop = _replay_loop if on_cuda else _eager_loop
-    state, _, t, _, iters = loop(iteration, carry, cfg.max_ticks)
-    return state, t[:, 0], iters[:, 0]
+    state, _, t, _, iters, tr = loop(iteration, carry, cfg.max_ticks)
+    if trc is not None:
+        # attempts still in their request flight when the run ended, stamped
+        # at the end tick in its epoch; the rtt lane holds the request leg
+        tr = tracing.emit(tr, trc, (state.phase == PHASE_REQ) & state.alive, tick=t,
+                          kind=tracing.EV_PENDING, worker=warr, victim=state.victim,
+                          hops=topo.hop_dist(mesh, coords, state.victim),
+                          rtt=tr.req_ticks, epoch=0 if ls is None else epoch(t))
+    return state, t[:, 0], iters[:, 0], tr
 
 
 def _loop_done(carry, max_ticks: int) -> bool:
@@ -1752,8 +1997,11 @@ def _ckpt_state_bytes(mesh: topo.MeshTopology, cfg: StaticConfig) -> int:
 
 
 def _finalize(state: SimState, ticks: int, iters: int,
-              mesh: topo.MeshTopology, cfg: StaticConfig) -> SimResult:
-    """One point's `SimResult` from its slice of the state (host tensors)."""
+              mesh: topo.MeshTopology, cfg: StaticConfig,
+              trace: tracing.Trace | None = None,
+              timeseries: tracing.TimeSeries | None = None) -> SimResult:
+    """One point's `SimResult` from its slice of the state (host tensors)
+    and its flight recorder's views (None when untraced)."""
     def np_(x):
         return x.numpy()
 
@@ -1782,11 +2030,13 @@ def _finalize(state: SimState, ticks: int, iters: int,
         per_worker_hiwater=np_(state.hiwater),
         per_worker_attempts=att_w,
         per_worker_successes=suc_w,
+        trace=trace, timeseries=timeseries,
         arrivals_injected=int(state.arr_injected),
         arrivals_dropped=int(state.arr_dropped),
         requests_done=req_done,
         sojourn_sum_ticks=soj_sum,
-        sojourn_mean=soj_sum / max(req_done, 1))
+        sojourn_mean=soj_sum / max(req_done, 1),
+        sojourn=tracing.sojourn_stats(trace) if trace is not None else None)
 
 
 def stack_params(params_list) -> SimParams:
@@ -1814,13 +2064,22 @@ def _run_grid(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         _check_params(p)
     dev = _resolve_device(device, cfg)
     ls = _linkstate_tables(linkstate, mesh, routing, dev)
-    state, ticks, iters = _sim_core(workload, mesh, cfg, stack_params(points), dev,
-                                    sched, ls)
+    state, ticks, iters, tr = _sim_core(workload, mesh, cfg, stack_params(points),
+                                        dev, sched, ls)
     # to the host: what the results read (not the rings, loot or ledger)
     host = _map(torch.Tensor.cpu, state._replace(
         deque=(), loot=(), sup_buf=(), sup_thief=(), sup_n=()))
     ticks, iters = ticks.tolist(), iters.tolist()
-    return [_finalize(_map(lambda x: x[g], host), ticks[g], iters[g], mesh, cfg)
+    views = [(None, None)] * len(points)
+    if cfg.trace is not None:
+        # the event rings up to the longest written prefix, and the bins
+        n = tr.n[:, 0].cpu()
+        ev = tr.ev[:, :int(n.clamp(max=cfg.trace.ring_capacity).max())].cpu().numpy()
+        ts = tr.ts.cpu().numpy()
+        views = [tracing.finalize(tracing.TraceState(ev=ev[g], n=n[g], req_ticks=None,
+                                                     ts=ts[g], famine=None), cfg.trace)
+                 for g in range(len(points))]
+    return [_finalize(_map(lambda x: x[g], host), ticks[g], iters[g], mesh, cfg, *views[g])
             for g in range(len(points))]
 
 

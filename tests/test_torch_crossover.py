@@ -117,7 +117,8 @@ def test_crossover_matches_reference():
 
 def test_crossover_cli_and_rtt_refusal(tmp_path, monkeypatch, capsys):
     """`python -m repro_torch.benchmarks.sweep` writes a strict document
-    with one core per size; RTT rows raise naming ROADMAP item 11."""
+    with one core per size; with `rtt_hists=True` (the flight recorder,
+    ROADMAP item 11) the RTT rows equal the reference's."""
     out = tmp_path / "x.json"
     monkeypatch.setattr("sys.argv", [
         "sweep", "--quick", "--sizes", "4", "--taus", "3", "--runs", "2", "--no-plot",
@@ -129,5 +130,11 @@ def test_crossover_cli_and_rtt_refusal(tmp_path, monkeypatch, capsys):
     assert doc["traces_per_size"] == {"4": 1} and doc["rtt"] == []
     assert len(doc["points"]) == 2 and len(doc["crossover"]) == 1
     assert "crossover/N=4/tau=3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 11"):
-        psweep.crossover((4,), taus=(3,), runs=1, rtt_hists=True, device="cpu")
+    kw = dict(taus=(2, 3, 5), runs=1, capacity=256, rtt_hists=True)
+    want = rsweep.crossover((4, 9), workload=rtasks.FibWorkload(
+        n=16, cutoff=8, max_leaf_cost=8), **kw)["rtt"]
+    got = psweep.crossover((4, 9), workload=ptasks.FibWorkload(
+        n=16, cutoff=8, max_leaf_cost=8), device="cpu", **kw)["rtt"]
+    assert got == want and [h["strategy"] for h in got] == ["neighbor", "global"]
+    assert got[0]["measured_mean_rtt"] == 2 * 3 and got[0]["resolved_attempts"] > 0
+    assert "crossover/rtt/global/N=9/tau=3" in capsys.readouterr().out

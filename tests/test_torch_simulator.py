@@ -137,10 +137,9 @@ def test_plain_kernels_refused_on_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,cfg_kw", [
-    ({}, {"trace": object()}),
     ({}, {"arrival_gap_q8": 256}),
     ({"arrivals": object()}, {}),
-], ids=["trace", "arrivals_gap", "arrivals"])
+], ids=["arrivals_gap", "arrivals"])
 def test_unported_options_raise(kwargs, cfg_kw):
     cfg = psim.SimConfig(capacity=16, **cfg_kw)
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item \d+"):

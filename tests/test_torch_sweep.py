@@ -26,6 +26,7 @@ from repro_torch.core import simulator as psim
 from repro_torch.core import stealing as pst
 from repro_torch.core import tasks as ptasks
 from repro_torch.core import topology as ptopo
+from repro_torch.core import tracing as ptracing
 
 # the reference's own sweep grid (tests/test_sweep.py): G = 16 points on W = 9
 WL = rtasks.FibWorkload(n=20, cutoff=12, max_leaf_cost=8)
@@ -288,9 +289,13 @@ def test_sweep_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 12"):
         psim.simulate_sweep(wl, mesh, cfg, [cfg.params._replace(arrival_gap_q8=256)],
                             device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 11"):
-        psim.simulate_batch(wl, mesh, dataclasses.replace(cfg, trace=object()),
-                            device="cpu")
+    # the flight recorder (item 11) is ported: the same call runs traced and
+    # equals `simulate`, its ring and time series included
+    traced = dataclasses.replace(cfg, trace=ptracing.TraceConfig(
+        ring_capacity=512, bins=16, bin_ticks=32))
+    (rb,) = psim.simulate_batch(wl, mesh, traced, device="cpu")
+    assert_results_equal(psim.simulate(wl, mesh, traced, device="cpu"), rb)
+    assert rb.trace.emitted > 0 and rb.trace.dropped == 0
     r = psim.simulate_sweep(wl, mesh, cfg, [cfg.params], devices=["cpu"])[0]
     assert r.result == wl.expected_result()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

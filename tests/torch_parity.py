@@ -36,13 +36,23 @@ def assert_same(a, b, what=""):
 
 
 def assert_results_equal(ref, port, skip=()):
-    """Every field of two `SimResult`s equal (arrays elementwise)."""
+    """Every field of two `SimResult`s equal (arrays elementwise; the
+    flight recorder's `Trace` and `TimeSeries` field by field, their arrays
+    elementwise)."""
     assert ref._fields == port._fields
     for f in ref._fields:
         if f in skip:
             continue
         a, b = getattr(ref, f), getattr(port, f)
-        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        if f in ("trace", "timeseries") and (a is not None or b is not None):
+            assert a is not None and b is not None, f"{f}: {a!r} vs {b!r}"
+            for name in a.__dataclass_fields__:
+                x, y = getattr(a, name), getattr(b, name)
+                if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+                    assert_same(x, y, f"{f}.{name}")
+                else:
+                    assert x == y, f"{f}.{name}: reference {x!r} != port {y!r}"
+        elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
             assert_same(a, b, f)
         else:
             assert a == b, f"{f}: reference {a!r} != port {b!r}"
