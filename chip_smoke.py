@@ -120,7 +120,23 @@ Phases — any failure exits non-zero:
      three strategies, GLOBAL across a partitioned schedule at famine batch
      64, radiation under TC), card == CPU and the reference's pins; a traced
      3-seed `simulate_batch`, each seed equal to its own traced run;
-  10-12. serve three models through `serve_loop.serve_requests` (one phase,
+  10. run open-loop arrivals (`phase_arrivals`, `simulate(arrivals=...)`) at
+     W=4096 in the load–latency benchmark's shape: a FIB n=8 seed root, 64
+     Zipf (s=1) ground stations injecting 8 requests of 512 work units a
+     candidate, capacity 256, 2,000 ticks; (a) NEIGHBOR and GLOBAL at
+     offered loads 0.2, 0.5 and 0.8 work units a worker-tick traced as one
+     6-point sweep (a ring of 2^21 rows a point), every point's fields,
+     ring and sojourn percentiles the reference's (ARR_PINS, a digest of
+     every field), no ring drop, NEIGHBOR 0.8 equal to its own run; (b)
+     NEIGHBOR 0.5 untraced leap/loop, leap/staged, famine batch 0 and tick
+     mode, equal but in `events`, `events` the reference's, and a profiled
+     300-tick window against [main]'s; (c) step 8's dynamic constellation
+     with the diurnal rate schedule (sleepers as dead stations), the
+     reference's, leap == tick; (d) tests/test_arrivals.py's four scenarios
+     and its TC rollback run, card == CPU; (e) `f32math.log_f32` and
+     `arrivals.gap_ticks`, card == CPU bit for bit; (f) `deque_apply` at
+     the arrival path's push log (L = 17, C = 256), exact and timed;
+  11-13. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
      exactly as its blocks say (an attention block `flash_attention` once in
@@ -1009,6 +1025,9 @@ def _main_setup(sim, topo, tasks):
 # the main path's runs: label, SimConfig fields beyond `base`, the kernel
 # its deque backend launches (the first is the default: the loop backend,
 # famine_batch 64)
+# [main]'s profiled 300-tick windows by run label: ms/event, device
+# activities an event, busy share (later phases' ratios read them)
+MAIN_WINDOW: dict = {}
 MAIN_RUNS = (("leap/loop", {}, "steal_compact"),
              ("leap/staged", {"deque_backend": "staged"}, "deque_apply"),
              ("leap/loop fb=0", {"famine_batch": 0}, "steal_compact"),
@@ -1077,6 +1096,7 @@ def phase_main_path(torch, np, sim, topo, tasks, ops):
         if k_n == 0:
             raise SystemExit(f"profile of {label}: no {kernel} kernel seen")
         profiled.setdefault(kernel, k_ms / k_n)
+        MAIN_WINDOW[label] = (wall_ms / ev, n_dev / ev, busy / wall_ms)
         print(f"[profile] W={W_MAIN} {label}, 300 ticks, {ev} events: device "
               f"busy {busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
               f"{busy / wall_ms:.4f}); {n_dev} device activities = "
@@ -1807,7 +1827,8 @@ def _phase_linkstate(torch, np, sim, ops, main_ms, cpu):
               f"events={rg.events} = the reference's; card {dt:.3f} s "
               f"({dt / rg.events * 1e3:.3f} ms/event), cpu {dt_c:.3f} s in a worker "
               f"process, card == cpu; launches={counts}")
-    return launches, {"tbl": tbl, "kw": kw, "mesh": mesh, "base": base, "runs": runs}
+    return launches, {"tbl": tbl, "kw": kw, "mesh": mesh, "base": base, "runs": runs,
+                      "con": con}
 
 
 # the [trace] phase's partitioned link state at W=100: the 5x5 corner of the
@@ -2134,6 +2155,352 @@ def _phase_trace(torch, np, sim, topo, tasks, ops, main_run, main_ms, link, cpu)
     return launches
 
 
+# the [arrivals] phase: open-loop traffic (`repro_torch.core.arrivals`) on
+# the main path's mesh, in the load–latency benchmark's shape
+# (benchmarks/load_latency.py: a FIB n=8 cutoff=4 max_leaf_cost=4 seed
+# root, requests at ground stations) at constellation scale: 64 Zipf (s=1)
+# stations, requests of 512 work units, 8 a candidate, capacity 256,
+# 2,000 ticks, NEIGHBOR and GLOBAL at tau 5, offered loads in work units a
+# worker-tick (gap_q8 1280, 512, 320)
+ARR_SHAPE = dict(task_cost=512, num_stations=64, zipf_s=1.0, station_seed=0)
+ARR_ROOT = dict(n=8, cutoff=4, max_leaf_cost=4)
+ARR_BATCH, ARR_CAP, ARR_TICKS, ARR_TAU = 8, 256, 2000, 5
+ARR_LOADS = (0.2, 0.5, 0.8)
+ARR_STRATEGIES = ("neighbor", "global")
+# the grid's recorder: ring rows, bins, bin ticks
+ARR_TRACE = (1 << 21, 64, 32)
+# the open constellation: [linkstate]'s dynamic constellation (2 orbits of 1,024
+# ticks) with the diurnal rate schedule over 2,048 ticks, NEIGHBOR at 0.5
+ARR_ORBITS = 2
+
+
+def arr_gap_q8(arrivals, load: float) -> int:
+    """`arrival_gap_q8` of an offered load (work units a worker-tick) at
+    W_MAIN workers (`arrivals`: either package's module)."""
+    return arrivals.gap_q8_for_load(load * W_MAIN / ARR_SHAPE["task_cost"], ARR_BATCH)
+
+
+def arr_config(sim, strategy: str, load: float, arrivals, **extra):
+    """The [arrivals] phase's `SimConfig` of one (strategy, load) point
+    (`sim`, `arrivals`: either package's modules)."""
+    base = dict(strategy=sim.stealing.Strategy(strategy), hop_ticks=ARR_TAU,
+                capacity=ARR_CAP, max_ticks=ARR_TICKS, arrival_batch=ARR_BATCH,
+                arrival_gap_q8=arr_gap_q8(arrivals, load))
+    return sim.SimConfig(**{**base, **extra})
+
+
+def result_digest(np, r, skip=()) -> str:
+    """sha256 of every field of a `SimResult` (either package's) but `skip`:
+    scalars by value, arrays as little-endian int64, the ring as int32, the
+    `sojourn` dict sorted by key."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in r._fields:
+        if f in skip:
+            continue
+        v = getattr(r, f)
+        h.update(f.encode())
+        if f == "trace" and v is not None:
+            h.update(np.ascontiguousarray(v.events, dtype="<i4").tobytes())
+            h.update(repr((v.emitted, v.dropped, v.ring_capacity)).encode())
+        elif f == "timeseries" and v is not None:
+            h.update(np.ascontiguousarray(v.data, dtype="<i8").tobytes())
+            h.update(repr(v.bin_ticks).encode())
+        elif isinstance(v, np.ndarray):
+            h.update(np.ascontiguousarray(v, dtype="<i8").tobytes())
+        elif isinstance(v, dict):
+            h.update(repr(sorted(v.items())).encode())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+# the reference's (`repro.core.simulator`, JAX on a CPU) runs of the phase,
+# printed by tests/arrival_pins.py: (events, `result_digest` of every
+# SimResult field) — the traced grid points, NEIGHBOR 0.5 untraced at famine
+# batch 64 and 0, and the open constellation untraced
+ARR_PINS = {
+    "neighbor 0.2": (1185, "abd5f641140372faf70cd12ca9e3b925542d47ee0bae4a99a933697c66b9784f"),
+    "neighbor 0.5": (1416, "015c2e68d97e7bb74754fdac084c4650114577f6103542910b245fde8dc12be4"),
+    "neighbor 0.8": (1582, "a734cea7d1d7aa4426465035529f2cc238494fc848d99f074c324f90c96672fc"),
+    "global 0.2": (1364, "467d9379b8e657b23c5f37263cdf841b70c7477dede7e61224dd4860edbe688b"),
+    "global 0.5": (1579, "f32fea61552d703b2c721bd81af490049d8afda2ad648e812e383e753b9fadd8"),
+    "global 0.8": (1742, "680bb428fb3a5c5ce289c9bb564ba765318cc415bf73fc8fa619e8d1dd9203bf"),
+    "untraced neighbor 0.5": (
+        1412, "f5ebacc8de13a4e946e57a7005d9043b4da51d1c4652b6af79a3b703b2dd3a0d"),
+    "untraced neighbor 0.5 fb=0": (
+        1864, "6abbdb9b7b6afadd3ba80d768b336b4b752f8414c47dfc6752dc75eecaa3715a"),
+    "constellation": (1699, "17f653703d7356969b3caed04c56531b218af7f91e73593d6f962d2761788119"),
+}
+# tests/test_arrivals.py's four ARRIVAL_SCENARIOS and its TC rollback run
+# (FIB n=12 cutoff=6 max_leaf_cost=8 on 16 workers, ring 2^13; TC: FIB n=14
+# cutoff=7 on 9 workers, deaths at 70 and 150, snapshots every 30): label,
+# ArrivalConfig fields, SimConfig fields; each card == CPU
+ARR_SCENARIOS = {
+    "poisson": (dict(task_cost=7), dict(arrival_gap_q8=5 * 256, seed=3)),
+    "bursty": (dict(task_cost=5, num_stations=6, on_ticks=40, off_ticks=160),
+               dict(arrival_gap_q8=2 * 256, seed=3, deque_backend="staged")),
+    "zipf_hot": (dict(task_cost=9, num_stations=2, zipf_s=2.0),
+                 dict(arrival_gap_q8=256, arrival_batch=8, seed=3)),
+    "rate_flip_midfamine": (dict(task_cost=5, num_stations=3, zipf_s=1.5,
+                                 rate_starts=(0, 400, 800), rate_scale=(1.0, 0.05, 1.0)),
+                            dict(arrival_gap_q8=30 * 256, seed=5, deque_backend="staged")),
+    "tc_rollback": (dict(task_cost=6, num_stations=3),
+                    dict(arrival_gap_q8=4 * 256, seed=2, ckpt_interval=30,
+                         deque_backend="staged")),
+}
+# the four modes of the NEIGHBOR 0.5 point, untraced
+ARR_MODES = (("leap/loop", {}),
+             ("leap/staged", {"deque_backend": "staged"}),
+             ("leap/loop fb=0", {"famine_batch": 0}),
+             ("tick/staged", {"step_mode": "tick", "deque_backend": "staged"}))
+
+
+def _arr_scenario(sim, label: str, device: str):
+    """One of ARR_SCENARIOS on `device`: (result, wall s)."""
+    from repro_torch.core import arrivals, tasks, tracing
+    from repro_torch.core import topology as topo
+
+    shape, fields = ARR_SCENARIOS[label]
+    fields = dict(fields)
+    kw = {}
+    if label == "tc_rollback":
+        import numpy as np
+
+        mesh, wl = topo.MeshTopology.square(9), tasks.FibWorkload(n=14, cutoff=7,
+                                                                  max_leaf_cost=8)
+        fields.update(recovery=sim.Recovery.TC, max_ticks=1000)
+        ft = -np.ones(9, np.int32)
+        ft[2], ft[5] = 70, 150
+        kw["fail_time"] = ft
+    else:
+        mesh, wl = topo.MeshTopology.square(16), tasks.FibWorkload(n=12, cutoff=6,
+                                                                   max_leaf_cost=8)
+        fields.setdefault("max_ticks", 1200)
+    cfg = sim.SimConfig(capacity=1024, trace=tracing.TraceConfig(ring_capacity=1 << 13),
+                        **fields)
+    t0 = time.perf_counter()
+    r = sim.simulate(wl, mesh, cfg, arrivals=arrivals.ArrivalConfig(**shape),
+                     device=device, **kw)
+    return r, time.perf_counter() - t0
+
+
+def _arrivals_cpu_run(label: str):
+    """The port's CPU run of one ARR_SCENARIOS entry (in a worker process,
+    beside the card runs of the main process)."""
+    import torch
+
+    from repro_torch.core import simulator as sim
+
+    torch.set_num_threads(1)
+    return _arr_scenario(sim, label, "cpu")
+
+
+def phase_arrivals(torch, np, sim, topo, tasks, ops, ref, deque, main_ms, link):
+    """Open-loop arrivals on the card. (a) The (strategy x load) grid at
+    W=4096 traced as one `simulate_sweep`: every point's fields, ring and
+    sojourn percentiles the reference's (ARR_PINS), no ring drop, NEIGHBOR
+    0.8 equal to its own `simulate`; walls and requests done a wall second.
+    (b) NEIGHBOR 0.5 untraced in four modes, equal but in `events`, `events`
+    the reference's; a profiled 300-tick window against `[main]`'s. (c) The
+    open constellation (`link`: `phase_linkstate`'s tables) with the diurnal
+    rate schedule: the reference's, and leap == tick. (d) tests/
+    test_arrivals.py's scenarios and TC rollback, card == CPU. (e) `log_f32`
+    and `gap_ticks`, card == CPU. (f) `deque_apply` at the arrival lane
+    width. Returns (launches by kernel, deque_apply at L = 17)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(len(ARR_SCENARIOS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    cpu = {label: pool.submit(_arrivals_cpu_run, label) for label in ARR_SCENARIOS}
+    try:
+        out = _phase_arrivals(torch, np, sim, topo, tasks, ops, ref, deque, main_ms,
+                              link, cpu)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"[arrivals] phase {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def _phase_arrivals(torch, np, sim, topo, tasks, ops, ref, deque, main_ms, link, cpu):
+    from repro_torch.core import arrivals, tracing
+    from repro_torch.core.f32math import log_f32
+
+    mesh = topo.MeshTopology.square(W_MAIN)
+    wl = tasks.FibWorkload(**ARR_ROOT)
+    ar = arrivals.device_tables(arrivals.ArrivalConfig(**ARR_SHAPE), mesh, "cuda")
+    launches = {"steal_compact": 0, "deque_apply": 0}
+
+    def timed(label, fn, kernels=("steal_compact",)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts = {k: ops.LAUNCHES[k] for k in launches}
+        for k in kernels:
+            if counts[k] == 0:
+                raise SystemExit(f"[arrivals] {label}: kernel {k} was never launched")
+        for k in launches:
+            launches[k] += counts[k]
+        return r, dt, counts
+
+    def pinned(label, r, pin_label=None):
+        want = ARR_PINS[pin_label or label]
+        got = (r.events, result_digest(np, r))
+        if got != want:
+            raise SystemExit(f"[arrivals] {label}: (events, digest) {got}, the "
+                             f"reference's {want}")
+
+    print(f"[arrivals] W={W_MAIN}: FIB {ARR_ROOT} seed root, {ARR_SHAPE}, batch "
+          f"{ARR_BATCH}, capacity {ARR_CAP}, {ARR_TICKS} ticks, tau {ARR_TAU}; loads "
+          f"{ARR_LOADS} work units a worker-tick = gap_q8 "
+          f"{[arr_gap_q8(arrivals, ld) for ld in ARR_LOADS]}")
+    # (a) the load grid, traced, one sweep; a short grid first, untimed
+    trc = tracing.TraceConfig(*ARR_TRACE)
+    labels = [f"{s} {ld}" for s in ARR_STRATEGIES for ld in ARR_LOADS]
+    pts = [arr_config(sim, s, ld, arrivals, trace=trc)
+           for s in ARR_STRATEGIES for ld in ARR_LOADS]
+    short = [arr_config(sim, s, ld, arrivals, trace=trc, max_ticks=20)
+             for s in ARR_STRATEGIES for ld in ARR_LOADS]
+    sim.simulate_sweep(wl, mesh, short[0].static, short, arrivals=ar)
+    res, grid_s, counts = timed("grid", lambda: sim.simulate_sweep(
+        wl, mesh, pts[0].static, pts, arrivals=ar))
+    iters = max(r.events for r in res)
+    for label, r in zip(labels, res):
+        if r.trace.dropped:
+            raise SystemExit(f"[arrivals] {label}: the ring dropped {r.trace.dropped}")
+        pinned(label, r)
+        soj = r.sojourn
+        print(f"[arrivals] {label}: ticks={r.ticks} events={r.events} injected="
+              f"{r.arrivals_injected} dropped={r.arrivals_dropped} done="
+              f"{r.requests_done} p50={soj['p50']} p99={soj['p99']} p999={soj['p999']} "
+              f"emitted={r.trace.emitted} (ring dropped 0); every field, the ring and "
+              f"sojourn the reference's")
+    done = sum(r.requests_done for r in res)
+    print(f"[arrivals] grid of {len(pts)} points ({len(pts) * W_MAIN} workers) in one "
+          f"sweep: {grid_s:.3f} s, {iters} loop iterations ({grid_s / iters * 1e3:.3f} ms "
+          f"each), {done} requests done = {done / grid_s:.1f} a wall second; "
+          f"launches={counts}")
+    one, one_s, _ = timed("neighbor 0.8", lambda: sim.simulate(wl, mesh, pts[2],
+                                                                  arrivals=ar))
+    _same_trace(np, res[2], one, "[arrivals] neighbor 0.8 grid point vs its own run")
+    print(f"[arrivals] neighbor 0.8 alone: {one_s:.3f} s, {one.events} events, equal "
+          f"to its grid point in every field")
+
+    # (b) NEIGHBOR 0.5 untraced in four modes, then a profiled window
+    runs = {}
+    for label, extra in ARR_MODES:
+        kernel = "deque_apply" if extra.get("deque_backend") == "staged" else "steal_compact"
+        cfg = arr_config(sim, "neighbor", 0.5, arrivals, **extra)
+        r, dt, counts = timed(label, lambda: sim.simulate(wl, mesh, cfg, arrivals=ar),
+                              (kernel,))
+        runs[label] = r
+        if label.startswith("tick"):
+            if r.events != r.ticks:
+                raise SystemExit(f"[arrivals] {label}: {r.events} events")
+        else:
+            pinned(f"neighbor 0.5 {label}", r, "untraced neighbor 0.5"
+                   + (" fb=0" if "fb=0" in label else ""))
+        _assert_equal(np, runs["leap/loop"], r, skip=("events",),
+                      what=f"[arrivals] neighbor 0.5 leap/loop vs {label}")
+        print(f"[arrivals] neighbor 0.5 {label}: ticks={r.ticks} events={r.events} "
+              f"wall={dt:.3f} s ms/event={dt / r.events * 1e3:.3f} injected="
+              f"{r.arrivals_injected} dropped={r.arrivals_dropped} done="
+              f"{r.requests_done} launches={counts}")
+    win = arr_config(sim, "neighbor", 0.5, arrivals, max_ticks=300)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = sim.simulate(wl, mesh, win, arrivals=ar).events
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    busy, n_dev, by_name = _profile(torch, lambda: sim.simulate(wl, mesh, win, arrivals=ar))
+    m_ms, m_act, m_share = MAIN_WINDOW["leap/loop"]
+    print(f"[profile] arrivals neighbor 0.5 leap/loop W={W_MAIN}, 300 ticks, {ev} events: "
+          f"wall {wall_ms:.3f} ms ({wall_ms / ev:.3f} ms/event, {wall_ms / ev / m_ms:.3f}x "
+          f"[main]'s {m_ms:.3f}), device busy {busy:.3f} ms (busy share "
+          f"{busy / wall_ms:.4f}, [main]'s {m_share:.4f}); {n_dev} device activities = "
+          f"{n_dev / ev:.1f} per event ([main]'s {m_act:.1f}, {n_dev / ev - m_act:+.1f}); "
+          f"[main]'s full run {main_ms:.3f} ms/event")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+
+    # (c) the open constellation: sparse tables, sleepers as dead stations
+    con = link["con"]
+    starts, scale = con.traffic_schedule(ARR_ORBITS * con.cfg.orbit_ticks)
+    ar_c = arrivals.device_tables(arrivals.ArrivalConfig(
+        **ARR_SHAPE, rate_starts=starts, rate_scale=scale), link["mesh"], "cuda")
+    got = {}
+    for mode in ("leap", "tick"):
+        cfg = arr_config(sim, "neighbor", 0.5, arrivals, preshed=True,
+                         warn_ticks=con.cfg.warn_ticks, step_mode=mode)
+        r, dt, counts = timed(f"constellation {mode}", lambda: sim.simulate(
+            wl, link["mesh"], cfg, linkstate=link["tbl"], arrivals=ar_c, **link["kw"]))
+        got[mode] = r
+        print(f"[arrivals] constellation neighbor 0.5 {mode}: ticks={r.ticks} "
+              f"events={r.events} wall={dt:.3f} s ms/event={dt / r.events * 1e3:.3f} "
+              f"injected={r.arrivals_injected} dropped={r.arrivals_dropped} "
+              f"(dead stations and overflow) done={r.requests_done} launches={counts}")
+    pinned("constellation", got["leap"])
+    _assert_equal(np, got["leap"], got["tick"], skip=("events",),
+                  what="[arrivals] constellation leap vs tick")
+    if got["tick"].events != got["tick"].ticks:
+        raise SystemExit(f"[arrivals] constellation tick: {got['tick'].events} events")
+    print(f"[arrivals] constellation ({len(starts)} rate epochs): the reference's "
+          f"fields; tick mode equal but in events")
+
+    # (d) the reference's scenarios and TC rollback: card == CPU
+    for label, (shape, fields) in ARR_SCENARIOS.items():
+        kernel = ("deque_apply" if fields.get("deque_backend") == "staged"
+                  else "steal_compact")
+        (rg, dt), _, counts = timed(label, lambda: _arr_scenario(sim, label, "cuda"),
+                                    (kernel,))
+        rc, dt_c = cpu[label].result()
+        _same_trace(np, rg, rc, f"[arrivals] {label} card vs cpu")
+        print(f"[arrivals] W={16 if label != 'tc_rollback' else 9} {label}: ticks="
+              f"{rg.ticks} events={rg.events} injected={rg.arrivals_injected} "
+              f"dropped={rg.arrivals_dropped} done={rg.requests_done}; card {dt:.3f} s, "
+              f"cpu {dt_c:.3f} s in a worker process, card == cpu; launches={counts}")
+
+    # (e) the reference's float32 log and the gaps, card == CPU
+    gen = torch.Generator().manual_seed(24)
+    h = torch.randint(0, 2**32, (1 << 24,), generator=gen, dtype=torch.int64)
+    u = (h.to(torch.float32) + 1.0) * 2.0**-32
+    if not torch.equal(log_f32(u.cuda()).cpu().view(torch.int32),
+                       log_f32(u).view(torch.int32)):
+        raise SystemExit("[arrivals] log_f32: card != CPU")
+    k = torch.arange(1 << 22, dtype=torch.int32)
+    aseed = arrivals.stream_seed(torch.tensor(0))
+    for g in (8, 256, 1280, 7680, 12345):
+        gap = torch.tensor(g, dtype=torch.int32)
+        if not torch.equal(arrivals.gap_ticks(aseed.cuda(), k.cuda(), gap.cuda()).cpu(),
+                           arrivals.gap_ticks(aseed, k, gap)):
+            raise SystemExit(f"[arrivals] gap_ticks at gap_q8 {g}: card != CPU")
+    print(f"[arrivals] log_f32 on {u.numel()} u and gap_ticks on {k.numel()} candidates "
+          f"x 5 gaps: card == CPU bit for bit")
+
+    # (f) deque_apply at the arrival path's push-log width
+    L = tasks.EXPAND_K + 1 + arrivals.ARRIVAL_K
+    rs = np.random.default_rng(20261018)
+    buf = torch.as_tensor(rs.integers(-2**31, 2**31 - 1, (W_MAIN, ARR_CAP, 4),
+                                      dtype=np.int64).astype(np.int32), device="cuda")
+    bot = torch.as_tensor(rs.integers(0, ARR_CAP, W_MAIN).astype(np.int32), device="cuda")
+    size = torch.as_tensor(rs.integers(0, ARR_CAP + 1, W_MAIN).astype(np.int32),
+                           device="cuda")
+    da = _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L)
+    da["lanes"] = L
+    print(f"[arrivals] deque_apply at {W_MAIN} rows, C={ARR_CAP}, L={L} lanes: exact, "
+          f"gated and n = 0 rows bit for bit; device per launch: kernel {da['ms']:.6f} "
+          f"ms, plain {da['plain_ms']:.6f} ms, library {da['library_ms']:.6f} ms "
+          f"(in-place index_put_), bound {da['bound_ms']:.6f} ms ({da['bound_by']}, "
+          f"{da['bytes']} bytes); eager wrapper call {da['call_ms']:.6f} ms")
+    return launches, da
+
+
 SERVE_BATCH, SERVE_NEW = 8, 64
 # the kernels' symbols in a profile, by wrapper name (the serving paths run
 # both attention kernels in bf16, through their tensor-core kernels, and
@@ -2440,11 +2807,17 @@ def main() -> int:
     for name, n in phase_trace(torch, np, sim, topo, tasks, ops, main_run, main_ms,
                                link).items():
         by_path[name]["trace"] = n
+    arr_launches, da_arr = phase_arrivals(torch, np, sim, topo, tasks, ops, ref, deque,
+                                          main_ms, link)
+    for name, n in arr_launches.items():
+        by_path[name]["arrivals"] = n
     del link
     kern["deque_apply"].update({f"faults_{k}": da_tc[k] for k in (
         "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "lanes")})
+    kern["deque_apply"].update({f"arrivals_{k}": da_arr[k] for k in (
+        "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "lanes")})
     kern["deque_apply"]["max_abs_err"] = max(kern["deque_apply"]["max_abs_err"],
-                                             da_tc["max_abs_err"])
+                                             da_tc["max_abs_err"], da_arr["max_abs_err"])
     # the serving paths, one model at a time (each frees its weights)
     serving = {}
     for tag, arch, prompt_len, note in (
@@ -2488,7 +2861,7 @@ def main() -> int:
          "main_path_device_ms": profiled[name],
          **{k: v for k, v in kern[name].items()
             if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_", "faults_",
-                              "width4_"))
+                              "width4_", "arrivals_"))
             and k not in ("hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),

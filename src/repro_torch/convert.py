@@ -4,9 +4,9 @@ fields and numpy arrays, so both packages run the same thing.
 The simulator has no weights: its inputs are a workload's fields, a mesh's
 ``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields (its
 `trace` a dict of `TraceConfig` fields, or a config), a link-state
-schedule's arrays or a constellation's config fields and, for the deque
-layer, a `DequeState`'s ``(buf, bot, size)``. Enum-valued fields may
-be any enum (or plain string) with the same values. A model's input is its
+schedule's arrays, an arrival config's fields or a constellation's config
+fields and, for the deque layer, a `DequeState`'s ``(buf, bot, size)``.
+Enum-valued fields may be any enum (or plain string) with the same values. A model's input is its
 parameter tree (`lm_params` for the dense transformer, `rwkv6_params` for
 rwkv6, `rglru_params` for the RG-LRU hybrid). This module imports nothing
 of the reference package.
@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .core import constellation
+from .core import arrivals, constellation
 from .core import deque as dq
 from .core import linkstate as lstate
 from .core import simulator as sim
@@ -70,6 +70,16 @@ def linkstate_schedule(epoch_starts, link_tau, link_up, speed
         link_tau=np.array(link_tau, np.int32),
         link_up=np.array(link_up, bool),
         speed=np.array(speed, np.int32))
+
+
+def arrival_config(fields: dict) -> arrivals.ArrivalConfig:
+    """An `ArrivalConfig` from a field dict (e.g. `dataclasses.asdict` of
+    the reference's config); the schedule's sequences become tuples."""
+    f = dict(fields)
+    for k in ("rate_starts", "rate_scale"):
+        if k in f:
+            f[k] = tuple(f[k])
+    return arrivals.ArrivalConfig(**f)
 
 
 def constellation_config(fields: dict) -> constellation.ConstellationConfig:

@@ -1,3 +1,4 @@
-"""Simulator core of the port: rng → topology → tasks → deque → stealing →
-linkstate → constellation → simulator, each the counterpart of the
-`repro.core` module of the same name."""
+"""Simulator core of the port: rng → f32math → topology → tasks → deque →
+stealing → linkstate → constellation → arrivals → tracing → simulator, each
+(but f32math, the reference's float32 `log` op by op) the counterpart of
+the `repro.core` module of the same name."""

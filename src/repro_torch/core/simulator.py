@@ -17,8 +17,11 @@ outages and speeds; flights priced along live routes, victims masked to
 live links and reachable workers, flights to another live-link component
 never launched, a severed reply denied its grant) — and, with
 ``SimConfig(trace=tracing.TraceConfig(...))``, the flight recorder
-(`core.tracing`: the event ring, the binned time series and
-`SimResult.sojourn`), but no arrivals. It reproduces the reference JAX simulator
+(`core.tracing`: the event ring and the binned time series) — and open-loop
+arrivals (`core.arrivals`: with ``arrivals=`` and ``arrival_gap_q8 > 0`` a
+request stream injects records at ground stations, a sojourn ledger prices
+each when it is popped, and traced runs fill `SimResult.sojourn`). It
+reproduces the reference JAX simulator
 (`repro.core.simulator.simulate`) field for field on those inputs: the
 randomness is a pure function of ``(seed, tick)`` (`rng.fold_in`), every
 quantity is int32 with the same wrap-around, and the deque, selection,
@@ -62,9 +65,9 @@ on the card, under the captured loop, it took less time than staged at
 every measured point (PERF.md). The kernels' wrappers run their plain
 versions for CPU
 tensors, so on the card the simulator always runs the kernels, and
-``use_steal_kernel=False`` there raises. Open-loop arrivals and a grid
-sharded over several devices are not ported yet: they raise
-`NotImplementedError` and name the ROADMAP item that brings them.
+``use_steal_kernel=False`` there raises. A grid sharded over several
+devices is not ported yet: it raises `NotImplementedError` and names the
+ROADMAP item that brings it.
 
 The flight recorder rides the loop's carry beside the state (a TC rollback
 never rewinds it). Each tick emits its events in the reference's order as
@@ -85,6 +88,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import arrivals as arr_lib
 from . import deque as dq
 from . import linkstate as lstate
 from . import rng, stealing, tasks
@@ -104,7 +108,7 @@ _HOP_LANE_MASK = (1 << _HOP_LANE_BITS) - 1
 # Next-event sentinel: beyond any reachable tick (max_ticks stays below).
 _NEVER = 1 << 30
 
-ARRIVAL_K = 8  # request records per accepted arrival candidate (upper bound)
+ARRIVAL_K = arr_lib.ARRIVAL_K  # request records per accepted candidate, at most
 
 # The run loop reads its done flag once every DONE_EVERY iterations (on the
 # card, one iteration a captured graph: PERF.md has the measurements)
@@ -287,14 +291,18 @@ def _mesh_tables(mesh: topo.MeshTopology, device) -> dict:
     }
 
 
-def _lane_budget(cfg: StaticConfig) -> int:
+def _lane_budget(cfg: StaticConfig, arrivals_on: bool = False) -> int:
     """Push-log width of the staged backend: an upper bound on the staged
     pushes any worker can accept in one tick. Accepted pushes are bounded by
     free room plus the slots freed mid-tick (one expansion pop and at most
     GRANT_WIDTH exported grants), so transplants never append more than
     capacity + GRANT_WIDTH + 1 on top of the expansion children and the loot
-    import; supervision re-pushes at most its ledger."""
+    import; supervision re-pushes at most its ledger; open-loop injection
+    lands up to ARRIVAL_K records on a station in the tick of its expansion
+    push."""
     L = tasks.EXPAND_K + 1          # expansion children + thief-side loot import
+    if arrivals_on:
+        L += ARRIVAL_K
     if cfg.recovery == Recovery.SUPERVISION:
         L += min(cfg.supervision_slots, cfg.capacity)
     if cfg.preshed or cfg.recovery == Recovery.TC:
@@ -488,7 +496,8 @@ def _first_active(x, sp):
 def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
                         faults: _Faults | None = None, alive=None,
                         starts: torch.Tensor | None = None,
-                        trace: tracing.TraceConfig | None = None) -> torch.Tensor:
+                        trace: tracing.TraceConfig | None = None,
+                        arr_t: torch.Tensor | None = None) -> torch.Tensor:
     """Clip `ne` at each point's scheduled events: deaths (and pre-shed
     warnings) of alive workers, wake-ups of dead ones — every cycle of a
     periodic schedule — the next periodic checkpoint and the next link-state
@@ -499,8 +508,10 @@ def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
     With the flight recorder (`trace`) the next time-series bin boundary
     clips too, and an epoch boundary at t itself: the EPOCH event is stamped
     by the tick at the flip, so a window never starts at a boundary the
-    stepper has not run (a window of 0 ticks, then the tick). Arrivals join
-    with their slice."""
+    stepper has not run (a window of 0 ticks, then the tick). With open-loop
+    arrivals the next candidate's tick `arr_t` clips too: the tick injects,
+    so no leap jumps it, and an injection changes deque sizes, so a famine
+    window ends there."""
     if faults is not None:
         never = torch.full_like(alive, _NEVER, dtype=_I32)
         nf = _next_fire(faults.fail, faults.period, t)
@@ -522,13 +533,16 @@ def _scheduled_horizons(ne: torch.Tensor, t: torch.Tensor, ckpt,
             starts, t if trace is None else t - 1, _NEVER))
     if trace is not None:
         ne = torch.minimum(ne, tracing.next_bin_boundary(trace, t, _NEVER))
+    if arr_t is not None:
+        ne = torch.minimum(ne, arr_t)
     return ne
 
 
 def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
                 faults: _Faults | None = None, can_try=None,
                 starts: torch.Tensor | None = None,
-                trace: tracing.TraceConfig | None = None) -> torch.Tensor:
+                trace: tracing.TraceConfig | None = None,
+                arrivals: bool = False) -> torch.Tensor:
     """Per point, the first tick >= t at which any of its workers does more
     than a bulk decrement ((G, 1) int32, as `t`). Conservative: an early
     answer costs one loop iteration, never correctness. `sp`: the straggler
@@ -536,7 +550,8 @@ def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
     `can_try`: which idle workers could launch a steal flight at t (under a
     link-state schedule, the reference's `_can_attempt`), None when any
     other worker is a reachable victim; `starts` the schedule's epoch
-    starts; `trace` the flight recorder's configuration (None: off)."""
+    starts; `trace` the flight recorder's configuration (None: off);
+    `arrivals` whether the run's arrival cursor `state.arr_t` clips."""
     alive = state.alive
     run = (state.phase == PHASE_RUN) & alive
     t0 = _first_active(t, sp)
@@ -558,13 +573,14 @@ def _next_event(state: SimState, t: torch.Tensor, ckpt, W: int, sp=None,
     flight = (state.phase != PHASE_RUN) & alive
     ev = torch.where(flight, t + (state.timer - 1).clamp(min=0), ev)
     return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive,
-                               starts, trace)
+                               starts, trace, state.arr_t if arrivals else None)
 
 
 def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
                     back: torch.Tensor, sp=None, faults: _Faults | None = None,
                     starts: torch.Tensor | None = None,
-                    trace: tracing.TraceConfig | None = None) -> torch.Tensor:
+                    trace: tracing.TraceConfig | None = None,
+                    arrivals: bool = False) -> torch.Tensor:
     """Per point, the first tick >= t at which any deque size can change (or
     a death, wake, pre-shed warning or checkpoint fires): the famine
     window's horizon ((G, 1) int32).
@@ -610,7 +626,7 @@ def _famine_horizon(state: SimState, t: torch.Tensor, ckpt, W: int, probe,
         risky, _first_active(deliver + 1, sp), never))
     ev = torch.where((state.phase != PHASE_RUN) & alive, flight_ev, ev)
     return _scheduled_horizons(ev.amin(-1, keepdim=True), t, ckpt, faults, alive,
-                               starts, trace)
+                               starts, trace, state.arr_t if arrivals else None)
 
 
 def _min_draw_hops(mesh: topo.MeshTopology, code: int) -> int:
@@ -676,7 +692,6 @@ def _map(fn, tree):
 
 # options not ported yet: what each is, and its ROADMAP Queue 1 item
 _NOT_PORTED = {
-    "arrivals": ("open-loop arrivals (arrivals, arrival_gap_q8)", 12),
     "devices": ("a grid sharded over several devices (devices)", "13b"),
 }
 
@@ -717,17 +732,37 @@ def _check_params(p: SimParams):
     if int(p.hop_ticks) < 0:
         raise ValueError("hop_ticks must be >= 0")
     if not 0 <= int(p.arrival_gap_q8) < (1 << 31):
-        raise ValueError("arrival_gap_q8 must be a non-negative int32")
+        raise ValueError(
+            "arrival_gap_q8 must be a non-negative int32 (mean gap ticks "
+            f"x 256; 0 = closed system), got {int(p.arrival_gap_q8)}")
     if not 1 <= int(p.arrival_batch) <= ARRIVAL_K:
         raise ValueError(f"arrival_batch must be in [1, {ARRIVAL_K}], "
                          f"got {int(p.arrival_batch)}")
-    if int(p.arrival_gap_q8) > 0:
-        raise _not_ported("arrivals")
 
 
-def _check_unported(arrivals):
-    if arrivals is not None:
-        raise _not_ported("arrivals")
+def _check_arrivals(arrivals, p: SimParams):
+    """`arrival_gap_q8 > 0` (the stream on) needs the traffic's shape; a
+    shape with the stream off is legal (tables built, no candidate fires)."""
+    if int(p.arrival_gap_q8) > 0 and arrivals is None:
+        raise ValueError(
+            "cfg.arrival_gap_q8 > 0 turns the open-loop request stream on; "
+            "pass arrivals=ArrivalConfig(...) to describe it")
+    if isinstance(arrivals, arr_lib.ArrivalConfig):
+        arrivals.validate()
+    elif arrivals is not None and not isinstance(arrivals, arr_lib.ArrivalArrays):
+        raise TypeError("arrivals must be a repro_torch.core.arrivals.ArrivalConfig "
+                        f"or ArrivalArrays, got {type(arrivals).__name__}")
+
+
+def _arrival_tables(arrivals, mesh: topo.MeshTopology, device: torch.device):
+    """The run's arrival tables on `device`: a config is built
+    (`arrivals.device_tables`), prebuilt `ArrivalArrays` pass through (moved
+    to `device`); None without arrivals."""
+    if arrivals is None:
+        return None
+    if isinstance(arrivals, arr_lib.ArrivalArrays):
+        return arr_lib.to_device(arrivals, device)
+    return arr_lib.device_tables(arrivals, mesh, device)
 
 
 def _check_linkstate(linkstate, speed):
@@ -886,15 +921,17 @@ def _at(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
               p: SimParams, device: torch.device, sched: _Schedules | None = None,
-              ls: lstate.LinkStateArrays | None = None):
+              ls: lstate.LinkStateArrays | None = None,
+              ar: arr_lib.ArrivalArrays | None = None):
     """Run the grid `p` (`stack_params`: G points) through one loop on
     `device`, every point under the schedules `sched` (None: no failure,
     wake-up or straggler) and the link state `ls` (compiled on `device`;
     None: every link up at each point's τ), each point in the epoch of its
-    own clock. Returns (state, ticks, iters, tr): every state leaf with a
-    leading G axis, per-point scalars as (G, 1) columns; ticks and iters
-    (G,); `tr` the flight recorder's `tracing.TraceState` (() when
-    `cfg.trace` is None)."""
+    own clock, and with the arrival tables `ar` (on `device`; None: a closed
+    system) each point's own request stream. Returns (state, ticks, iters,
+    tr): every state leaf with a leading G axis, per-point scalars as (G, 1)
+    columns; ticks and iters (G,); `tr` the flight recorder's
+    `tracing.TraceState` (() when `cfg.trace` is None)."""
     global _CORE_COUNT
     _CORE_COUNT += 1
     W = mesh.num_workers
@@ -1012,8 +1049,9 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
 
     on_cuda = device.type == "cuda"
     staged = cfg.deque_backend == "staged"
-    lanes_full = _lane_budget(cfg) if staged else None
-    lanes_common = tasks.EXPAND_K + 1 if staged else None
+    lanes_full = _lane_budget(cfg, ar is not None) if staged else None
+    lanes_common = (tasks.EXPAND_K + 1 + (ARRIVAL_K if ar is not None else 0)
+                    if staged else None)
     leap_mode = cfg.step_mode == "leap"
     # the famine fast path runs in leap mode; the reference gates it off per
     # point for LIFELINE (its thieves park on lifelines: no probe churn to
@@ -1055,6 +1093,24 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     def scalar(v):  # a per-point scalar leaf: a (G, 1) column
         return torch.full((G, 1), v, dtype=_I32, device=device)
 
+    # the open-loop stream: each point's first candidate tick, from its own
+    # seed and mean gap (`_NEVER` at gap 0: no candidate fires). The stream
+    # is a pure function of (seed, candidate index), so the cursor (arr_t,
+    # arr_k) is its only state and arr_t doubles as a horizon
+    arr_t0 = scalar(_NEVER)
+    if ar is not None:
+        aseed = arr_lib.stream_seed(col(p.seed))
+        # each point's (gap, acceptance, station) substream seeds: a tick's
+        # three draws are one hash against (arr_k + 1, arr_k, arr_k)
+        subs = arr_lib.substreams(aseed[:, 0])                       # (G, 3)
+        draw_k = torch.tensor([[1, 0, 0]], dtype=_I32, device=device)
+        gap_q8 = col(p.arrival_gap_q8)
+        a_batch = col(p.arrival_batch).clamp(1, ARRIVAL_K)
+        a_lanes = torch.arange(ARRIVAL_K, device=device)
+        arr_t0 = torch.where(gap_q8 > 0,
+                             arr_lib.gap_ticks(aseed, 0, gap_q8).clamp(max=_NEVER),
+                             _NEVER)
+
     z = zeros(G, W)
     state0 = SimState(
         deque=deques, acc=z, work=z, fails=z, phase=z, timer=z, victim=z - 1,
@@ -1064,7 +1120,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         attempts=z, successes=z, nodes=z, busy=z, steal_wait=z,
         hops_lo=scalar(0), hops_hi=scalar(0), ckpt_count=scalar(0),
         overflow=z, stolen_from=z, hiwater=deques.size,
-        arr_t=scalar(_NEVER), arr_k=scalar(0), arr_injected=scalar(0),
+        arr_t=arr_t0, arr_k=scalar(0), arr_injected=scalar(0),
         arr_dropped=scalar(0), arr_done=scalar(0), soj_lo=scalar(0),
         soj_hi=scalar(0))
     # the flight recorder: () when off, and every use below sits behind a
@@ -1075,10 +1131,10 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
            if trc is not None else ())
     if trc is not None:
         # a tick's candidate events in the reference's order — DEATH, WAKE,
-        # EPOCH, NO_LIVE_VICTIM, (ARRIVAL and SOJOURN: with open-loop
-        # arrivals, ROADMAP Queue 1 item 12), the attempt resolutions,
-        # OVERFLOW, FAMINE_ENTER, FAMINE_EXIT — the groups this run can
-        # produce, each with its lanes that never change
+        # EPOCH, NO_LIVE_VICTIM, ARRIVAL (the injected records, ARRIVAL_K at
+        # the station) and SOJOURN (the requests popped), the attempt
+        # resolutions, OVERFLOW, FAMINE_ENTER, FAMINE_EXIT — the groups this
+        # run can produce, each with its lanes that never change
         life = {tracing.LANE_VICTIM: -1}
         layout = {}
         if faults is not None:
@@ -1092,6 +1148,11 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                                    tracing.LANE_WORKER: -1, **life})
         if outage:
             layout["no_live"] = (W, {tracing.LANE_KIND: tracing.EV_NO_LIVE_VICTIM,
+                                     tracing.LANE_WORKER: warr})
+        if ar is not None:
+            layout["arrival"] = (ARRIVAL_K, {tracing.LANE_KIND: tracing.EV_ARRIVAL,
+                                             **life})
+            layout["sojourn"] = (W, {tracing.LANE_KIND: tracing.EV_SOJOURN,
                                      tracing.LANE_WORKER: warr})
         layout["resolved"] = (W, {tracing.LANE_WORKER: warr})
         layout["overflow"] = (W, {tracing.LANE_KIND: tracing.EV_OVERFLOW,
@@ -1356,6 +1417,39 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                 snap = _masked(take, state, snap)
             state = state._replace(ckpt_count=state.ckpt_count + take.to(_I32))
 
+        # ------------- open-loop arrival injection ------------------------- #
+        # candidate arr_k fires when its tick arr_t comes; arr_t is a
+        # horizon, so both step modes run this tick here. After the snapshot
+        # cut (no checkpoint holds half an injection) and before the RUN
+        # phase (an idle station pops the request in the same tick)
+        if ar is not None:
+            a_fire = run & (t == state.arr_t)
+            draws = tasks._hash2(subs, state.arr_k + draw_k)             # (G, 3)
+            a_station = arr_lib.station_of_draw(ar, draws[:, 2:])
+            a_accept = a_fire & arr_lib.accepted_of_draw(ar, draws[:, 1:2], t)
+            # a dead station drops the uplink (pushed onto a dead deque, the
+            # work would keep the run live forever): counted, not pushed
+            st_alive = alive.gather(-1, a_station.long())
+            at_station = warr == a_station                           # (G, W)
+            # task ids arr_k·ARRIVAL_K + lane, wrapped to non-negative int32
+            a_ids = ((state.arr_k.to(torch.int64) * ARRIVAL_K + a_lanes)
+                     & 0x7FFFFFFF).to(_I32)                          # (G, K)
+            a_recs = torch.stack(torch.broadcast_tensors(
+                torch.full_like(a_ids, tasks.KIND_REQ), ar.task_cost, t, a_ids), -1)
+            a_counts = torch.where(at_station & a_accept & st_alive, a_batch, 0)
+            a_over = ses.push_many(
+                torch.where(at_station[..., None, None], a_recs[:, None], 0), a_counts)
+            a_pushed = a_counts - a_over
+            nxt = arr_lib.gap_of_draw(draws[:, :1], gap_q8)
+            state = state._replace(
+                arr_t=torch.where(a_fire, (t + nxt).clamp(max=_NEVER), state.arr_t),
+                arr_k=state.arr_k + a_fire.to(_I32),
+                arr_injected=state.arr_injected + a_pushed.sum(-1, keepdim=True,
+                                                               dtype=_I32),
+                arr_dropped=(state.arr_dropped + a_over.sum(-1, keepdim=True, dtype=_I32)
+                             + torch.where(a_accept & ~st_alive, a_batch, 0)),
+                overflow=state.overflow + a_over)
+
         # ------------- phase RUN: work / expand / start steal -------------- #
         # a speed-s straggler acts only at ticks divisible by s
         active = alive if sp is None else alive & (t % sp == 0)
@@ -1373,6 +1467,19 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         nodes = state.nodes + ex["nodes"]
         busy = state.busy + (burning | popped).to(_I32)
         overflow = state.overflow + over.to(_I32)
+
+        if ar is not None:
+            # the sojourn ledger: a popped request ends its wait here, priced
+            # with its service (the burn that follows is exactly its cost);
+            # injected and popped in one tick, it costs its cost. Two int32
+            # lanes hold the sum exactly
+            is_req = popped & (task[..., 0] == tasks.KIND_REQ)
+            soj = torch.where(is_req, t - task[..., 2] + ex["cost"], 0)
+            s_lo = state.soj_lo + soj.sum(-1, keepdim=True, dtype=_I32)
+            state = state._replace(
+                arr_done=state.arr_done + is_req.sum(-1, keepdim=True, dtype=_I32),
+                soj_hi=state.soj_hi + (s_lo >> _HOP_LANE_BITS),
+                soj_lo=s_lo & _HOP_LANE_MASK)
 
         # idle workers become thieves: request departs now, arrives in h·τ
         idle = running & ~burning & ~popped & (ses.size == 0)
@@ -1492,6 +1599,16 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                 blk.set(tracing.LANE_VICTIM, victim_new, grp["no_live"])
                 blk.set(tracing.LANE_HOPS, topo.hop_dist(mesh, coords, victim_new),
                         grp["no_live"])
+            if ar is not None:
+                # one ARRIVAL a record pushed (its task id in the hops lane),
+                # one SOJOURN a request popped (inject tick, task id, sojourn)
+                blk.set(tracing.LANE_WORKER, a_station, grp["arrival"])
+                blk.set(tracing.LANE_HOPS, a_ids, grp["arrival"])
+                masks.append(a_lanes < a_pushed.gather(-1, a_station.long()))
+                blk.set(tracing.LANE_VICTIM, task[..., 2], grp["sojourn"])
+                blk.set(tracing.LANE_HOPS, task[..., 3], grp["sojourn"])
+                blk.set(tracing.LANE_RTT, soj, grp["sojourn"])
+                masks.append(is_req)
             # a resolution at request arrival prices the whole round trip:
             # the request leg was banked at departure
             req_lane = torch.where(start_req, req_ticks, tr.req_ticks)
@@ -1529,6 +1646,10 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
             hiwater=torch.maximum(state.hiwater, deque_.size))
         live = (deque_.size.sum(-1, keepdim=True) + work.sum(-1, keepdim=True)
                 + got_left.sum(-1, keepdim=True)) > 0
+        if ar is not None:
+            # an open system stays live through a transient drain while its
+            # stream has a candidate to come
+            live = live | (state.arr_t < _NEVER)
         return new_state, snap, tr, live
 
     def active_in(t, a, b, sp):
@@ -1556,6 +1677,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         drained = (state.deque.size.sum(-1, keepdim=True)
                    + (state.work - nact).sum(-1, keepdim=True)
                    + state.got.sum(-1, keepdim=True)) == 0
+        if ar is not None:  # a pending candidate keeps an open system live
+            drained = drained & (state.arr_t >= _NEVER)
         # tick right after the last burn of the burners that finish in-window
         last = _first_active(t, sp) + (state.work - 1) * (1 if sp is None else sp) + 1
         exit_t = torch.where(burning & (nact == state.work), last,
@@ -1582,7 +1705,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
     def next_event(state: SimState, t, e):
         """`_next_event` at each point's tick `t`, in its epoch `e`."""
         return _next_event(state, t, ckpt, W, speed_at(e), faults,
-                           can_attempt(e, state.fails), starts, trc)
+                           can_attempt(e, state.fails), starts, trc, ar is not None)
 
     def famine_ff(state: SimState, tr, t, live, ne_all, near, far, e, run):
         """Advance up to FB ticks of deterministically failing probe cycles
@@ -1620,7 +1743,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         hv = topo.hop_dist(mesh, coords, state.victim)
         back = hv * hop_ticks if ls is None else flight(e, state.victim, warr)
         ne_risky = _famine_horizon(state, t, ckpt, W, probe(e), back, sp,
-                                   faults, starts, trc)
+                                   faults, starts, trc, ar is not None)
         hi = ne_risky.clamp(max=cfg.max_ticks)
         delta = (hi - t).clamp(0, FB)
         # profitable only when probe-cycle events (counted by _next_event
@@ -1634,6 +1757,12 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         alive = state.alive
         frozen = (state.deque.size.sum(-1, keepdim=True)
                   + state.got.sum(-1, keepdim=True))
+        # what keeps a point live whatever burns: frozen deques or loot, or
+        # (open system) a candidate to come — the window ends at or before
+        # arr_t, so that holds over it
+        held = frozen > 0
+        if ar is not None:
+            held = held | (state.arr_t < _NEVER)
         in_flight = (phase != PHASE_RUN) & alive
         is_req = (phase == PHASE_REQ) & alive
         # the flight under way: arrival a0 and delivery dv0 (relative ticks;
@@ -1650,8 +1779,8 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
         last_burn = torch.where(work > 0, torch.where(alive, b1 + spw - (
             0 if sp is None else sp - 1), _NEVER), 0).amax(-1, keepdim=True)
         # ticks replayed: the window, cut where the last work burns out
-        # unless frozen deques or loot keep the system live
-        n = torch.where(pred, torch.where(frozen > 0, delta,
+        # unless `held` keeps the system live
+        n = torch.where(pred, torch.where(held, delta,
                                           torch.minimum(delta, last_burn)), 0)
         burned = torch.where(alive, torch.minimum(active_in(t, b0, n, sp).clamp(min=0),
                                                   work), 0)
@@ -1807,7 +1936,7 @@ def _sim_core(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
                                alive * n], 1).sum(-1)
             tr = tracing.ts_add_row(tr, trc, t, tot, run)
         t_out = t + n
-        live_out = torch.where(n > 0, (frozen > 0) | (n < last_burn), live)
+        live_out = torch.where(n > 0, held | (n < last_burn), live)
         e_out = epoch(t_out)
         return (new_state, tr, t_out, live_out, next_event(new_state, t_out, e_out),
                 e_out)
@@ -2054,18 +2183,21 @@ def stack_params(params_list) -> SimParams:
 
 def _run_grid(workload, mesh: topo.MeshTopology, cfg: StaticConfig,
               points: list, device, sched: _Schedules, linkstate=None,
-              routing: str = "auto") -> list[SimResult]:
+              routing: str = "auto", arrivals=None) -> list[SimResult]:
     """Check and run a grid of `SimParams` points in one `_sim_core` call,
-    every point under the schedules `sched` and the link state `linkstate`
-    (a schedule compiled under `routing`, or prebuilt tables); one
-    `SimResult` per point, in order."""
+    every point under the schedules `sched`, the link state `linkstate` (a
+    schedule compiled under `routing`, or prebuilt tables) and the traffic
+    `arrivals` (an `ArrivalConfig` or prebuilt `ArrivalArrays`; None: a
+    closed system); one `SimResult` per point, in order."""
     _check_static(cfg)
     for p in points:
         _check_params(p)
+        _check_arrivals(arrivals, p)
     dev = _resolve_device(device, cfg)
     ls = _linkstate_tables(linkstate, mesh, routing, dev)
+    ar = _arrival_tables(arrivals, mesh, dev)
     state, ticks, iters, tr = _sim_core(workload, mesh, cfg, stack_params(points),
-                                        dev, sched, ls)
+                                        dev, sched, ls, ar)
     # to the host: what the results read (not the rings, loot or ledger)
     host = _map(torch.Tensor.cpu, state._replace(
         deque=(), loot=(), sup_buf=(), sup_thief=(), sup_n=()))
@@ -2101,15 +2233,18 @@ def simulate(workload, mesh: topo.MeshTopology, cfg: SimConfig | None = None,
     piecewise-constant schedule instead of `cfg.hop_ticks` (then unused;
     `speed` must be None), and `routing_backend` picks the outage tables'
     layout ('dense', 'sparse', or 'auto': sparse from
-    `linkstate.SPARSE_AUTO_MIN_WORKERS` workers). `arrivals` must be None
-    until its slice is ported (`NotImplementedError` names the ROADMAP
-    item)."""
+    `linkstate.SPARSE_AUTO_MIN_WORKERS` workers). With `arrivals` (an
+    `arrivals.ArrivalConfig`, or prebuilt `ArrivalArrays` taken as they are)
+    and ``cfg.arrival_gap_q8 > 0`` an open-loop request stream feeds the
+    root workload: requests of `task_cost` work units land on ground-station
+    workers at exponential gaps (mean ``arrival_gap_q8 / 256`` ticks,
+    thinned by the rate schedule and the burst window), `SimResult` counts
+    them and, traced, gives their sojourn percentiles."""
     cfg = cfg or SimConfig()
-    _check_unported(arrivals)
     _check_linkstate(linkstate, speed)
     sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
     return _run_grid(workload, mesh, cfg.static, [cfg.params], device, sched,
-                     linkstate, routing_backend)[0]
+                     linkstate, routing_backend, arrivals)[0]
 
 
 def simulate_batch(workload, mesh: topo.MeshTopology,
@@ -2123,12 +2258,11 @@ def simulate_batch(workload, mesh: topo.MeshTopology,
     each equal to `simulate` with that seed, `events` included. Other
     arguments as `simulate`'s."""
     cfg = cfg or SimConfig()
-    _check_unported(arrivals)
     _check_linkstate(linkstate, speed)
     sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
     return _run_grid(workload, mesh, cfg.static,
                      [cfg.params._replace(seed=int(s)) for s in seeds], device, sched,
-                     linkstate, routing_backend)
+                     linkstate, routing_backend, arrivals)
 
 
 def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
@@ -2142,14 +2276,14 @@ def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     whose per-point fields are ignored); `params_list` is the grid, a
     sequence of `SimParams` or `SimConfig`s, whose `warn_ticks` and
     `ckpt_interval` are per point; every point shares the failure, wake-up
-    and straggler schedules and the link state (each point in the epoch of
-    its own clock). Returns one `SimResult` per point, in order,
+    and straggler schedules, the link state (each point in the epoch of
+    its own clock) and the arrivals' shape (each point's stream from its own
+    seed, `arrival_gap_q8` and `arrival_batch`). Returns one `SimResult` per point, in order,
     each equal to `simulate` of that point, `events` included. `devices`
     may name one device (it then stands for `device`); a grid sharded over
     several raises `NotImplementedError` (ROADMAP Queue 1 item 13b). Other
     arguments as `simulate`'s."""
     scfg = cfg.static if isinstance(cfg, SimConfig) else cfg
-    _check_unported(arrivals)
     _check_linkstate(linkstate, speed)
     sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
     if devices is not None:
@@ -2162,4 +2296,4 @@ def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     if not pts:
         return []
     return _run_grid(workload, mesh, scfg, pts, device, sched, linkstate,
-                     routing_backend)
+                     routing_backend, arrivals)

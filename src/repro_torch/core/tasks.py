@@ -25,6 +25,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .f32math import log_f32
+
 KIND_NONE = 0
 KIND_FIB = 1
 KIND_UTS = 2
@@ -189,7 +191,7 @@ class UtsWorkload:
 def _uts_child_count(depth: torch.Tensor, seed: torch.Tensor, b0: float,
                      d_max: int) -> torch.Tensor:
     """Vectorized geometric child count with linear decay (float32 math, as
-    the reference computes it)."""
+    the reference computes it, its `log` included)."""
     dev = seed.device
 
     def f32(v):  # a float32 constant made on the device (no host copy)
@@ -202,7 +204,9 @@ def _uts_child_count(depth: torch.Tensor, seed: torch.Tensor, b0: float,
     q = b_d / (1.0 + b_d)
     safe_q = torch.minimum(torch.maximum(q, f32(1e-9)), f32(1.0 - 1e-9))
     tiny = f32(1e-38)
-    ratio = torch.floor(torch.log(torch.maximum(u, tiny)) / torch.log(safe_q))
+    # the reference's float32 log, bit for bit (`torch.log` rounds some
+    # results an ulp apart, and a ratio on a floor boundary would flip)
+    ratio = torch.floor(log_f32(torch.maximum(u, tiny)) / log_f32(safe_q))
     # clamp in float before the cast (the cast of ±inf is undefined in C++);
     # the int clip below gives the reference's values either way
     m = ratio.clamp(-1.0, CHILD_CAP + 1.0).to(torch.int32).clamp(0, CHILD_CAP)
@@ -241,7 +245,12 @@ def expand(task: torch.Tensor, active: torch.Tensor, tables) -> dict:
 
     # ---------------- UTS node / chunk continuation ----------------------- #
     is_uts = active & (kind == KIND_UTS)
-    m = _uts_child_count(a, b, tables["uts_b0"], tables["uts_dmax"])
+    if tables["uts_b0"] == 0.0:
+        # b(d) = 0 at every depth: no UTS node has children (a FIB run's
+        # tables), and the float32 logs need not run
+        m = torch.zeros_like(a)
+    else:
+        m = _uts_child_count(a, b, tables["uts_b0"], tables["uts_dmax"])
     is_chunk = active & (kind == KIND_CHUNK)
     ch_start = torch.div(c, 256, rounding_mode="floor")
     ch_count = torch.remainder(c, 256)

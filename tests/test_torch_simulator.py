@@ -136,15 +136,30 @@ def test_plain_kernels_refused_on_cuda(monkeypatch):
             psim.simulate(wl, mesh, cfg, device="cuda")
 
 
-@pytest.mark.parametrize("kwargs,cfg_kw", [
-    ({}, {"arrival_gap_q8": 256}),
-    ({"arrivals": object()}, {}),
+@pytest.mark.parametrize("with_shape,cfg_kw", [
+    (False, {"arrival_gap_q8": 256}),
+    (True, {"arrival_gap_q8": 256, "arrival_batch": 99}),
 ], ids=["arrivals_gap", "arrivals"])
-def test_unported_options_raise(kwargs, cfg_kw):
-    cfg = psim.SimConfig(capacity=16, **cfg_kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item \d+"):
-        psim.simulate(ptasks.FibWorkload(n=10, cutoff=5),
-                      ptopo.MeshTopology.square(4), cfg, device="cpu", **kwargs)
+def test_unported_options_raise(with_shape, cfg_kw):
+    """Open-loop arrivals are ported (ROADMAP Queue 1 item 12): the options
+    that once raised `NotImplementedError` now get the reference's refusals
+    — the stream on without its shape, a batch past ARRIVAL_K — with the
+    reference's messages; a shape of another type is refused."""
+    from repro.core import arrivals as rarr
+    from repro_torch.core import arrivals as parr
+
+    with pytest.raises(ValueError) as want:
+        rsim.simulate(rtasks.FibWorkload(n=10, cutoff=5), rtopo.MeshTopology.square(4),
+                      rsim.SimConfig(capacity=16, **cfg_kw),
+                      arrivals=rarr.ArrivalConfig() if with_shape else None)
+    with pytest.raises(ValueError) as got:
+        psim.simulate(ptasks.FibWorkload(n=10, cutoff=5), ptopo.MeshTopology.square(4),
+                      psim.SimConfig(capacity=16, **cfg_kw), device="cpu",
+                      arrivals=parr.ArrivalConfig() if with_shape else None)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(TypeError, match="ArrivalConfig or ArrivalArrays"):
+        psim.simulate(ptasks.FibWorkload(n=10, cutoff=5), ptopo.MeshTopology.square(4),
+                      psim.SimConfig(capacity=16), device="cpu", arrivals=object())
 
 
 def test_config_split_mirrors_reference():

@@ -270,9 +270,10 @@ def test_per_point_draws_and_probe_equal_reference():
 
 def test_sweep_refuses_what_is_not_ported(monkeypatch):
     """With no CUDA device the entry points raise; on a card the plain
-    kernels are refused; several devices and arrivals raise
-    `NotImplementedError` naming their ROADMAP item; a schedule with no
-    death (item 9, ported) changes nothing."""
+    kernels are refused; several devices raise `NotImplementedError` naming
+    their ROADMAP item; the arrival stream on without its shape gets the
+    reference's refusal; a schedule with no death (item 9, ported) changes
+    nothing."""
     mesh, cfg = ptopo.MeshTopology.square(4), psim.SimConfig(capacity=16)
     wl = ptasks.FibWorkload(n=10, cutoff=5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -286,7 +287,9 @@ def test_sweep_refuses_what_is_not_ported(monkeypatch):
         psim.simulate_sweep(wl, mesh, cfg, [cfg.params], device="cpu")[0],
         psim.simulate_sweep(wl, mesh, cfg, [cfg.params], device="cpu",
                             fail_time=np.full(4, -1))[0])
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 12"):
+    # open-loop arrivals (item 12) are ported: the stream on without its
+    # shape gets the reference's refusal
+    with pytest.raises(ValueError, match=r"arrival_gap_q8 > 0 turns the open-loop"):
         psim.simulate_sweep(wl, mesh, cfg, [cfg.params._replace(arrival_gap_q8=256)],
                             device="cpu")
     # the flight recorder (item 11) is ported: the same call runs traced and

@@ -4,6 +4,7 @@ checked over a large (depth, seed) grid)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,21 +39,62 @@ def test_constants_and_tables():
             assert wl.expected_work_units() == pw.expected_work_units()
 
 
-@pytest.mark.parametrize("b0,d_max", [(4.0, 16), (4.0, 10), (3.0, 6),
-                                      (2.5, 40), (8.0, 12)])
-def test_uts_child_count_grid(b0, d_max):
-    """Every (depth, seed) pair of a 2 x 200k grid per shape: the float32
-    `log` of the two libraries may differ in the last bit, so a node on a
-    floor() boundary could flip; the grid must show 0 mismatches."""
-    rs = np_rng(17)
-    seeds = np.concatenate([rs.integers(0, 2**31, 200_000), np.arange(64)])
-    depth = np.tile(np.arange(d_max + 2), seeds.size // (d_max + 2) + 1)[:seeds.size]
-    want = np.asarray(rtasks._uts_child_count(
-        to_jax(depth), to_jax(seeds), jnp.float32(b0), jnp.int32(d_max)))
-    got = ptasks._uts_child_count(to_torch(depth), to_torch(seeds),
-                                  float(np.float32(b0)), d_max).numpy()
-    mismatches = int((want != got).sum())
+# (depth, seed) points at d_max 16 where a float32 log one ulp off the
+# reference's flips the child count (found over the wide grid below)
+UTS_FLIP_POINTS = ((4, 501288650), (3, 550108876), (6, 609191051), (5, 1214513702))
+
+
+def _uts_grid(b0, d_max, wide):
+    """The grid's (depth, seed) pairs: 200k random seeds (and 0..63), each
+    at one depth in turn; wide: seeds arange(2^22)·509 mod 2^31, each at
+    every depth below d_max."""
+    if not wide:
+        rs = np_rng(17)
+        seeds = np.concatenate([rs.integers(0, 2**31, 200_000), np.arange(64)])
+        depth = np.tile(np.arange(d_max + 2), seeds.size // (d_max + 2) + 1)[:seeds.size]
+        return depth, seeds
+    seeds = (np.arange(1 << 22, dtype=np.int64) * 509) % 2**31
+    return (np.repeat(np.arange(d_max)[:, None], seeds.size, 1).ravel(),
+            np.tile(seeds, d_max))
+
+
+@pytest.mark.parametrize("b0,d_max,wide", [(4.0, 16, False), (4.0, 10, False),
+                                           (3.0, 6, False), (2.5, 40, False),
+                                           (8.0, 12, False), (4.0, 16, True)],
+                         ids=["4.0-16", "4.0-10", "3.0-6", "2.5-40", "8.0-12",
+                              "4.0-16-wide"])
+def test_uts_child_count_grid(b0, d_max, wide):
+    """Every (depth, seed) pair of a grid per shape: a float32 `log` an ulp
+    off the reference's flips a node on a floor() boundary; the grid must
+    show 0 mismatches. The wide grid (67M pairs, in chunks) holds the four
+    points where `torch.log` flips (`UTS_FLIP_POINTS`)."""
+    depth, seeds = _uts_grid(b0, d_max, wide)
+    if wide:  # the flip points are pairs of the grid
+        for d, s in UTS_FLIP_POINTS:
+            assert s % 509 == 0 and s // 509 < (1 << 22) and d < d_max
+    # the wide grid takes the reference's count jitted, as its simulator does
+    ref = jax.jit(rtasks._uts_child_count) if wide else rtasks._uts_child_count
+    mismatches = 0
+    step = 1 << 23
+    for i in range(0, seeds.size, step):
+        d, s = depth[i:i + step], seeds[i:i + step]
+        want = np.asarray(ref(to_jax(d), to_jax(s), jnp.float32(b0), jnp.int32(d_max)))
+        got = ptasks._uts_child_count(to_torch(d), to_torch(s),
+                                      float(np.float32(b0)), d_max).numpy()
+        mismatches += int((want != got).sum())
     assert mismatches == 0, f"{mismatches} UTS child-count mismatches"
+
+
+def test_uts_child_count_flip_points():
+    """The four points where the C library's float32 log gives another
+    child count than the reference's: the port gives the reference's."""
+    d = np.array([p[0] for p in UTS_FLIP_POINTS])
+    s = np.array([p[1] for p in UTS_FLIP_POINTS])
+    want = np.asarray(rtasks._uts_child_count(to_jax(d), to_jax(s), jnp.float32(4.0),
+                                              jnp.int32(16)))
+    got = ptasks._uts_child_count(to_torch(d), to_torch(s), 4.0, 16).numpy()
+    assert_same(want, got)
+    assert want.tolist() == [1, 5, 3, 7]
 
 
 def test_count_tree():

@@ -72,8 +72,9 @@ def port_simulate(workload, mesh, cfg, schedule=None, **overrides):
     """Run the port on the CPU with the reference's workload, mesh and
     `SimConfig` (carried across by `repro_torch.convert`), with `overrides`
     applied to the config's fields and `schedule` (a dict of `fail_time`,
-    `wake_time`, `fail_period`, `speed` numpy arrays, and `linkstate`, a
-    reference `LinkStateSchedule`, with `routing_backend`) passed on."""
+    `wake_time`, `fail_period`, `speed` numpy arrays, `linkstate`, a
+    reference `LinkStateSchedule`, with `routing_backend`, and `arrivals`, a
+    reference `ArrivalConfig`) passed on."""
     import dataclasses
 
     from repro_torch import convert
@@ -83,6 +84,9 @@ def port_simulate(workload, mesh, cfg, schedule=None, **overrides):
     schedule = dict(schedule or {})
     if "linkstate" in schedule:
         schedule["linkstate"] = port_linkstate(schedule["linkstate"])
+    if schedule.get("arrivals") is not None:
+        schedule["arrivals"] = convert.arrival_config(
+            dataclasses.asdict(schedule["arrivals"]))
     return psim.simulate(
         convert.workload(type(workload).__name__, dataclasses.asdict(workload)),
         convert.mesh(mesh.num_workers, mesh.rows, mesh.cols, mesh.torus),
