@@ -136,7 +136,21 @@ Phases — any failure exits non-zero:
      and its TC rollback run, card == CPU; (e) `f32math.log_f32` and
      `arrivals.gap_ticks`, card == CPU bit for bit; (f) `deque_apply` at
      the arrival path's push log (L = 17, C = 256), exact and timed;
-  11-13. serve three models through `serve_loop.serve_requests` (one phase,
+  11. run the round executor (`phase_scheduler`, `scheduler.run_sweep`) at
+     the paper's widest configuration, 16 nodes x 40 cores = 640 workers on
+     a 25x26 grid, Fig. 3's settings (capacity 4096): (a) FIB_QUICK and
+     UTS_QUICK, GLOBAL and NEIGHBOR x seeds 0-2 as one sweep each, every
+     point's result, rounds, nodes, attempts, successes, overflow and
+     per-worker digests the reference's (SCHED_PINS), FIB exact, the mean
+     rounds per strategy and Fig. 4's gap; (b) paper_mesh's steady-phase FIB
+     (GLOBAL and NEIGHBOR at seed 0), pinned the same way: its wall, rounds,
+     ms a round, set-up apart, peak memory and a profiled 297-round window;
+     (c) card == CPU at W=100 for every strategy, a link snapshot of the
+     dynamic constellation and a max_rounds cut; (d) `steal_compact`
+     (each steal sub-round's export) launched 8 times a loop iteration in
+     each W=640 grid, counted from 0 just before it, and exact against its
+     plain version at the grids' 1,280 and 3,840 rows of 4,096 slots;
+  12-14. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
      exactly as its blocks say (an attention block `flash_attention` once in
@@ -173,6 +187,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -394,56 +409,65 @@ def _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L):
     return da
 
 
-def _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W):
-    """`steal_compact` (export widths GRANT_WIDTH and 4) and `deque_apply`
-    against their plain versions at W rows of capacity CAP_MAIN (exactly
-    equal), timed with their bounds."""
-    dev = torch.device("cuda")
-    C, T = CAP_MAIN, 4
-    G = ref.GRANT_WIDTH
-    L = tasks.EXPAND_K + 1
+def _export_inputs(torch, np, ref, rs, W, C):
+    """Random rings of W rows and C slots for `steal_compact`: a quarter of
+    the bottoms parked near the wrap, an eighth of the sizes below their
+    grants, a twelfth of the grants above the staging width."""
+    G, T = ref.GRANT_WIDTH, 4
 
     def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device="cuda")
 
     buf = t(rs.integers(-2**31, 2**31 - 1, (W, C, T), dtype=np.int64))
-    # bottoms parked near the wrap for a quarter of the workers
     bot = rs.integers(0, C, W)
     bot[: W // 4] = C - 1 - rs.integers(0, 4, W // 4)
     size = rs.integers(0, C + 1, W)
     size[W // 8: W // 4] = rs.integers(0, 3, W // 8)   # grants > size
     grants = rs.integers(0, G + 1, W)
     grants[W // 4: W // 3] += rs.integers(1, 4, W // 3 - W // 4)   # > the width
-    bot, size, grants = t(bot), t(size), t(grants)
+    return buf, t(bot), t(size), t(grants)
 
-    sc = {}
-    for width in (G, 4):
-        out_k = ops.steal_compact(buf, bot, size, grants, width)
-        out_p = ref.steal_compact(buf, bot, size, grants, width)
-        torch.cuda.synchronize()
-        err_sc = _max_abs_err(zip(out_k, out_p))
-        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
-            raise SystemExit(f"steal_compact disagrees with its plain version at "
-                             f"W={W}, width {width} (max abs err {err_sc})")
-        g = torch.minimum(grants.clamp(max=width), size).clamp(min=0)
-        sc_bytes = int(g.sum()) * 16 + W * width * 16 + 3 * W * 4 + 2 * W * 4
-        sc_ops = W * G * 8
 
-        def kern(width=width):
-            return ops.steal_compact(buf, bot, size, grants, width)
+def _steal_compact_at(torch, ops, ref, inputs, width: int) -> dict:
+    """`steal_compact` against its plain version on `inputs` at export
+    `width` (exactly equal), timed with its bound."""
+    buf, bot, size, grants = inputs
+    W = buf.shape[0]
+    out_k = ops.steal_compact(buf, bot, size, grants, width)
+    out_p = ref.steal_compact(buf, bot, size, grants, width)
+    torch.cuda.synchronize()
+    err = _max_abs_err(zip(out_k, out_p))
+    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        raise SystemExit(f"steal_compact disagrees with its plain version at "
+                         f"W={W}, C={buf.shape[1]}, width {width} (max abs err {err})")
+    g = torch.minimum(grants.clamp(max=width), size).clamp(min=0)
+    nbytes = int(g.sum()) * 16 + W * width * 16 + 3 * W * 4 + 2 * W * 4
+    nops = W * ref.GRANT_WIDTH * 8
 
-        r = {"ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
-             "plain_ms": _device_ms(torch, lambda width=width: ref.steal_compact(
-                 buf, bot, size, grants, width)),
-             "library_ms": None, "max_abs_err": err_sc,
-             "bytes": sc_bytes, "ops": sc_ops}
-        r["bound_ms"], r["bound_by"] = _bound_ms(sc_bytes, sc_ops)
-        if width == G:
-            sc = r
-        else:
-            sc.update({f"width4_{k}": r[k] for k in (
-                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
-            sc["max_abs_err"] = max(sc["max_abs_err"], err_sc)
+    def kern():
+        return ops.steal_compact(buf, bot, size, grants, width)
+
+    r = {"ms": _device_ms(torch, kern), "call_ms": _call_ms(torch, kern),
+         "plain_ms": _device_ms(torch, lambda: ref.steal_compact(
+             buf, bot, size, grants, width)),
+         "library_ms": None, "max_abs_err": err, "bytes": nbytes, "ops": nops}
+    r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops)
+    return r
+
+
+def _sim_kernels_at(torch, np, ops, ref, deque, tasks, rs, W):
+    """`steal_compact` (export widths ref.GRANT_WIDTH and 4) and `deque_apply`
+    against their plain versions at W rows of capacity CAP_MAIN (exactly
+    equal), timed with their bounds."""
+    C = CAP_MAIN
+    L = tasks.EXPAND_K + 1
+    inputs = _export_inputs(torch, np, ref, rs, W, C)
+    sc = _steal_compact_at(torch, ops, ref, inputs, ref.GRANT_WIDTH)
+    r = _steal_compact_at(torch, ops, ref, inputs, 4)
+    sc.update({f"width4_{k}": r[k] for k in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+    sc["max_abs_err"] = max(sc["max_abs_err"], r["max_abs_err"])
+    buf, bot, size, _ = inputs
 
     da = _deque_apply_at(torch, np, ops, ref, deque, rs, buf, bot, size, L)
     for name, r in (("steal_compact", sc), ("deque_apply", da)):
@@ -2501,6 +2525,323 @@ def _phase_arrivals(torch, np, sim, topo, tasks, ops, ref, deque, main_ms, link,
     return launches, da
 
 
+# the round executor (`repro_torch.core.scheduler`) at the paper's widest
+# configuration: 16 nodes x 40 cores = 640 workers on `MeshTopology.square`'s
+# 25x26 grid (src/repro/configs/paper_mesh.py), Fig. 3's settings (capacity
+# 4096, 2,000,000 rounds at most), GLOBAL and NEIGHBOR x seeds 0-2 as one
+# `run_sweep` a workload: Fig. 3's two trees (FIB_QUICK, UTS_QUICK) and the
+# steady-phase FIB of paper_mesh (`fib`, the measurement)
+SCHED_W, SCHED_CAP, SCHED_MAX_ROUNDS = 640, 4096, 2_000_000
+SCHED_WORKLOADS = {"FIB": ("fib", dict(n=44, cutoff=24, max_leaf_cost=32), 8),
+                   "UTS": ("uts", dict(b0=4.0, d_max=16, root_seed=19), 2),
+                   "FIB_STEADY": ("fib", dict(n=44, cutoff=24, max_leaf_cost=192), 8)}
+# each workload's grid: GLOBAL then NEIGHBOR, each at these seeds; the
+# steady FIB at seed 0 alone (its NEIGHBOR point runs 33,566 rounds, the
+# grid's wall, and at ~4.5 ms a round three seeds cost only ~5% more: the
+# round is launch-bound; the cut keeps the phase short all the same)
+SCHED_SEEDS = {"FIB": (0, 1, 2), "UTS": (0, 1, 2), "FIB_STEADY": (0,)}
+
+
+def sched_grid(name: str) -> tuple:
+    return tuple((strategy, seed) for strategy in ("global", "neighbor")
+                 for seed in SCHED_SEEDS[name])
+
+
+# the reference's (`repro.core.scheduler.run_sweep`, JAX on a CPU) points of
+# each `sched_grid`, in order (printed by tests/sched_pins.py): result,
+# rounds, nodes, attempts, successes, overflow, then the first 16 hex digits
+# of the sha256 of per_worker_busy, per_worker_attempts and
+# per_worker_successes (int32 bytes)
+SCHED_PINS = {
+    "FIB": (
+        (701408733, 795, 35421, 161724, 10091, 0,
+         "5abadc45a5c9df66", "84f4ba18736dc022", "685871a09e0a1328"),
+        (701408733, 794, 35421, 153828, 10896, 0,
+         "49731ca332f2da63", "f6ae17c8913f3b2d", "47eb3aa32deaea62"),
+        (701408733, 794, 35421, 153167, 10916, 0,
+         "36c0927cfaddf623", "a155af1ab29a4339", "08c7c14de6aa3d2c"),
+        (701408733, 5632, 35421, 24929255, 33027, 0,
+         "e34c46f4706ffed6", "5e2cff8f10af0877", "a272e480f943eeaf"),
+        (701408733, 5475, 35421, 24126076, 32262, 0,
+         "32f3c43249252405", "037538f7c99474a8", "1a6c4956f661616c"),
+        (701408733, 5211, 35421, 22774142, 32540, 0,
+         "3b2033ba0d692c40", "107ccabf0933a68d", "6fc3a261270978c4"),
+    ),
+    "UTS": (
+        (250777, 232, 250777, 83660, 29517, 0,
+         "c21706fe2c26a3b6", "56d7edad868bd0e2", "33e4a301b7a6c7e7"),
+        (250777, 232, 250777, 82234, 30086, 0,
+         "d1ca47b2c23f0f15", "90533d6f8d6a77db", "a1b5475884d36885"),
+        (250777, 231, 250777, 80663, 29633, 0,
+         "975e2d29db5fa37b", "4d2342d79fbc81e2", "c75743426f4c526f"),
+        (250777, 2142, 250777, 9795573, 144009, 0,
+         "5ef055477508850e", "abcc40a3f764c3f0", "4489a2e706ceacd8"),
+        (250777, 2648, 250777, 12370891, 160202, 0,
+         "cdc1b4bf0d278d1a", "8b1a94f5dad8573e", "8699c5f6466b9ccc"),
+        (250777, 2528, 250777, 11748199, 164138, 0,
+         "3b3c6b1335356dd9", "277ae8bba7bc2202", "24697846a3839324"),
+    ),
+    "FIB_STEADY": (
+        (701408733, 4666, 35421, 611468, 10175, 0,
+         "323f4a023541ab42", "804ddc0fafe21f04", "116f103a48cf3fd4"),
+        (701408733, 33566, 35421, 148582345, 33415, 0,
+         "034c979a87c9736d", "78356d96fd2c4548", "faaa2eef07f55aba"),
+    ),
+}
+# card == CPU at W=100 on tests/test_scheduler.py's FIB, capacity 256: every
+# strategy as one sweep, NEIGHBOR under one epoch's link snapshot of the
+# dynamic constellation (the most links down), GLOBAL cut at 57 rounds
+SCHED_SMALL = dict(n=24, cutoff=10, max_leaf_cost=8)
+SCHED_SMALL_RUNS = ("strategies", "link_up", "max_rounds")
+SCHED_WINDOW = 297  # a profiled window: the warm-up round and 37 x 8 replays
+
+
+def sched_row(np, r) -> tuple:
+    import hashlib
+
+    def sha(a):
+        return hashlib.sha256(np.asarray(a, np.int32).tobytes()).hexdigest()[:16]
+    return (r.result, r.rounds, r.nodes, r.attempts, r.successes, r.overflow,
+            sha(r.per_worker_busy), sha(r.per_worker_attempts),
+            sha(r.per_worker_successes))
+
+
+def sched_launches(subrounds: int, rounds: int) -> int:
+    """`steal_compact`'s launches in one grid on the card: one an export,
+    `subrounds` exports a round, over the loop's iterations: the warm-up
+    round, then replays in blocks of DONE_EVERY until the slowest point
+    stops after `rounds`."""
+    from repro_torch.core.simulator import DONE_EVERY
+
+    return subrounds * (1 + DONE_EVERY * -(-(rounds - 1) // DONE_EVERY))
+
+
+def sched_gap(np, name: str, rounds) -> tuple:
+    """Mean rounds of GLOBAL and NEIGHBOR over `sched_grid(name)`'s points,
+    and Fig. 4's relative gap (T_n - T_g) / T_g."""
+    t = {s: np.mean([n for (st, _), n in zip(sched_grid(name), rounds) if st == s])
+         for s in ("global", "neighbor")}
+    return t["global"], t["neighbor"], (t["neighbor"] - t["global"]) / t["global"]
+
+
+def sched_pinned(np, name: str, rs, exact_result) -> float:
+    """Hold a W=640 sweep's points to SCHED_PINS[name] (and, where given,
+    every result to `exact_result`, with no overflow); returns the
+    reference's Fig. 4 gap."""
+    for (s, seed), r, want in zip(sched_grid(name), rs, SCHED_PINS[name]):
+        if sched_row(np, r) != tuple(want):
+            raise SystemExit(f"[scheduler] {name} {s} seed {seed}: "
+                             f"{sched_row(np, r)}, the reference's {tuple(want)}")
+        if r.overflow or exact_result not in (None, r.result):
+            raise SystemExit(f"[scheduler] {name} {s} seed {seed}: not exact")
+    return sched_gap(np, name, [row[1] for row in SCHED_PINS[name]])[2]
+
+
+def _sched_small(label: str, device: str):
+    """One of SCHED_SMALL_RUNS on `device`: a list of `RunResult`s and the
+    wall seconds."""
+    import numpy as np
+
+    from repro_torch.benchmarks.common import dynamic_constellation
+    from repro_torch.core import scheduler, tasks
+    from repro_torch.core import topology as topo
+
+    wl = tasks.FibWorkload(**SCHED_SMALL)
+    mesh = topo.MeshTopology.square(100)
+    cfg = scheduler.SchedulerConfig(capacity=256, max_rounds=100_000)
+    t0 = time.perf_counter()
+    if label == "strategies":
+        pts = [cfg.params._replace(strategy=c) for c in range(4)]
+        rs = scheduler.run_sweep(wl, mesh, cfg, pts, device=device)
+    elif label == "link_up":
+        con, sched, _ = dynamic_constellation(100, 5, 10)
+        ls = sched.linkstate
+        e = int(np.argmax((~ls.link_up).sum(axis=(1, 2))))
+        rs = [scheduler.run_vectorized(wl, con.mesh, cfg, ls.up_at(int(ls.epoch_starts[e])),
+                                       device=device)]
+    else:
+        cut = scheduler.SchedulerConfig(strategy=scheduler.stealing.Strategy.GLOBAL,
+                                        capacity=256, max_rounds=57)
+        rs = [scheduler.run_vectorized(wl, mesh, cut, device=device)]
+    return rs, time.perf_counter() - t0
+
+
+def _sched_cpu_run(label: str):
+    import torch
+
+    torch.set_num_threads(1)
+    return _sched_small(label, "cpu")
+
+
+def phase_scheduler(torch, np, ops, ref):
+    """The round executor on the card. (a) Fig. 3's largest point: FIB_QUICK
+    and UTS_QUICK at W=640 as one 6-point sweep each, every point the
+    reference's (SCHED_PINS), FIB exact; the mean rounds per strategy and
+    Fig. 4's gap. (b) The steady-phase FIB at W=640, pinned the same way:
+    wall, rounds, ms a round, set-up (capture and warm-up) apart, peak
+    memory, and a profiled window of replays. (c) Card == CPU at W=100:
+    every strategy, a link snapshot, a max_rounds cut. (d) `steal_compact`
+    against its plain version at the grids' rows of SCHED_CAP slots.
+    Each W=640 grid's launches are counted from 0 just before it and held
+    to 8 a loop iteration. Returns ({path: steal_compact's launches}, the
+    kernel's `scheduler_*` numbers and max abs error)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(len(SCHED_SMALL_RUNS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    cpu = {label: pool.submit(_sched_cpu_run, label) for label in SCHED_SMALL_RUNS}
+    try:
+        out = _phase_scheduler(torch, np, ops, ref, cpu)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"[scheduler] phase {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def _phase_scheduler(torch, np, ops, ref, cpu):
+    from repro_torch.core import scheduler, tasks
+    from repro_torch.core import topology as topo
+
+    mesh = topo.MeshTopology.square(SCHED_W)
+    code = scheduler.stealing.strategy_code
+
+    def grid(name, **static):
+        kind, fields, expansions = SCHED_WORKLOADS[name]
+        wl = (tasks.FibWorkload if kind == "fib" else tasks.UtsWorkload)(**fields)
+        cfg = scheduler.SchedulerConfig(capacity=SCHED_CAP, max_rounds=SCHED_MAX_ROUNDS,
+                                        expansions_per_round=expansions)
+        cfg = dataclasses.replace(cfg, **static)
+        pts = [cfg.params._replace(strategy=code(s), seed=seed)
+               for s, seed in sched_grid(name)]
+        return lambda: scheduler.run_sweep(wl, mesh, cfg, pts), wl
+
+    def exact(wl):  # FIB's result is known; UTS's is the reference's
+        return wl.expected_result() if isinstance(wl, tasks.FibWorkload) else None
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t1
+
+    subrounds = scheduler.SchedulerConfig().steal_subrounds
+    launches = {}
+
+    def counted(path, fn):
+        """`fn`'s grid, timed, with steal_compact's launches counted from 0
+        just before it and read just after, held to `sched_launches`."""
+        ops.reset_launch_counts()
+        rs, dt = timed(fn)
+        n = ops.LAUNCHES["steal_compact"]
+        rounds = max(r.rounds for r in rs)
+        if n != sched_launches(subrounds, rounds):
+            raise SystemExit(f"[scheduler] {path}: {n} steal_compact launches, "
+                             f"{sched_launches(subrounds, rounds)} expected for "
+                             f"{rounds} rounds")
+        launches[path] = n
+        return rs, dt
+
+    print(f"[scheduler] W={SCHED_W} ({mesh.rows}x{mesh.cols}, last row "
+          f"{SCHED_W - (mesh.rows - 1) * mesh.cols} of {mesh.cols}), capacity {SCHED_CAP}, "
+          f"GLOBAL, NEIGHBOR x seeds {SCHED_SEEDS} a workload")
+    # a short grid first, untimed: the phase's first capture
+    grid("FIB", max_rounds=8)[0]()
+    # (a) Fig. 3's largest point
+    for name in ("FIB", "UTS"):
+        fn, wl = grid(name)
+        rs, dt = counted(f"scheduler_{name.lower()}_quick", fn)
+        want = sched_pinned(np, name, rs, exact(wl))
+        tg, tn, rel = sched_gap(np, name, [r.rounds for r in rs])
+        if rel != want:
+            raise SystemExit(f"[scheduler] {name}: Fig. 4 gap {rel}, the reference's {want}")
+        rounds = max(r.rounds for r in rs)
+        print(f"[scheduler] {name} {SCHED_WORKLOADS[name][1]}, expansions "
+              f"{SCHED_WORKLOADS[name][2]}: result={rs[0].result} nodes={rs[0].nodes}; "
+              f"every point the reference's (rounds {[r.rounds for r in rs]}, per-worker "
+              f"digests); mean rounds global {tg:.1f} neighbor {tn:.1f}, Fig. 4 gap "
+              f"(T_n - T_g)/T_g = {rel * 100:+.4f}% (the reference's); P_success "
+              f"{[round(r.p_success, 4) for r in rs]}; wall {dt:.3f} s, {rounds} rounds "
+              f"= {dt / rounds * 1e3:.3f} ms a round")
+
+    # (b) the steady phase: set-up apart, the grid, a profiled window
+    setup_fn, _ = grid("FIB_STEADY", max_rounds=1)
+    _, setup_s = timed(setup_fn)
+    fn, wl = grid("FIB_STEADY")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    rs, dt = counted("scheduler", fn)
+    peak = torch.cuda.max_memory_allocated()
+    sched_pinned(np, "FIB_STEADY", rs, exact(wl))
+    tg, tn, rel = sched_gap(np, "FIB_STEADY", [r.rounds for r in rs])
+    rounds = max(r.rounds for r in rs)
+    work = wl.expected_work_units()
+    print(f"[scheduler] FIB_STEADY {SCHED_WORKLOADS['FIB_STEADY'][1]} ({work} work "
+          f"units): every point the reference's (rounds {[r.rounds for r in rs]}); "
+          f"mean rounds global {tg:.1f} neighbor {tn:.1f}, gap {rel * 100:+.4f}%")
+    print(f"[scheduler] FIB_STEADY grid: wall {dt:.3f} s for {rounds} rounds = "
+          f"{dt / rounds * 1e3:.3f} ms a round, {rounds / dt:.1f} rounds a wall second "
+          f"({len(rs) * work / dt:.0f} work units a wall second over the grid); "
+          f"set-up (state, warm-up round, capture, one round's host copy) "
+          f"{setup_s:.3f} s, the loop {dt - setup_s:.3f} s = "
+          f"{(dt - setup_s) / (rounds - 1) * 1e3:.3f} ms a round; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB before)")
+    win, _ = grid("FIB_STEADY", max_rounds=SCHED_WINDOW)
+    _, wall_s = timed(win)
+    busy, n_dev, by_name = _profile(torch, win)
+    hits = [v for k, v in by_name.items() if "steal_compact_kernel" in k]
+    k_ms, k_n = sum(ms for ms, _ in hits), sum(c for _, c in hits)
+    if k_n == 0:
+        raise SystemExit("[profile] scheduler: no steal_compact kernel seen")
+    ring = len(sched_grid("FIB_STEADY")) * SCHED_W * SCHED_CAP * 16
+    print(f"[profile] scheduler FIB_STEADY W={SCHED_W} x {len(sched_grid('FIB_STEADY'))} "
+          f"points, "
+          f"{SCHED_WINDOW} rounds: wall {wall_s * 1e3:.3f} ms ({wall_s * 1e3 / SCHED_WINDOW:.3f} "
+          f"ms a round), device busy {busy:.3f} ms (busy share {busy / wall_s / 1e3:.4f}); "
+          f"{n_dev} device activities = {n_dev / SCHED_WINDOW:.1f} a round; the grid's "
+          f"rings {ring / 2**20:.1f} MiB; steal_compact {k_n}x, {k_ms / k_n * 1e3:.3f} us each")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+
+    # (c) card == CPU at W=100
+    for label in SCHED_SMALL_RUNS:
+        rg, dt = _sched_small(label, "cuda")
+        rc, dt_c = cpu[label].result()
+        for i, (a, b) in enumerate(zip(rg, rc)):
+            _assert_equal(np, a, b, what=f"[scheduler] W=100 {label} [{i}] card vs cpu")
+        if label != "max_rounds" and any(
+                r.result != tasks.FibWorkload(**SCHED_SMALL).expected_result() for r in rg):
+            raise SystemExit(f"[scheduler] W=100 {label}: not exact")
+        print(f"[scheduler] W=100 {label}: rounds {[r.rounds for r in rg]} successes "
+              f"{[r.successes for r in rg]} result {[r.result for r in rg]}; card "
+              f"{dt:.3f} s, cpu {dt_c:.3f} s in a worker process, card == cpu in every "
+              f"field")
+    print(f"[scheduler] steal_compact launches, each grid counted from 0 just "
+          f"before it, {subrounds} a loop iteration: {launches}")
+
+    # (d) the kernel against its plain version at the grids' rows
+    rs = np.random.default_rng(20261025)
+    kern = {"scheduler_main_path_device_ms": k_ms / k_n}
+    err = 0
+    for tag, points in (("scheduler_", len(sched_grid("FIB_STEADY"))),
+                        ("scheduler_fig3_", len(sched_grid("FIB")))):
+        rows = points * SCHED_W
+        r = _steal_compact_at(torch, ops, ref,
+                              _export_inputs(torch, np, ref, rs, rows, SCHED_CAP),
+                              ref.GRANT_WIDTH)
+        err = max(err, r["max_abs_err"])
+        kern.update({f"{tag}{k}": r[k] for k in (
+            "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        print(f"[scheduler] steal_compact at {rows} rows, C={SCHED_CAP}: exact; device "
+              f"per launch: kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
+              f"library None, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, "
+              f"{r['bytes']} bytes); eager wrapper call {r['call_ms']:.6f} ms")
+    kern["max_abs_err"] = err
+    return launches, kern
+
+
 SERVE_BATCH, SERVE_NEW = 8, 64
 # the kernels' symbols in a profile, by wrapper name (the serving paths run
 # both attention kernels in bf16, through their tensor-core kernels, and
@@ -2811,6 +3152,11 @@ def main() -> int:
                                           main_ms, link)
     for name, n in arr_launches.items():
         by_path[name]["arrivals"] = n
+    sched_launches_, sched_kern = phase_scheduler(torch, np, ops, ref)
+    by_path["steal_compact"].update(sched_launches_)
+    kern["steal_compact"]["max_abs_err"] = max(kern["steal_compact"]["max_abs_err"],
+                                               sched_kern.pop("max_abs_err"))
+    kern["steal_compact"].update(sched_kern)
     del link
     kern["deque_apply"].update({f"faults_{k}": da_tc[k] for k in (
         "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "lanes")})
@@ -2861,7 +3207,7 @@ def main() -> int:
          "main_path_device_ms": profiled[name],
          **{k: v for k, v in kern[name].items()
             if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_", "faults_",
-                              "width4_", "arrivals_"))
+                              "width4_", "arrivals_", "scheduler_"))
             and k not in ("hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),

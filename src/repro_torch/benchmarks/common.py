@@ -1,11 +1,21 @@
 """What the port's benchmark scripts share: one CSV row per measurement,
-and the full-constellation dynamic scenario."""
+the device's name for their `# wall` lines, and the full-constellation
+dynamic scenario."""
+
+import torch
 
 from ..core import constellation
 
 
 def emit(name: str, us_per_call: float, derived: str = ""):
     print(f"{name},{us_per_call:.2f},{derived}", flush=True)
+
+
+def device_name(device) -> str:
+    """The card's name for `device` (None: the CUDA device), else the
+    device's own spelling."""
+    dev = torch.device("cuda" if device is None else device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
 
 
 def dynamic_constellation(W: int, tau_base: int, orbits: int):

@@ -27,10 +27,9 @@ import argparse
 import time
 
 import numpy as np
-import torch
 
 from ..core import arrivals, jsonio, simulator, stealing, tasks, topology, tracing
-from .common import emit
+from .common import device_name, emit
 
 DEFAULT_LOADS = (0.05, 0.1, 0.2, 0.3, 0.45, 0.6, 0.8, 1.0, 1.25)
 QUICK_LOADS = (0.1, 0.4, 0.8)
@@ -170,11 +169,6 @@ def plot_curve(doc: dict, path: str) -> bool:
     return True
 
 
-def _device_name(device) -> str:
-    dev = torch.device("cuda" if device is None else device)
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=6,
@@ -222,7 +216,7 @@ def main():
                     knee_factor=args.knee_factor,
                     assert_single_compile=args.assert_single_compile,
                     device=args.device)
-    print(f"# wall {time.perf_counter() - t0:.3f} s on {_device_name(args.device)}")
+    print(f"# wall {time.perf_counter() - t0:.3f} s on {device_name(args.device)}")
     if args.out:
         jsonio.write(args.out, doc, indent=2)
         print(f"# wrote {args.out}")

@@ -27,10 +27,9 @@ import itertools
 import time
 
 import numpy as np
-import torch
 
 from ..core import jsonio, latency, simulator, stealing, tasks, topology, tracing
-from .common import emit
+from .common import device_name, emit
 
 DEFAULT_SIZES = (16, 25, 36, 64, 100)
 QUICK_SIZES = (9, 16, 25)
@@ -314,11 +313,6 @@ def plot_crossover(doc: dict, path: str) -> bool:
 # CLI
 # --------------------------------------------------------------------------
 
-def _device_name(device) -> str:
-    dev = torch.device("cuda" if device is None else device)
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=None)
@@ -349,7 +343,7 @@ def main():
                     runs=args.runs, workload=wl,
                     assert_single_compile=args.assert_single_compile,
                     rtt_hists=not args.no_rtt, device=args.device)
-    print(f"# wall {time.perf_counter() - t0:.3f} s on {_device_name(args.device)}")
+    print(f"# wall {time.perf_counter() - t0:.3f} s on {device_name(args.device)}")
     jsonio.write(args.out, doc, indent=2)
     print(f"# wrote {args.out}")
     if not args.no_plot:

@@ -2,7 +2,8 @@
 fields and numpy arrays, so both packages run the same thing.
 
 The simulator has no weights: its inputs are a workload's fields, a mesh's
-``(num_workers, rows, cols, torus)``, a `SimConfig`'s fields (its
+``(num_workers, rows, cols, torus)``, a `SimConfig`'s (or the round
+executor's `SchedulerConfig`'s) fields (its
 `trace` a dict of `TraceConfig` fields, or a config), a link-state
 schedule's arrays, an arrival config's fields or a constellation's config
 fields and, for the deque layer, a `DequeState`'s ``(buf, bot, size)``.
@@ -22,6 +23,7 @@ import torch
 from .core import arrivals, constellation
 from .core import deque as dq
 from .core import linkstate as lstate
+from .core import scheduler as sched
 from .core import simulator as sim
 from .core import stealing, tasks
 from .core import topology as topo
@@ -59,6 +61,15 @@ def sim_config(fields: dict) -> sim.SimConfig:
         f["trace"] = tracing.TraceConfig(**(t if isinstance(t, dict)
                                             else dataclasses.asdict(t)))
     return sim.SimConfig(**f)
+
+
+def sched_config(fields: dict) -> sched.SchedulerConfig:
+    """A round executor's `SchedulerConfig` from a field dict (e.g.
+    `dataclasses.asdict` of the reference's config)."""
+    f = dict(fields)
+    if "strategy" in f:
+        f["strategy"] = stealing.Strategy(_value(f["strategy"]))
+    return sched.SchedulerConfig(**f)
 
 
 def linkstate_schedule(epoch_starts, link_tau, link_up, speed

@@ -5,7 +5,10 @@ worker's deque is a ring buffer of capacity C holding [kind, a, b, c] int32
 records; the constellation's deques are one (W, C, T) tensor plus (W,)
 bottom indices and sizes. Every operation is masked per worker and
 functional: it returns new tensors and leaves its inputs untouched — all
-but `apply`, the staged commit, which writes into its base buffer.
+but `apply`, the staged commit, which writes into its base buffer, and
+the in-place pushes `push_top_` and `push_top_many_`, which write only the
+pushed records into the ring they are given (the round executor's pushes:
+a ring pass a push is what its wide rings cannot afford).
 
 Writes use a dense formulation: each ring slot (or push-log lane) works out
 which record, if any, lands on it, and the result is a `torch.where` over
@@ -95,6 +98,37 @@ def push_top_many(state: DequeState, tasks: torch.Tensor, counts: torch.Tensor):
     recs = _gather_rows(tasks, r.clamp(max=k_max - 1))
     buf = torch.where(hit[:, :, None], recs, state.buf)
     return DequeState(buf, state.bot, state.size + pushed), overflow
+
+
+def push_top_(state: DequeState, task: torch.Tensor, mask: torch.Tensor):
+    """`push_top` in place: one record a worker written into `state.buf`
+    itself (a worker that does not push writes its slot's own record back),
+    so the ring equals `push_top`'s. Returns (state whose `buf` is
+    `state.buf`, ok)."""
+    cap = capacity(state)
+    ok = mask & (state.size < cap)
+    idx = torch.remainder(state.bot + state.size, cap).long()
+    rows = _rows(idx)
+    state.buf[rows, idx] = torch.where(ok[:, None], task, state.buf[rows, idx])
+    return DequeState(state.buf, state.bot, state.size + ok.to(torch.int32)), ok
+
+
+def push_top_many_(state: DequeState, tasks: torch.Tensor, counts: torch.Tensor):
+    """`push_top_many` in place: the K-slot staging block's lanes written
+    into `state.buf` itself, each at its own slot above the top (a lane
+    past the pushed count writes its slot's own record back), so the ring
+    equals `push_top_many`'s. Returns (state whose `buf` is `state.buf`,
+    overflowed)."""
+    cap = capacity(state)
+    pushed = torch.minimum(counts, cap - state.size)
+    overflow = counts - pushed
+    # lanes >= cap would alias lower ones; pushed <= cap never reaches them
+    k = torch.arange(min(tasks.shape[1], cap), device=counts.device)[None, :]
+    idx = torch.remainder((state.bot + state.size)[:, None] + k, cap).long()
+    rows = _rows(idx)[:, None]
+    hit = (k < pushed[:, None])[:, :, None]
+    state.buf[rows, idx] = torch.where(hit, tasks[:, :k.shape[1]], state.buf[rows, idx])
+    return DequeState(state.buf, state.bot, state.size + pushed), overflow
 
 
 def pop_top(state: DequeState, mask: torch.Tensor):

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import resolve_device
 from . import topology as topo
 
 try:  # the pure-numpy fallback below runs where scipy does not import
@@ -371,15 +372,6 @@ class _StructClass:
         self.covered = sizes[self.comp] > 1
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch builds link-state tables on the CUDA device by "
-            "default and none is available; pass device='cpu'")
-    return dev
-
-
 def build_tables(schedule: LinkStateSchedule, mesh: topo.MeshTopology,
                  routing: str = "dense", patch: tuple[int, int] | None = None,
                  device=None) -> tuple[LinkStateArrays, RoutingBuildStats]:
@@ -389,7 +381,7 @@ def build_tables(schedule: LinkStateSchedule, mesh: topo.MeshTopology,
     (landmark vectors, bounded stretch) or "auto" (`resolve_routing`);
     `patch` overrides the sparse patch shape (`topology.patch_dims`)."""
     t_begin = time.perf_counter()
-    dev = _resolve_device(device)
+    dev = resolve_device(device, "repro_torch builds link-state tables")
     if mesh.num_workers != mesh.rows * mesh.cols:
         raise ValueError(
             "link-state simulation requires a fully populated grid "

@@ -91,6 +91,7 @@ import torch
 from . import arrivals as arr_lib
 from . import deque as dq
 from . import linkstate as lstate
+from . import resolve_device
 from . import rng, stealing, tasks
 from . import topology as topo
 from . import tracing
@@ -842,11 +843,7 @@ def _schedules(W: int, fail_time=None, speed=None, wake_time=None,
 
 
 def _resolve_device(device, cfg: StaticConfig) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch's simulator runs on a CUDA device by default and "
-            "none is available; pass device='cpu' to run the plain PyTorch path")
+    dev = resolve_device(device, "repro_torch's simulator runs")
     if dev.type == "cuda" and cfg.use_steal_kernel is False:
         raise ValueError(
             "use_steal_kernel=False asks for the kernels' plain versions, "

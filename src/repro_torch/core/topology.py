@@ -1,8 +1,10 @@
 """2D mesh / torus topology of the constellation (paper §2.1, §4.1).
 
-Worker coordinates and the radius-1 neighbor table are host numpy, built
-once at initialization; `hop_dist` prices thief→victim distances on tensors
-from the (W, 2) coordinate table, so no dense (W, W) matrix is ever built.
+Worker coordinates, the radius-1 neighbor table and the hop helpers
+(`hops`, `hop_matrix`, `mean_hops`: what Table 1's measured column reads)
+are host numpy, built once at initialization; `hop_dist` prices
+thief→victim distances on tensors from the (W, 2) coordinate table, so the
+simulator never builds a dense (W, W) matrix.
 
 Workers 0..C-1 fill a ⌈√C⌉-wide grid row-major; the last row may be ragged.
 With `torus=True` a row wraps when it is fully populated and a column wraps
@@ -94,6 +96,43 @@ class MeshTopology:
                 tab[w, d] = self.worker_at(rr, cc)
         return tab
 
+    @cached_property
+    def neighbor_counts(self) -> np.ndarray:
+        return (self.neighbor_table != NO_NEIGHBOR).sum(axis=1).astype(np.int32)
+
+    def neighbors_of(self, worker: int) -> list[int]:
+        return [int(n) for n in self.neighbor_table[worker] if n != NO_NEIGHBOR]
+
+    def hops(self, a: int, b: int) -> int:
+        """Manhattan hops between workers a and b (paper §3.3 ii: shortest
+        paths); only an exact torus wraps."""
+        ra, ca = self.coords_of(a)
+        rb, cb = self.coords_of(b)
+        dr, dc = abs(ra - rb), abs(ca - cb)
+        if self.torus_full():
+            dr = min(dr, self.rows - dr)
+            dc = min(dc, self.cols - dc)
+        return dr + dc
+
+    @cached_property
+    def hop_matrix(self) -> np.ndarray:
+        """(num_workers, num_workers) int32 Manhattan hop distances."""
+        rc = self.coords
+        dr = np.abs(rc[:, None, 0] - rc[None, :, 0])
+        dc = np.abs(rc[:, None, 1] - rc[None, :, 1])
+        if self.torus_full():
+            dr = np.minimum(dr, self.rows - dr)
+            dc = np.minimum(dc, self.cols - dc)
+        return (dr + dc).astype(np.int32)
+
+    def mean_hops(self) -> float:
+        """Average hop count between two distinct uniform-random workers;
+        (2/3)·√N on a full √N×√N mesh as N grows."""
+        n = self.num_workers
+        if n == 1:
+            return 0.0
+        return float(self.hop_matrix.sum() / (n * (n - 1)))
+
     def torus_full(self) -> bool:
         """Whether the hop metric wraps (exact torus: every grid slot filled)."""
         return self.torus and self.num_workers == self.rows * self.cols
@@ -181,3 +220,8 @@ def detour_matrix(mesh: MeshTopology, link_tau: np.ndarray,
     for k in range(W):
         d = np.minimum(d, d[:, k : k + 1] + d[k : k + 1, :])
     return np.minimum(d, UNREACHABLE).astype(np.int32)
+
+
+def theoretical_mean_hops(n: int) -> float:
+    """Paper §3.3: average hops between two random nodes of a √N×√N mesh ≈ (2/3)√N."""
+    return (2.0 / 3.0) * math.sqrt(n)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import core
 from . import layers as L
 from .config import ModelConfig
 
@@ -50,12 +51,7 @@ def check_config(cfg: ModelConfig) -> None:
 
 
 def resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch serves on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
-    return dev
+    return core.resolve_device(device, "repro_torch serves")
 
 
 def _dims(cfg: ModelConfig) -> L.AttnDims:

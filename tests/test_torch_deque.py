@@ -299,3 +299,29 @@ def test_transplant_matches_reference(seed, staged):
     assert_state(want, pdq.DequeState(*(x[0] for x in got)), "transplant")
     assert_same(acc_r, acc_p[0], "acc")
     assert_same(ovf_r, ovf_p[0], "overflow")
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("C", [8, 3])
+def test_inplace_pushes_random(seed, C):
+    """`push_top_` and `push_top_many_` leave exactly the reference's ring
+    (the round executor's pushes), written into the buffer they are given;
+    C = 3 is below the 8-lane staging block."""
+    rs = np_rng(100 + seed)
+    buf, bot, size = random_state(rs, C=C)
+    mask = rs.random(W) < 0.7
+    task = rs.integers(0, 99, (W, T))
+    tasks = rs.integers(0, 99, (W, 8, T))
+    counts = rs.integers(0, 9, W)
+    r = rdq.DequeState(to_jax(buf), to_jax(bot), to_jax(size))
+    r1, ok_r = rdq.push_top(r, to_jax(task), jnp.asarray(mask))
+    p = convert.deque_state(buf, bot, size)
+    p1, ok_p = pdq.push_top_(p, to_torch(task), torch.as_tensor(mask))
+    assert p1.buf is p.buf
+    assert_same(ok_r, ok_p, "push ok")
+    assert_state(r1, p1, "push_top_")
+    r2, ov_r = rdq.push_top_many(r1, to_jax(tasks), to_jax(counts))
+    p2, ov_p = pdq.push_top_many_(p1, to_torch(tasks), to_torch(counts))
+    assert p2.buf is p.buf
+    assert_same(ov_r, ov_p, "push_many overflow")
+    assert_state(r2, p2, "push_top_many_")

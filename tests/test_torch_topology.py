@@ -53,3 +53,26 @@ def test_hop_dist(name, make):
         live = victim >= 0
         assert_same(ref.hop_matrix[np.arange(W), np.clip(victim, 0, W - 1)][live],
                     got.numpy()[live], "hop_matrix")
+
+
+HOP_MESHES = MESHES[:-1] + [
+    ("paper_640", lambda m: m.square(640)),               # 25x26, last row partial
+    ("paper_640_torus", lambda m: m.square(640, torus=True)),  # not full: no wrap
+    ("exact_torus", lambda m: m.grid(6, 6, torus=True)),
+]
+
+
+@pytest.mark.parametrize("name,make", HOP_MESHES, ids=[m[0] for m in HOP_MESHES])
+def test_hop_helpers(name, make):
+    ref, port = make(rtopo.MeshTopology), make(ptopo.MeshTopology)
+    W = ref.num_workers
+    assert_same(ref.neighbor_counts, port.neighbor_counts, "neighbor_counts")
+    assert_same(ref.hop_matrix, port.hop_matrix, "hop_matrix")
+    assert port.hop_matrix.dtype == np.int32
+    assert ref.mean_hops() == port.mean_hops()
+    rs = np_rng(11)
+    for a, b in rs.integers(0, W, (16, 2)).tolist() + [(0, W - 1)]:
+        assert ref.hops(a, b) == port.hops(a, b) == int(port.hop_matrix[a, b])
+    for w in (0, W // 2, W - 1):
+        assert ref.neighbors_of(w) == port.neighbors_of(w)
+    assert rtopo.theoretical_mean_hops(W) == ptopo.theoretical_mean_hops(W)
