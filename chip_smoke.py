@@ -150,6 +150,17 @@ Phases — any failure exits non-zero:
      (each steal sub-round's export) launched 8 times a loop iteration in
      each W=640 grid, counted from 0 just before it, and exact against its
      plain version at the grids' 1,280 and 3,840 rows of 4,096 slots;
+  11b. run the sharded executor (`phase_sharded`,
+     `scheduler.build_sharded_run` on a local mesh: one worker a shard, the
+     collectives index moves on the card, one round a captured-graph
+     replay): tests/test_scheduler.py's sharded FIB at 4x4 (NEIGHBOR,
+     GLOBAL, a NEIGHBOR torus) and the reference dry-run's 16x16 mesh and
+     workload cut at 1,000 rounds, each run's rounds, counts and every
+     state leaf's digest the reference's (SHARDED_PINS), 4x4 card == CPU;
+     `run_vectorized`'s rounds beside the 4x4 ones; both 16x16 strategies
+     to the end (the workload's exact result and nodes, no overflow), ms a
+     round, rounds a wall second and a profiled window; one round's 16x16
+     collective schedule (`launch.dryrun_runtime`). No kernel runs here;
   12-14. serve three models through `serve_loop.serve_requests` (one phase,
      `phase_serve`, each model in turn, random weights from seed 0, bf16):
      8 requests and 64 new tokens each; the path's kernels must launch
@@ -2842,6 +2853,188 @@ def _phase_scheduler(torch, np, ops, ref, cpu):
     return launches, kern
 
 
+# the sharded executor (`scheduler.build_sharded_run`) on a local mesh: tests/
+# test_scheduler.py's sharded FIB at 4x4 (capacity 128), and the reference
+# dry-run's 16x16 mesh and workload (FIB n=30 cutoff 12 at the default leaf
+# cost, capacity 256) cut at
+# 1,000 rounds (the reference's NEIGHBOR run to the end takes too long on a
+# CPU to pin): label -> (mesh shape, strategy, torus, FIB fields, capacity,
+# max_rounds)
+SHARDED_SMALL = dict(n=20, cutoff=10, max_leaf_cost=8)
+SHARDED_WIDE = dict(n=30, cutoff=12, max_leaf_cost=64)  # FibWorkload's default leaf cost
+SHARDED_RUNS = {
+    "4x4 neighbor": ((4, 4), "neighbor", False, SHARDED_SMALL, 128, 50_000),
+    "4x4 global": ((4, 4), "global", False, SHARDED_SMALL, 128, 50_000),
+    "4x4 neighbor torus": ((4, 4), "neighbor", True, SHARDED_SMALL, 128, 50_000),
+    "16x16 neighbor": ((16, 16), "neighbor", False, SHARDED_WIDE, 256, 1_000),
+    "16x16 global": ((16, 16), "global", False, SHARDED_WIDE, 256, 1_000),
+}
+SHARDED_LEAVES = ("buf", "bot", "size", "acc", "work", "fails", "attempts", "successes",
+                  "nodes", "busy", "overflow")
+SHARDED_FULL_ROUNDS = 1_000_000  # the 16x16 runs to completion: no cut
+SHARDED_WINDOW = 297  # a profiled window: the warm-up round and 37 x 8 replays
+# the reference's rows (`sharded_row`, printed by tests/sharded_pins.py)
+SHARDED_PINS = {
+    "4x4 neighbor": (97, 6765, 287, 422, 78, 0,
+        "e56fdddc934bef22", "1783d8cbe30587c4", "f5a5fd42d16a2030", "81f86a95f95c9923",
+        "f5a5fd42d16a2030", "b7202a24887b6210", "ef05c422d12f22a7", "35081d6d30b2ed0b",
+        "1482e74b4e918e3a", "bed8994729cca23c", "f5a5fd42d16a2030"),
+    "4x4 global": (92, 6765, 287, 342, 66, 0,
+        "b225de5bc06360c7", "b8efbcd937b291d3", "f5a5fd42d16a2030", "b48d45e9ea769b31",
+        "f5a5fd42d16a2030", "23b16c414720a64e", "a3d90614c8157fd9", "5f809dc6f1a30193",
+        "4506c4ce9039ea04", "57b75f8e7fcbf569", "f5a5fd42d16a2030"),
+    "4x4 neighbor torus": (90, 6765, 287, 310, 51, 0,
+        "2244595b62f41dc4", "889c884d040e3d04", "f5a5fd42d16a2030", "42e9eb6e43179026",
+        "f5a5fd42d16a2030", "d5aab9755d9d3c52", "2e07579afe0eed12", "6fe430fa97eb591c",
+        "640fe1601582d16c", "0cc719c0b8c7a0aa", "f5a5fd42d16a2030"),
+    "16x16 neighbor": (1000, 129069, 2154, 198040, 583, 0,
+        "2affec3dfeff2f00", "86b86892a2824b93", "38c7bde219fcf414", "d6938733756a2284",
+        "990fdb880267db1d", "c93ad0fe5684b228", "6b4f062906eef9d8", "cfb6a8899d7e3b76",
+        "5b1d177b0bb6b2da", "5fb81b7f6a01a72b", "5f70bf18a0860070"),
+    "16x16 global": (1000, 569333, 9548, 3559, 1187, 0,
+        "cb332f983c154378", "fb4574b33b3334a8", "7e0c5d4f0bba701f", "d33f5796be612ba5",
+        "626d9f77999b5910", "5f70bf18a0860070", "de85fa043990cd66", "b85200d25e265470",
+        "41260b8c55eab70a", "c18f03726e65341a", "5f70bf18a0860070"),
+}
+
+
+def sharded_row(np, leaves: dict, rounds: int) -> tuple:
+    """rounds, result, nodes, attempts, successes, overflow, then the first
+    16 hex digits of the sha256 of every state leaf (SHARDED_LEAVES, int32
+    bytes)."""
+    import hashlib
+
+    def sha(a):
+        return hashlib.sha256(np.asarray(a, np.int32).tobytes()).hexdigest()[:16]
+    return (int(rounds), int(np.asarray(leaves["acc"], np.int64).sum() % (2**31 - 1)),
+            *(int(np.asarray(leaves[k]).sum()) for k in (
+                "nodes", "attempts", "successes", "overflow")),
+            *(sha(leaves[k]) for k in SHARDED_LEAVES))
+
+
+def _sharded(label: str, device: str, max_rounds: int | None = None):
+    """SHARDED_RUNS[label] on a local mesh on `device` (`max_rounds` in
+    place of its cap): the state's leaves on the host, rounds, wall
+    seconds."""
+    from repro_torch.core import mesh_comm
+    from repro_torch.launch import sharded as launcher
+
+    shape, strategy, torus, fields, capacity, cap = SHARDED_RUNS[label]
+    spec = launcher.job(strategy, torus, **fields, capacity=capacity,
+                        max_rounds=max_rounds or cap)
+    t0 = time.perf_counter()
+    state, rounds = launcher.run(mesh_comm.LocalMesh(shape, device=device), spec)
+    leaves = launcher.arrays(state)
+    return leaves, rounds, time.perf_counter() - t0
+
+
+def _sharded_cpu_run(label: str):
+    import torch
+
+    torch.set_num_threads(1)
+    return _sharded(label, "cpu")
+
+
+def phase_sharded(torch, np):
+    """The sharded executor on a local mesh on the card (one worker a
+    shard; the collectives index moves on the device, one round a CUDA graph
+    replay). (a) Every SHARDED_RUNS run pinned to the reference's
+    (SHARDED_PINS: rounds, result, counts, every state leaf's digest), the
+    4x4 runs card == CPU (CPU runs in worker processes); (b) at 4x4 the
+    vectorized executor (`run_vectorized` on the same grid) beside it: the
+    two rounds differ; (c) both 16x16 strategies run to the end: the
+    workload's exact result and nodes, no overflow, their rounds, ms a round
+    and rounds a wall second, set-up apart, and a profiled window of each
+    (busy share, device activities a round); (d) the 16x16 collective
+    schedule of one round (`launch.dryrun_runtime`). No kernel of the port
+    runs here."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    small = [k for k in SHARDED_RUNS if k.startswith("4x4")]
+    pool = ProcessPoolExecutor(len(small), mp_context=multiprocessing.get_context("spawn"))
+    cpu = {label: pool.submit(_sharded_cpu_run, label) for label in small}
+    try:
+        _phase_sharded(torch, np, cpu)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"[sharded] phase {time.perf_counter() - t0:.3f} s")
+
+
+def _phase_sharded(torch, np, cpu):
+    from repro_torch.core import scheduler, stealing, tasks
+    from repro_torch.core import topology as topo
+    from repro_torch.launch import dryrun_runtime
+
+    # (a) the pins, card == CPU at 4x4
+    rows = {}
+    for label in SHARDED_RUNS:
+        leaves, rounds, dt = _sharded(label, "cuda")
+        row = sharded_row(np, leaves, rounds)
+        if row != tuple(SHARDED_PINS[label]):
+            raise SystemExit(f"[sharded] {label}: {row}, the reference's "
+                             f"{tuple(SHARDED_PINS[label])}")
+        rows[label] = row
+        note = ""
+        if label in cpu:
+            c_leaves, c_rounds, c_dt = cpu[label].result()
+            for k in SHARDED_LEAVES:
+                if not np.array_equal(c_leaves[k], leaves[k]) or c_rounds != rounds:
+                    raise SystemExit(f"[sharded] {label}: card != cpu in {k} (rounds "
+                                     f"{rounds} vs {c_rounds})")
+            note = f"; card == cpu in every leaf (cpu {c_dt:.3f} s in a worker process)"
+        print(f"[sharded] {label} {SHARDED_RUNS[label][3]} capacity "
+              f"{SHARDED_RUNS[label][4]}, max_rounds {SHARDED_RUNS[label][5]}: rounds "
+              f"{row[0]} result {row[1]} nodes {row[2]} attempts {row[3]} successes "
+              f"{row[4]} overflow {row[5]}, every leaf the reference's; card {dt:.3f} s"
+              f"{note}")
+    # (b) the sharded round is not the vectorized one
+    wl = tasks.FibWorkload(**SHARDED_SMALL)
+    for strategy in ("neighbor", "global"):
+        r = scheduler.run_vectorized(wl, topo.MeshTopology.grid(4, 4),
+                                     scheduler.SchedulerConfig(
+                                         strategy=stealing.Strategy(strategy),
+                                         capacity=128, max_rounds=50_000))
+        sh = rows[f"4x4 {strategy}"]
+        print(f"[sharded] 4x4 {strategy}: sharded {sh[0]} rounds, {sh[3]} attempts, "
+              f"{sh[4]} successes; run_vectorized on MeshTopology.grid(4, 4) {r.rounds} "
+              f"rounds, {r.attempts} attempts, {r.successes} successes (both exact: "
+              f"{sh[1] == r.result == wl.expected_result()})")
+    # (c) 16x16 to the end, set-up apart
+    wide = tasks.FibWorkload(**SHARDED_WIDE)
+    for label in ("16x16 neighbor", "16x16 global"):
+        _, _, setup_s = _sharded(label, "cuda", max_rounds=1)
+        leaves, rounds, dt = _sharded(label, "cuda", max_rounds=SHARDED_FULL_ROUNDS)
+        row = sharded_row(np, leaves, rounds)
+        if (row[1], row[2], row[5]) != (wide.expected_result(), wide.expected_nodes(), 0):
+            raise SystemExit(f"[sharded] {label} to the end: result {row[1]} nodes "
+                             f"{row[2]} overflow {row[5]}, want {wide.expected_result()}, "
+                             f"{wide.expected_nodes()}, 0")
+        loop = dt - setup_s
+        print(f"[sharded] {label} to the end: {rounds} rounds, result {row[1]} nodes "
+              f"{row[2]} (exact), attempts {row[3]} successes {row[4]} overflow 0; wall "
+              f"{dt:.3f} s = {dt / rounds * 1e3:.4f} ms a round, {rounds / dt:.1f} rounds "
+              f"a wall second; set-up (state, warm-up round, capture, host copy) "
+              f"{setup_s:.3f} s, the loop {loop:.3f} s = {loop / max(rounds - 1, 1) * 1e3:.4f} "
+              f"ms a round, {max(rounds - 1, 1) / loop:.1f} rounds a second")
+        # a profiled window: the warm-up round and 37 x 8 replays
+        _, _, wall_s = _sharded(label, "cuda", max_rounds=SHARDED_WINDOW)
+        busy, n_dev, by_name = _profile(torch, lambda: _sharded(label, "cuda",
+                                                                max_rounds=SHARDED_WINDOW))
+        print(f"[profile] sharded {label}, {SHARDED_WINDOW} rounds: wall {wall_s * 1e3:.3f} "
+              f"ms, device busy {busy:.3f} ms (busy share {busy / wall_s / 1e3:.4f}); "
+              f"{n_dev} device activities = {n_dev / SHARDED_WINDOW:.1f} a round, "
+              f"{busy / n_dev * 1e3:.3f} us each")
+        for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {name[:90]}")
+    # (d) one round's collective schedule at 16x16
+    sched = dryrun_runtime.schedules(16, 16, device="cuda")
+    for line in dryrun_runtime.report(sched):
+        print(f"[sharded] {line}")
+    print(f"[sharded] schedule 16x16 {json.dumps(sched)}")
+
+
 SERVE_BATCH, SERVE_NEW = 8, 64
 # the kernels' symbols in a profile, by wrapper name (the serving paths run
 # both attention kernels in bf16, through their tensor-core kernels, and
@@ -3153,6 +3346,7 @@ def main() -> int:
     for name, n in arr_launches.items():
         by_path[name]["arrivals"] = n
     sched_launches_, sched_kern = phase_scheduler(torch, np, ops, ref)
+    phase_sharded(torch, np)
     by_path["steal_compact"].update(sched_launches_)
     kern["steal_compact"]["max_abs_err"] = max(kern["steal_compact"]["max_abs_err"],
                                                sched_kern.pop("max_abs_err"))

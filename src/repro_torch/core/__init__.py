@@ -1,8 +1,9 @@
 """Simulator core of the port: rng → f32math → topology → tasks → deque →
 stealing → linkstate → constellation → arrivals → tracing → simulator →
-scheduler (the round executor), each
-(but f32math, the reference's float32 `log` op by op) the counterpart of
-the `repro.core` module of the same name."""
+mesh_comm → scheduler (the round executor and the sharded one) →
+balancer, each (but f32math, the reference's float32 `log` op by op, and
+mesh_comm, what `jax.lax`'s collectives give the reference) the
+counterpart of the `repro.core` module of the same name."""
 
 import torch
 

@@ -44,9 +44,19 @@ functional push would pass over every ring — 4,096 slots a worker at Fig.
 3's capacity; the staged push log, one `deque.apply` a round, runs more
 operations a round and exports without `steal_compact`:
 `benchmarks.sched_backends` times both), and a point that has stopped
-neither pops nor steals, so its ring stays as its run left it. The `shard_map` executor (one worker per device)
-is not ported yet: `make_sharded_round` and `build_sharded_run` raise
-`NotImplementedError` naming its ROADMAP item.
+neither pops nor steals, so its ring stays as its run left it.
+
+The sharded executor (`make_sharded_round`, `build_sharded_run`) is the
+reference's `shard_map` one: one worker a shard of a ("row", "col") mesh
+(`mesh_comm`: every worker on one device, or one a `torch.distributed`
+rank), one pop/expand and one steal a round whatever `expansions_per_round`
+and `steal_subrounds` say, NEIGHBOR through single-hop ppermutes (a request
+and a reply a direction, each shard drawing its direction on its own key
+``fold_in(key, my_id)``, a victim serving its requesters in direction
+order), GLOBAL through all_gathers of the sizes, thief flags and bottom
+windows and `resolve_grants` on every shard, and a termination psum. Its
+rounds are not `run_vectorized`'s: it is held to the reference's
+`build_sharded_run`, leaf by leaf.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ import numpy as np
 import torch
 
 from . import deque as dq
-from . import resolve_device
+from . import mesh_comm, resolve_device
 from . import rng, stealing, tasks
 from . import topology as topo
 from .simulator import _eager_loop, _map, _replay_loop
@@ -461,16 +471,213 @@ def run_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     return _run_grid(workload, mesh, scfg, pts, link_up, device)
 
 
-def _sharded_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the shard_map executor (one worker per device, the "
-        "balancer's collectives on torch.distributed) is not ported to "
-        "repro_torch yet (ROADMAP.md, Queue 1 item 14)")
+# =========================================================================== #
+# The sharded executor — one worker a shard of a ("row", "col") mesh
+# =========================================================================== #
+def _dir_axis(direction: int) -> tuple[str, int]:
+    """Map topology.DIRECTIONS index → (mesh axis name, shift)."""
+    return [("row", -1), ("row", 1), ("col", -1), ("col", 1)][direction]
 
 
-def make_sharded_round(mesh_shape, cfg: SchedulerConfig, tables, torus: bool = False):
-    raise _sharded_not_ported("make_sharded_round")
+def _shift_perm(n: int, shift: int, torus: bool) -> list[tuple[int, int]]:
+    """(src, dst) pairs sending each index to index+shift along one axis."""
+    pairs = []
+    for i in range(n):
+        j = i + shift
+        if torus:
+            j %= n
+        if 0 <= j < n:
+            pairs.append((i, j))
+    return pairs
 
 
-def build_sharded_run(device_mesh, cfg: SchedulerConfig, workload, torus: bool = False):
-    raise _sharded_not_ported("build_sharded_run")
+def _opposite(direction: int) -> int:
+    return {0: 1, 1: 0, 2: 3, 3: 2}[direction]
+
+
+def make_sharded_round(mesh_shape: tuple[int, int], cfg: SchedulerConfig,
+                       tables, torus: bool = False, *, mesh):
+    """The per-shard round body of the sharded executor on `mesh` (a
+    `mesh_comm.LocalMesh` or `DistMesh` of axes "row", "col"). The state is
+    a `WorkerState` whose every leaf has the mesh's shard axis in front
+    (`overflow` too: one count a worker); the body reuses the deque and
+    expand helpers as they are. Returns ``round_fn(state, key) -> (state,
+    any_live)``, `any_live` a (shards,) bool. Only NEIGHBOR and GLOBAL have
+    a sharded round; other strategies raise `ValueError`."""
+    if cfg.strategy not in (stealing.Strategy.NEIGHBOR, stealing.Strategy.GLOBAL):
+        raise ValueError("sharded executor supports NEIGHBOR and GLOBAL")
+    mesh = mesh_comm.as_mesh(mesh)
+    R, C = mesh_shape
+    W = R * C
+    G = cfg.max_grants_per_victim
+    i32 = _I32
+
+    def my_id():
+        return mesh.axis_index("row") * C + mesh.axis_index("col")
+
+    def neighbor_valid(direction):
+        ax, shift = _dir_axis(direction)
+        idx = mesh.axis_index(ax)
+        if torus:
+            return torch.ones_like(idx, dtype=torch.bool)
+        n = R if ax == "row" else C
+        return (idx + shift >= 0) & (idx + shift < n)
+
+    def send(x, direction):
+        """Single-hop ppermute of x to the `direction` neighbor."""
+        ax, shift = _dir_axis(direction)
+        n = R if ax == "row" else C
+        return mesh.ppermute(x, ax, _shift_perm(n, shift, torus))
+
+    def neighbor_steal(deque_, is_thief, key):
+        """Paper §3.1 on mesh links: a request and a reply ppermute a
+        direction."""
+        S = is_thief.shape[0]
+        rows = torch.arange(S, device=is_thief.device)
+        # a uniformly random valid direction, each shard on its own key
+        valid = torch.stack([neighbor_valid(d) for d in range(4)], -1)
+        nvalid = valid.sum(-1, dtype=i32).clamp(min=1)
+        k = rng.fold_in(key, my_id())
+        r = rng.uniform(tuple(x[:, None] for x in k), 1, is_thief.device)[:, 0]
+        pick = torch.minimum((r * nvalid.to(torch.float32)).to(i32), nvalid - 1)
+        order = torch.cumsum(valid, -1, dtype=i32) - 1
+        chosen = (valid & (order == pick[:, None])).to(i32).argmax(-1)
+        # requests: a thief that chose d sends toward d; its victim receives
+        # it from its opposite(d) side
+        reqs_in = torch.stack(
+            [send((is_thief & (chosen == d) & valid[:, d]).to(i32), d) for d in range(4)], -1)
+        # the victim serves up to min(size, budget) requesters in direction order
+        budget = deque_.size.clamp(max=cfg.max_grants_per_victim)
+        ranks = torch.cumsum(reqs_in, -1, dtype=i32) - reqs_in
+        grant = (reqs_in > 0) & (ranks < budget[:, None])
+        cap = dq.capacity(deque_)
+        replies = []
+        for d in range(4):
+            slot = torch.remainder(deque_.bot + ranks[:, d], cap).long()
+            rec = torch.where(grant[:, d, None], deque_.buf[rows, slot], 0)
+            payload = torch.cat([rec, grant[:, d, None].to(i32)], -1)
+            # the thief that chose d sits on the victim's opposite(d) side
+            replies.append(send(payload, _opposite(d)))
+        deque_ = dq.steal_bottom(deque_, grant.sum(-1, dtype=i32))
+        # the thief's reply is the one from the neighbor it targeted
+        mine = torch.stack(replies, 1)[rows, chosen]
+        got = is_thief & (mine[:, 4] > 0)
+        deque_, _ = dq.push_top(deque_, mine[:, :4], got)
+        return deque_, got
+
+    def global_steal(deque_, is_thief, key):
+        """The paper's baseline: a uniform random victim, all_gathers over
+        the mesh."""
+        S = is_thief.shape[0]
+        rows = torch.arange(S, device=is_thief.device)
+        # (shards, C, R) → worker-id order
+        sizes = mesh.all_gather(mesh.all_gather(deque_.size, "row"), "col")
+        sizes = sizes.transpose(1, 2).reshape(S, W)
+        thief_flags = mesh.all_gather(mesh.all_gather(is_thief, "row"), "col")
+        thief_flags = thief_flags.transpose(1, 2).reshape(S, W)
+        victims = stealing.choose_global(key, W, thief_flags)  # the same on every shard
+        plan = stealing.resolve_grants(victims, sizes, G)
+        # every worker's bottom window (G, T)
+        window = dq.peek_bottom_window(deque_, G)
+        windows = mesh.all_gather(mesh.all_gather(window, "row"), "col")
+        windows = windows.transpose(1, 2).reshape(S, W, G, window.shape[-1])
+        me = my_id().long()[:, None]
+        deque_ = dq.steal_bottom(deque_, plan.taken.gather(-1, me)[:, 0])
+        got = plan.got.gather(-1, me)[:, 0]
+        v = plan.victim.gather(-1, me)[:, 0].clamp(0, W - 1).long()
+        rank = plan.rank.gather(-1, me)[:, 0].clamp(0, G - 1).long()
+        deque_, _ = dq.push_top(deque_, windows[rows, v, rank], got)
+        return deque_, got
+
+    steal = neighbor_steal if cfg.strategy == stealing.Strategy.NEIGHBOR else global_steal
+
+    def round_fn(state: WorkerState, key):
+        key = tuple(x.reshape(()) if isinstance(x, torch.Tensor) else x for x in key)
+        burning = state.work > 0
+        work = state.work - burning.to(i32)
+        can_expand = (~burning) & (state.deque.size > 0)
+        deque_, task, popped = dq.pop_top(state.deque, can_expand)
+        ex = tasks.expand(task, popped, tables)
+        deque_, over = dq.push_top_many(deque_, ex["children"], ex["n_children"])
+        acc = torch.remainder(state.acc + ex["value"], tasks.RESULT_MOD)
+        work = work + (ex["cost"] - 1).clamp(min=0) * popped.to(i32)
+        nodes = state.nodes + ex["nodes"]
+        busy = state.busy + (burning | popped).to(i32)
+        overflow = state.overflow + over
+
+        is_thief = (~burning) & (~popped) & (deque_.size == 0)
+        deque_, got = steal(deque_, is_thief, key)
+
+        attempts = state.attempts + is_thief.to(i32)
+        successes = state.successes + got.to(i32)
+        fails = torch.where(got, 0, state.fails + is_thief.to(i32))
+        new_state = WorkerState(deque=deque_, acc=acc, work=work, fails=fails,
+                                attempts=attempts, successes=successes,
+                                nodes=nodes, busy=busy, overflow=overflow)
+        live_local = deque_.size + work
+        live = mesh.psum(mesh.psum(live_local, "row"), "col") > 0
+        return new_state, live
+
+    return round_fn
+
+
+def _sharded_init(mesh, cfg: SchedulerConfig, workload) -> WorkerState:
+    """A mesh's shards' initial state: empty deques but for the root task
+    on worker 0."""
+    S, C, dev = mesh.shards, mesh.axis_size("col"), mesh.device
+    root = torch.as_tensor(workload.root_task(), device=dev)
+    me = mesh.axis_index("row") * C + mesh.axis_index("col")
+    deques, _ = dq.push_top(dq.make(S, cfg.capacity, device=dev),
+                            root[None].expand(S, root.shape[-1]), me == 0)
+    z = torch.zeros((S,), dtype=_I32, device=dev)
+    return WorkerState(deque=deques, acc=z, work=z.clone(), fails=z.clone(),
+                       attempts=z.clone(), successes=z.clone(), nodes=z.clone(),
+                       busy=z.clone(), overflow=z.clone())
+
+
+def build_sharded_run(device_mesh, cfg: SchedulerConfig, workload,
+                      torus: bool = False):
+    """Return ``fn() -> (WorkerState, rounds)``: the sharded executor, one
+    worker a shard of `device_mesh` (axes "row", "col"): a
+    `mesh_comm.LocalMesh` (every worker on its device) or a
+    `torch.distributed` `DeviceMesh` (one worker a rank; every rank returns
+    the whole state). The state's leaves are in worker-id order, `overflow`
+    one count a worker, as the reference's `out_specs` give them; `rounds`
+    is an int. On a local mesh on the card the loop is the simulator's
+    captured one (`_replay_loop`: one round a CUDA graph replay, the done
+    flag read every `simulator.DONE_EVERY` rounds), on the CPU the eager
+    one; a run that has stopped neither pops nor steals. A `DeviceMesh`
+    runs round by round, every rank reading the termination psum."""
+    mesh = mesh_comm.as_mesh(device_mesh)
+    if tuple(mesh.axis_names) != ("row", "col"):
+        raise ValueError(f"the sharded executor needs a ('row', 'col') mesh, got "
+                         f"axes {mesh.axis_names}")
+    R, C = mesh.shape
+    dev = mesh.device
+    tables = workload.tables(dev)
+    round_fn = make_sharded_round((R, C), cfg, tables, torus, mesh=mesh)
+    key0 = rng.PRNGKey(cfg.seed)
+
+    def run_local():
+        def body(carry):
+            state, _, rounds, live = carry
+            run = live & (rounds < cfg.max_rounds)
+            state, any_live = round_fn(state, rng.fold_in(key0, rounds))
+            return (state, (), rounds + 1, any_live[:1, None]), run
+
+        carry = (_sharded_init(mesh, cfg, workload), (),
+                 torch.zeros((1, 1), dtype=_I32, device=dev),
+                 torch.ones((1, 1), dtype=torch.bool, device=dev))
+        loop = _replay_loop if dev.type == "cuda" else _eager_loop
+        state, _, rounds, _ = loop(body, carry, cfg.max_rounds)
+        return state, int(rounds)
+
+    def run_dist():
+        state, rounds, live = _sharded_init(mesh, cfg, workload), 0, True
+        with torch.inference_mode():
+            while live and rounds < cfg.max_rounds:
+                state, any_live = round_fn(state, rng.fold_in(key0, rounds))
+                live, rounds = bool(any_live[0]), rounds + 1
+            return _map(mesh.gather_shards, state), rounds
+
+    return run_local if mesh.local else run_dist

@@ -65,9 +65,9 @@ on the card, under the captured loop, it took less time than staged at
 every measured point (PERF.md). The kernels' wrappers run their plain
 versions for CPU
 tensors, so on the card the simulator always runs the kernels, and
-``use_steal_kernel=False`` there raises. A grid sharded over several
-devices is not ported yet: it raises `NotImplementedError` and names the
-ROADMAP item that brings it.
+``use_steal_kernel=False`` there raises. A grid over several devices
+(`simulate_sweep(devices=...)`) runs one core call a device on its share
+of the points.
 
 The flight recorder rides the loop's carry beside the state (a TC rollback
 never rewinds it). Each tick emits its events in the reference's order as
@@ -689,18 +689,6 @@ def _map(fn, tree):
         leaves = [_map(fn, x) for x in tree]
         return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
     return fn(tree)
-
-
-# options not ported yet: what each is, and its ROADMAP Queue 1 item
-_NOT_PORTED = {
-    "devices": ("a grid sharded over several devices (devices)", "13b"),
-}
-
-
-def _not_ported(what: str):
-    desc, item = _NOT_PORTED[what]
-    return NotImplementedError(f"{desc} is not ported to repro_torch yet "
-                               f"(ROADMAP.md, Queue 1 item {item})")
 
 
 def _check_static(cfg: StaticConfig):
@@ -2277,20 +2265,27 @@ def simulate_sweep(workload, mesh: topo.MeshTopology, cfg, params_list,
     its own clock) and the arrivals' shape (each point's stream from its own
     seed, `arrival_gap_q8` and `arrival_batch`). Returns one `SimResult` per point, in order,
     each equal to `simulate` of that point, `events` included. `devices`
-    may name one device (it then stands for `device`); a grid sharded over
-    several raises `NotImplementedError` (ROADMAP Queue 1 item 13b). Other
-    arguments as `simulate`'s."""
+    may name one device (it then stands for `device`) or several: the grid
+    is padded to a multiple of their count by repeating its last point,
+    split into one `_sim_core` chunk a device (run one after another), and
+    trimmed, as the reference shards it. Other arguments as `simulate`'s."""
     scfg = cfg.static if isinstance(cfg, SimConfig) else cfg
     _check_linkstate(linkstate, speed)
     sched = _schedules(mesh.num_workers, fail_time, speed, wake_time, fail_period)
-    if devices is not None:
-        devices = list(devices)
-        if len(devices) > 1:
-            raise _not_ported("devices")
-        if devices and device is None:
-            device = devices[0]
+    devices = [] if devices is None else list(devices)
+    if len(devices) == 1 and device is None:
+        device = devices[0]
     pts = [p.params if isinstance(p, SimConfig) else p for p in params_list]
     if not pts:
         return []
-    return _run_grid(workload, mesh, scfg, pts, device, sched, linkstate,
-                     routing_backend, arrivals)
+    if len(devices) < 2:
+        return _run_grid(workload, mesh, scfg, pts, device, sched, linkstate,
+                         routing_backend, arrivals)
+    G, D = len(pts), len(devices)
+    pts = pts + [pts[-1]] * ((-G) % D)
+    chunk = len(pts) // D
+    out = []
+    for i, dev in enumerate(devices):
+        out += _run_grid(workload, mesh, scfg, pts[i * chunk:(i + 1) * chunk], dev,
+                         sched, linkstate, routing_backend, arrivals)
+    return out[:G]

@@ -137,6 +137,14 @@ class MeshTopology:
         """Whether the hop metric wraps (exact torus: every grid slot filled)."""
         return self.torus and self.num_workers == self.rows * self.cols
 
+    def ppermute_pairs(self, direction: int) -> list[tuple[int, int]]:
+        """Static (src, dst) pairs for a ppermute along one direction
+        (`mesh_comm`, over a flat axis of the workers): each worker sends to
+        its `direction`-neighbor; a worker with none there does not send
+        (its neighbor-to-be receives zeros)."""
+        nbr = self.neighbor_table[:, direction]
+        return [(w, int(nb)) for w, nb in enumerate(nbr) if nb != NO_NEIGHBOR]
+
 
 def hop_dist(mesh: MeshTopology, coords: torch.Tensor,
              victim: torch.Tensor) -> torch.Tensor:

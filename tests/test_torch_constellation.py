@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import pytest
 from torch_parity import assert_same
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.configs import paper_mesh as rpm
 from repro.core import constellation as rcon

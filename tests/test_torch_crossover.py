@@ -8,6 +8,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from benchmarks import sweep as rsweep
 from repro.core import jsonio as rjsonio

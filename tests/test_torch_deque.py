@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import assert_same, np_rng, to_jax, to_torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import deque as rdq
 from repro_torch import convert

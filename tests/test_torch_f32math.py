@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import assert_same, np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import arrivals as rarr
 from repro_torch.core import arrivals as parr

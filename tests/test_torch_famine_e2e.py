@@ -7,6 +7,7 @@ at the defaults."""
 
 import pytest
 from torch_parity import assert_results_equal, port_simulate
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import stealing as rst

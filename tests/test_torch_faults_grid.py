@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import assert_results_equal
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import stealing as rst

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.kernels import ops as rops
 from repro_torch.kernels import ref

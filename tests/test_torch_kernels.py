@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 from torch_parity import assert_same, np_rng, to_jax, to_torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import stealing as rst
 from repro.kernels import ops as rops

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import as_np, assert_same, np_rng, to_jax, to_torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import constellation as rcon
 from repro.core import linkstate as rls

@@ -9,6 +9,7 @@ import sys
 
 import pytest
 import torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from benchmarks import load_latency as rll
 from repro_torch.benchmarks import load_latency as pll

@@ -17,6 +17,7 @@ import io
 import pytest
 import torch
 from torch_parity import assert_results_equal
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from benchmarks import fig3_scaling as rfig3
 from benchmarks import fig4_relative as rfig4

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import as_np, assert_same, np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.models import registry as rreg
 from repro.models import rglru as rrg

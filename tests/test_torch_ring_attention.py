@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import as_np, np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import as_np, assert_same, np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.models import layers as rL
 from repro.models import registry as rreg

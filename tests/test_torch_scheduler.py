@@ -5,8 +5,8 @@ of every `RunResult` field, the three `per_worker_*` arrays included.
   * tests/test_scheduler.py's FIB at W = 16 under all four strategies (one
     port sweep against four reference runs);
   * one sub-round's victims (`_select_victims`) for every strategy;
-  * the parameter checks' messages, the sharded executor's refusal, and
-    the CUDA default without a card;
+  * the parameter checks' messages, the sharded executor's refusal of
+    strategies it has no round for, and the CUDA default without a card;
   * the round on the staged push log (`benchmarks.sched_backends`) equal
     to the in-place round the executor runs.
 
@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import assert_results_equal, assert_same, np_rng, to_jax, to_torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import scheduler as rsch
 from repro.core import stealing as rst
@@ -142,10 +143,14 @@ def test_check_sched_params_messages(bad):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        psch.make_sharded_round((4, 4), psch.SchedulerConfig(), PFIB.tables())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        psch.build_sharded_run(None, psch.SchedulerConfig(), PFIB)
+    from repro_torch.core import mesh_comm
+
+    mesh = mesh_comm.LocalMesh((4, 4), device="cpu")
+    adaptive = psch.SchedulerConfig(strategy=pst.Strategy.ADAPTIVE)
+    with pytest.raises(ValueError, match="sharded executor supports NEIGHBOR and GLOBAL"):
+        psch.make_sharded_round((4, 4), adaptive, PFIB.tables(), mesh=mesh)
+    with pytest.raises(ValueError, match="sharded executor supports NEIGHBOR and GLOBAL"):
+        psch.build_sharded_run(mesh, adaptive, PFIB)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             psch.run_vectorized(PFIB, PMESH, psch.SchedulerConfig(capacity=64))

@@ -13,6 +13,7 @@ import pytest
 import torch
 from test_torch_scheduler import FIB, MESH, PFIB, PMESH, _cfgs
 from torch_parity import assert_results_equal
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import scheduler as rsch
 from repro.core import tasks as rtasks

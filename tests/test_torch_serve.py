@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import as_np, assert_same, np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import balancer as rbal
 from repro.models import layers as rL

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import check_against_reference
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import stealing as rst

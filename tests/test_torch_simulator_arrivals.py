@@ -13,6 +13,7 @@ import pytest
 import torch
 from test_arrivals import ARRIVAL_SCENARIOS, MESH, TRC, WL
 from torch_parity import assert_results_equal, port_simulate
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import tracing as rtr

@@ -16,6 +16,7 @@ import torch
 from test_arrivals import MESH, TRC, WL
 from test_torch_simulator_arrivals import scenario_cfg
 from torch_parity import assert_results_equal, port_simulate
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import arrivals as rarr
 from repro.core import simulator as rsim

@@ -14,6 +14,7 @@ import pytest
 import torch
 from test_simulator import CONF_SCENARIOS, FAMINE_WL, _conf_second_cycle_wake
 from torch_parity import assert_results_equal, port_linkstate, port_simulate
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import linkstate as rls
 from repro.core import simulator as rsim

@@ -18,6 +18,7 @@ import pytest
 import torch
 from test_simulator import EQ_FIB, EQ_MESH, _dynamic_schedule
 from torch_parity import assert_results_equal, port_simulate
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import stealing as rst

@@ -22,6 +22,7 @@ import torch
 from test_simulator import EQ_FIB, EQ_MESH, FAMINE_WL, _dynamic_schedule, _famine_linkstate
 from test_torch_simulator_linkstate_grid import _partition
 from torch_parity import assert_results_equal, port_linkstate, port_simulate
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import stealing as rst

@@ -5,6 +5,7 @@ strategies, tick/leap x loop/staged."""
 
 import pytest
 from torch_parity import check_against_reference
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import stealing as rst

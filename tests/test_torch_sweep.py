@@ -15,6 +15,7 @@ import pytest
 import torch
 from hypothesis_compat import given, settings, st
 from torch_parity import assert_results_equal, assert_same, np_rng, to_jax, to_torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import simulator as rsim
 from repro.core import stealing as rst
@@ -270,8 +271,8 @@ def test_per_point_draws_and_probe_equal_reference():
 
 def test_sweep_refuses_what_is_not_ported(monkeypatch):
     """With no CUDA device the entry points raise; on a card the plain
-    kernels are refused; several devices raise `NotImplementedError` naming
-    their ROADMAP item; the arrival stream on without its shape gets the
+    kernels are refused; two devices give each point's own result; the
+    arrival stream on without its shape gets the
     reference's refusal; a schedule with no death (item 9, ported) changes
     nothing."""
     mesh, cfg = ptopo.MeshTopology.square(4), psim.SimConfig(capacity=16)
@@ -281,12 +282,12 @@ def test_sweep_refuses_what_is_not_ported(monkeypatch):
         psim.simulate_sweep(wl, mesh, cfg, [cfg.params])
     with pytest.raises(RuntimeError, match="CUDA"):
         psim.simulate_batch(wl, mesh, cfg, seeds=(0, 1))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 13b"):
-        psim.simulate_sweep(wl, mesh, cfg, [cfg.params], devices=["cpu", "cpu"])
+    one = psim.simulate_sweep(wl, mesh, cfg, [cfg.params], device="cpu")[0]
+    (two,) = psim.simulate_sweep(wl, mesh, cfg, [cfg.params], devices=["cpu", "cpu"])
+    assert_results_equal(one, two)
     assert_results_equal(
-        psim.simulate_sweep(wl, mesh, cfg, [cfg.params], device="cpu")[0],
-        psim.simulate_sweep(wl, mesh, cfg, [cfg.params], device="cpu",
-                            fail_time=np.full(4, -1))[0])
+        one, psim.simulate_sweep(wl, mesh, cfg, [cfg.params], device="cpu",
+                                 fail_time=np.full(4, -1))[0])
     # open-loop arrivals (item 12) are ported: the stream on without its
     # shape gets the reference's refusal
     with pytest.raises(ValueError, match=r"arrival_gap_q8 > 0 turns the open-loop"):

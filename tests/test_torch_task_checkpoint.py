@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import assert_same
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.checkpoint import Checkpointer as RCheckpointer
 from repro.checkpoint import TaskCheckpointer as RTaskCheckpointer

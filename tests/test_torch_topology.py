@@ -6,9 +6,11 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import assert_same, np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.core import topology as rtopo
 from repro_torch import convert
+from repro_torch.core import mesh_comm
 from repro_torch.core import topology as ptopo
 
 MESHES = [
@@ -36,6 +38,24 @@ def test_mesh_tables(name, make):
     # the converter builds the same mesh from the reference's fields
     conv = convert.mesh(ref.num_workers, ref.rows, ref.cols, ref.torus)
     assert conv == port
+
+
+@pytest.mark.parametrize("name,make", MESHES, ids=[m[0] for m in MESHES])
+def test_ppermute_pairs(name, make):
+    """The pairs equal the reference's, and a ppermute along a flat worker
+    axis with them moves each worker's id to its neighbor (zeros where none
+    arrives)."""
+    ref, port = make(rtopo.MeshTopology), make(ptopo.MeshTopology)
+    mesh = mesh_comm.LocalMesh((port.num_workers,), ("w",), device="cpu")
+    ids = torch.arange(1, port.num_workers + 1, dtype=torch.int32)
+    for d in range(ptopo.NUM_DIRECTIONS):
+        pairs = port.ppermute_pairs(d)
+        assert pairs == ref.ppermute_pairs(d), d
+        want = np.zeros(port.num_workers, np.int32)
+        for w, nb in enumerate(port.neighbor_table[:, d]):
+            if nb != ptopo.NO_NEIGHBOR:
+                want[nb] = w + 1
+        assert_same(want, mesh.ppermute(ids, "w", pairs), f"direction {d}")
 
 
 @pytest.mark.parametrize("name,make", MESHES, ids=[m[0] for m in MESHES])

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import as_np, np_rng
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.kernels import ops as rops
 from repro.models import rwkv6 as rrwkv

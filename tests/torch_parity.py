@@ -5,9 +5,47 @@ Inputs are made with numpy from a seed and handed to the JAX reference
 as numpy arrays.
 """
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+
+
+# a third of the kernel's default limit on a process's memory mappings
+# (vm.max_map_count, 65,530)
+MAPPINGS_BEFORE_CLEAR = 20_000
+
+
+def _mappings() -> int:
+    """This process's memory mappings (0 where /proc is not there)."""
+    try:
+        with open("/proc/self/maps", "rb") as f:
+            return sum(1 for _ in f)
+    except OSError:
+        return 0
+
+
+def _release_if_crowded():
+    if _mappings() > MAPPINGS_BEFORE_CLEAR:
+        jax.clear_caches()
+        gc.collect()
+
+
+@pytest.fixture(autouse=True)
+def release_reference_compiles():
+    """Drop JAX's compiled executables around a parity test once this
+    process holds more than MAPPINGS_BEFORE_CLEAR memory mappings (autouse
+    where a module imports it). XLA's CPU backend maps each executable's
+    code in many small regions (~700 for a simulator compile) and keeps
+    them while JAX caches it; an xdist worker that compiles the reference
+    test after test reaches the kernel's limit, where LLVM cannot allocate
+    and XLA segfaults in the next compile, taking the worker down."""
+    _release_if_crowded()
+    yield
+    _release_if_crowded()
 
 
 def np_rng(seed: int) -> np.random.Generator:
