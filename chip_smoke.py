@@ -25,9 +25,11 @@ Phases — any failure exits non-zero:
      device (CUDA graph replay, CUDA events), plus the kernel's eager
      wrapper call, beside the launch floor (a one-element elementwise op in
      the same harness); then the same for the attention kernels at the serving
-     paths' shapes — head dim 64 with 7 query heads per KV head (qwen2) and
-     head dim 256 with 16 over one (recurrentgemma: prefill S=2560 with a
-     2048-token window, decode against a full 2048-slot ring) — and a few
+     paths' shapes — head dim 64 with 7 query heads per KV head (qwen2),
+     head dim 128 with 1 over 16 KV heads (qwen2-moe: prefill S=512, decode
+     against a 584-slot cache) and 4 over 8 (phi3.5-moe), and head dim 256
+     with 16 over one (recurrentgemma: prefill S=2560 with a 2048-token
+     window, decode against a full 2048-slot ring) — and a few
      more (ragged, windowed, long, an empty row, shorter than a key tile,
      window 1, one past a row tile, scores spread by q x 8; decode lengths
      at the edges of a tile, a chunk and a cluster of the bf16 decode
@@ -180,7 +182,21 @@ Phases — any failure exits non-zero:
      and 12 MQA attention blocks with a 2048-token window, d 4096, 16 heads
      of 256 over 1 KV head, d_ff 12288, vocab 256000; prompt 2560, cache_len
      2632, a ring of 2048 that prefill writes past and decode wraps: 12
-     `flash_attention`, 12 x 63 `decode_attention`, 26 + 26 x 63 `rglru`).
+     `flash_attention`, 12 x 63 `decode_attention`, 26 + 26 x 63 `rglru`);
+  15-16. serve the MoE family the same way (`[serve_moe]`,
+     `[serve_phi35_moe]`): qwen2-moe-a2.7b at full width and depth (24
+     layers, d 2048, 16 heads of 128 over 16 KV heads, 60 routed experts
+     padded to 64, top-4 of d_ff 1408, 4 shared experts, capacity factor
+     1.25, neighbor_steal overflow, vocab 151936; prompt 512: 24
+     `flash_attention`, 24 x 63 `decode_attention` at head dim 128), and
+     phi3.5-moe-42b-a6.6b at full width and 2 of its 32 layers (d 4096, 32
+     heads of 128 over 8 KV heads, 16 experts top-2 of d_ff 6400,
+     layernorm; 32 layers would not fit one card). The plain path replays
+     the kernel path's expert choices through `moe_apply`'s `routing`
+     (teacher-forced on tokens and routing, every step within LOGIT_TOL);
+     a free-routing plain run prints how many (layer, token) choices flip
+     and its logit gap; the prefill's and the first decode step's dropped
+     shares are printed before and after the steal.
 
 ``python3 chip_smoke.py --turns PARENT`` runs only the main-path phase,
 in turns with the checkout at PARENT (another commit's tree): parent, this
@@ -190,7 +206,7 @@ commits on one card.
 It prints the card's name and power limit, then one JSON line with each
 kernel's launches on the paths that run it (each path's counts set to 0
 just before it and read just after), error, times and bound (the attention
-kernels' hd-256 numbers under `hd256_*`), and last
+kernels' hd-128 and hd-256 numbers under `hd128_*` and `hd256_*`), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -308,11 +324,11 @@ def phase_build(build):
                     or "C75" in line):
                 print(f"[build] {name}: {line.strip()}")
     # the tensor-core instructions in the attention kernels' machine code:
-    # wgmma (HGMMA) in flash_attention's bf16 kernel, mma.sync (HMMA) in both
-    # head dims of decode_attention's
+    # wgmma (HGMMA) in flash_attention's bf16 kernel, mma.sync (HMMA) in
+    # decode_attention's, at each of the three head dims (64, 128, 256)
     for name, op, kernel, n_fns in (
-            ("flash_attention", "HGMMA", "flash_attention_wgmma_kernel", 2),
-            ("decode_attention", "HMMA", "decode_attention_mma_kernel", 2)):
+            ("flash_attention", "HGMMA", "flash_attention_wgmma_kernel", 3),
+            ("decode_attention", "HMMA", "decode_attention_mma_kernel", 3)):
         found = _sass_ops(build, name, op)
         if sum(kernel in fn for fn in found) != n_fns:
             raise SystemExit(f"{name}: {op} in {sorted(found)}, expected it in "
@@ -548,11 +564,13 @@ def _decode_work(KV, G, hd, lengths, elt):
 
 def phase_attention(torch, ops, ref):
     """The attention kernels against their plain versions on the card, in
-    bf16: at head dim 64 (qwen2 serving) and at head dim 256 with 16 query
-    heads over one KV head (recurrentgemma serving). The first case of each
-    kernel at each head dim is that serving path's shape; it is also timed
-    (kernel, plain version, eager call, library call). The hd-64 numbers
-    keep their keys; the hd-256 ones go under `hd256_*`."""
+    bf16: at head dim 64 (qwen2 serving), at head dim 128 (the MoE models:
+    qwen2-moe's 16 query heads over 16 KV heads, phi3.5-moe's 4 a KV head
+    over 8) and at head dim 256 with 16 query heads over one KV head
+    (recurrentgemma serving). The first case of each kernel at each head
+    dim is that serving path's shape; it is also timed (kernel, plain
+    version, eager call, library call). The hd-64 numbers keep their keys;
+    the others go under `hd128_*` and `hd256_*`."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -600,7 +618,12 @@ def phase_attention(torch, ops, ref):
                    (2, 2, 7, 129, 64, True, 1, 1), (2, 2, 7, 700, 64, True, 0, 8),
                    (8, 1, 16, 2560, 256, True, 2048, 1), (2, 1, 16, 777, 256, True, 100, 1),
                    (1, 1, 16, 300, 256, False, 0, 1), (1, 2, 7, 250, 256, True, 0, 1),
-                   (2, 1, 16, 2049, 256, True, 2048, 1), (1, 1, 16, 600, 256, False, 0, 8)]
+                   (2, 1, 16, 2049, 256, True, 2048, 1), (1, 1, 16, 600, 256, False, 0, 8),
+                   # hd 128: qwen2-moe's prefill (timed), phi3.5-moe's at G 4
+                   # over 8 KV heads, ragged, windowed, not causal, q x 8
+                   (8, 16, 1, 512, 128, True, 0, 1), (8, 8, 4, 512, 128, True, 0, 1),
+                   (2, 8, 4, 333, 128, True, 0, 1), (2, 16, 1, 700, 128, True, 200, 1),
+                   (1, 8, 4, 257, 128, False, 0, 1), (1, 16, 1, 40, 128, True, 0, 8)]
     errs, timed = [], set()
     for B, KV, G, S, hd, causal, window, qscale in flash_cases:
         q = (rnd(B, KV, G, S, hd).float() * qscale).to(bf16)
@@ -640,11 +663,11 @@ def phase_attention(torch, ops, ref):
         check("flash_attention", f"hd={hd} library call (SDPA) vs plain",
               lib().view_as(q), plain(), required=False)
         out["flash_attention"].update(
-            r if hd == 64 else {f"hd256_{key}": val for key, val in r.items()})
+            r if hd == 64 else {f"hd{hd}_{key}": val for key, val in r.items()})
     out["flash_attention"]["max_abs_err"] = max(errs)
 
     # decode attention: (B, KV, G, T, hd, lengths); the first of each head
-    # dim is its serving path's decode (timed): qwen2's ragged 512..575
+    # dim is its serving path's decode (timed): qwen2's (and qwen2-moe's) ragged 512..575
     # written positions of a 584-slot cache, recurrentgemma's full ring of
     # 2048 slots. Besides: lengths at the bf16 kernel's edges, a warp's
     # 16-position tile, a block's chunk (128 at hd 64, 256 at hd 256) and a
@@ -661,7 +684,15 @@ def phase_attention(torch, ops, ref):
                     (4, 1, 16, 2048, 256, [0, 1, 1000, 2047]), (3, 2, 7, 100, 256, [31, 33, 100]),
                     (10, 1, 16, 2048, 256, [1, 16, 17, 63, 64, 65, 255, 256, 257, 2048]),
                     (4, 1, 16, 2600, 256, [2047, 2048, 2049, 2600]),
-                    (2, 2, 1, 333, 256, [17, 333])]
+                    (2, 2, 1, 333, 256, [17, 333]),
+                    # hd 128: qwen2-moe's decode (timed; the same ragged
+                    # lengths as qwen2's), phi3.5-moe's G 4 over 8 KV heads,
+                    # the edges of a tile, a chunk of 128 and a cluster of 8
+                    # chunks, a cache over two clusters
+                    (8, 16, 1, 584, 128, torch.randint(512, 576, (8,), generator=g2).tolist()),
+                    (8, 8, 4, 584, 128, [1, 15, 16, 17, 127, 128, 129, 584]),
+                    (4, 8, 4, 2100, 128, [0, 1023, 1024, 1025]),
+                    (3, 16, 1, 2100, 128, [2047, 2048, 2100])]
     errs, timed = [], set()
     for B, KV, G, T, hd, lengths in decode_cases:
         q, kc, vc = rnd(B, KV, G, hd), rnd(B, KV, T, hd), rnd(B, KV, T, hd)
@@ -700,10 +731,10 @@ def phase_attention(torch, ops, ref):
         check("decode_attention", f"hd={hd} library call (SDPA) vs plain",
               lib().view_as(q), ref.decode_attention(q, kc, vc, ln), required=False)
         out["decode_attention"].update(
-            r if hd == 64 else {f"hd256_{key}": val for key, val in r.items()})
+            r if hd == 64 else {f"hd{hd}_{key}": val for key, val in r.items()})
     out["decode_attention"]["max_abs_err"] = max(errs)
     for name, r in out.items():
-        for hd, pre in ((64, ""), (256, "hd256_")):
+        for hd, pre in ((64, ""), (128, "hd128_"), (256, "hd256_")):
             print(f"[kernels] {name}: device per launch at the hd-{hd} serving "
                   f"shape: kernel {r[pre + 'ms']:.6f} ms, plain "
                   f"{r[pre + 'plain_ms']:.6f} ms, library {r[pre + 'library_ms']:.6f} "
@@ -3082,25 +3113,65 @@ def _path_launches(cfg):
             {k: n for k, n in step.items() if n})
 
 
-def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note: str = ""):
-    """Serve `arch` at full width and depth on the card through the serving
-    entry point (random weights from seed 0): SERVE_BATCH requests of
-    `prompt_len` tokens and SERVE_NEW new tokens, counting every kernel's
-    launches from 0 and requiring exactly the model's (`_path_launches`);
-    the same inputs then run teacher-forced through the plain versions of
-    the path's kernels, every step's logits within LOGIT_TOL; prefill and
-    decode rates (the launches of each half asserted on their own), peak
-    device memory beside the allocation before the run, and the device's
-    busy share and top kinds of device time from a profile. Returns
-    (main-path launches, {(kernel, "prefill" or "decode"): device ms per
-    launch in the profile})."""
+@contextlib.contextmanager
+def _moe_log(torch, replay=None):
+    """Patch `models.moe.moe_apply` for the calls inside: each call's free
+    expert choice ((T, k) ids) and dropped shares go to the yielded log in
+    call order; with `replay` (a log's ids) call i routes as replay[i]
+    instead, through `moe_apply`'s `routing` (which the serving path never
+    passes)."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    real = moe.moe_apply
+    log = {"ids": [], "dropped": [], "pre": []}
+    given = iter(replay) if replay is not None else None
+
+    def logged(params, x, cfg, capacity=None, routing=None):
+        if given is not None:
+            routing = next(given)
+        else:
+            log["ids"].append(moe.route(params, x.reshape(-1, x.shape[-1]), cfg)[2])
+        y, m = real(params, x, cfg, capacity, routing)
+        log["dropped"].append(m["moe_dropped"])
+        log["pre"].append(m["moe_dropped_pre_steal"])
+        return y, m
+
+    with mock.patch.object(moe, "moe_apply", logged):
+        yield log
+    if given is not None and next(given, None) is not None:
+        raise SystemExit("moe replay: fewer MoE calls than the recorded run made")
+
+
+def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note: str = "",
+                layers: int | None = None):
+    """Serve `arch` at full width (and depth, unless `layers` cuts it) on the
+    card through the serving entry point (random weights from seed 0):
+    SERVE_BATCH requests of `prompt_len` tokens and SERVE_NEW new tokens,
+    counting every kernel's launches from 0 and requiring exactly the
+    model's (`_path_launches`); the same inputs then run teacher-forced
+    through the plain versions of the path's kernels, every step's logits
+    within LOGIT_TOL (an MoE model's plain path also replays the kernel
+    path's expert choices, layer by layer and step by step: a top-k over
+    many experts can flip on one bf16 rounding of the attention output,
+    which is a discrete change and not kernel error; with free routing the
+    flips and the logit gap are printed, not gated); prefill and decode
+    rates (the launches of each half asserted on their own), peak device
+    memory beside the allocation before the run, an MoE model's dropped
+    shares, and the device's busy share and top kinds of device time from a
+    profile. Returns (main-path launches, {(kernel, "prefill" or
+    "decode"): device ms per launch in the profile})."""
     from unittest import mock
 
     from repro_torch.models import registry
     from repro_torch.runtime import serve_loop
 
     cfg = registry.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     fns = registry.get_fns(cfg)
+    is_moe = cfg.moe is not None
     per_prefill, per_step = _path_launches(cfg)
     kernels = sorted(set(per_prefill) | set(per_step))
     kinds = cfg.block_kinds()
@@ -3112,7 +3183,11 @@ def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note:
           f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}), "
           f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} kv, hd {cfg.hd}, "
           f"window {cfg.window}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.norm}, "
-          f"{cfg.dtype}; {n_params} parameters in the tree (config count "
+          + (f"{cfg.moe.n_experts} experts (+{cfg.moe.ep_pad_to} padded) top-"
+             f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, {cfg.moe.n_shared} "
+             f"shared, capacity factor {cfg.moe.capacity_factor}, "
+             f"{cfg.moe.overflow}, " if is_moe else "")
+          + f"{cfg.dtype}; {n_params} parameters in the tree (config count "
           f"{cfg.n_params()}{note}), random from seed 0, made in "
           f"{time.perf_counter() - t0:.3f} s")
     sc = serve_loop.ServeConfig(max_new_tokens=SERVE_NEW, prompt_len=prompt_len,
@@ -3152,14 +3227,21 @@ def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note:
         raise SystemExit(f"{tag}: output shape {tuple(served.shape)}")
 
     # kernel path, greedy, and the plain versions of the path's kernels
-    # teacher-forced on its tokens: every step's logits compared
-    greedy_k, logits_k = _greedy_run(torch, fns, cfg, params, prompts, sc.cache_len)
+    # teacher-forced on its tokens (and on its expert choices): every step's
+    # logits compared
+    def plain_run(replay=None):
+        with contextlib.ExitStack() as plain:
+            for name in kernels:
+                plain.enter_context(mock.patch.object(ops, name, getattr(ref, name)))
+            log = plain.enter_context(_moe_log(torch, replay)) if is_moe else None
+            return _greedy_run(torch, fns, cfg, params, prompts, sc.cache_len,
+                               feed=greedy_k)[1], log
+
+    with _moe_log(torch) if is_moe else contextlib.nullcontext() as log_k:
+        greedy_k, logits_k = _greedy_run(torch, fns, cfg, params, prompts, sc.cache_len)
     reproduced = bool(torch.equal(_served_view(torch, greedy_k, sc.eos_id), served))
-    with contextlib.ExitStack() as plain:
-        for name in kernels:
-            plain.enter_context(mock.patch.object(ops, name, getattr(ref, name)))
-        greedy_p, logits_p = _greedy_run(torch, fns, cfg, params, prompts,
-                                         sc.cache_len, feed=greedy_k)
+    logits_p, _ = plain_run(log_k["ids"] if is_moe else None)
+    greedy_p = logits_p.argmax(-1).t().to(torch.int32)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(logits_k.float()).all()):
         raise SystemExit(f"{tag}: non-finite logits on the kernel path")
@@ -3174,7 +3256,10 @@ def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note:
           f"the kernel rerun reproduces the served tokens: {reproduced}")
     if max(step_err) > LOGIT_TOL:
         raise SystemExit(f"{tag}: kernel path and plain path disagree")
-    del logits_k, logits_p, diff
+    del logits_p, diff
+    if is_moe:
+        _moe_report(torch, tag, cfg, log_k, logits_k, plain_run)
+    del logits_k
 
     # rates: prefill, and decode steps fed the greedy tokens
     def prefill():
@@ -3239,6 +3324,48 @@ def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note:
         for kname, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
             print(f"[profile]   {ms:9.3f} ms {cnt:7d}x {kname[:90]}")
     return counts, profiled
+
+
+def _moe_report(torch, tag, cfg, log_k, logits_k, plain_run):
+    """An MoE model's dropped shares on the kernel path (the prefill's and
+    the first decode step's, means over the layers, before and after the
+    neighbor steal), and the plain path's free routing against the kernel
+    path's: (layer, token) decisions whose expert sets differ, and the max
+    logit gap (printed, not gated)."""
+    L = cfg.n_layers
+    n_calls = L * SERVE_NEW
+    if len(log_k["ids"]) != n_calls:
+        raise SystemExit(f"{tag}: {len(log_k['ids'])} MoE calls, expected {n_calls}")
+    shares = {}
+    for part, sl in (("prefill", slice(0, L)), ("decode step 1", slice(L, 2 * L))):
+        pre = float(torch.stack(log_k["pre"][sl]).mean())
+        post = float(torch.stack(log_k["dropped"][sl]).mean())
+        if not 0.0 <= post <= pre <= 1.0:
+            raise SystemExit(f"{tag} {part}: dropped share {post} after the steal, "
+                             f"{pre} before")
+        shares[part] = (pre, post)
+    T_pre, T_dec = log_k["ids"][0].shape[0], log_k["ids"][L].shape[0]
+    from repro_torch.models import moe
+
+    print(f"[{tag}] dropped token slots (mean over {L} layers), pre-steal -> after "
+          f"{cfg.moe.overflow}: prefill (T {T_pre}, capacity "
+          f"{moe.capacity_of(T_pre, cfg.moe)}) {shares['prefill'][0]:.6f} -> "
+          f"{shares['prefill'][1]:.6f}; decode step 1 (T {T_dec}, capacity "
+          f"{moe.capacity_of(T_dec, cfg.moe)}) {shares['decode step 1'][0]:.6f} -> "
+          f"{shares['decode step 1'][1]:.6f}")
+    logits_f, log_f = plain_run()
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(log_k["ids"], log_f["ids"]))
+    decisions = sum(a.shape[0] for a in log_k["ids"])
+    first = next((f"MoE call {i}, layer {i % L}"
+                  for i, (a, b) in enumerate(zip(log_k["ids"], log_f["ids"]))
+                  if not torch.equal(a.sort(-1).values, b.sort(-1).values)), "none")
+    gap = (logits_k.float() - logits_f.float()).abs().amax(dim=(1, 2))
+    print(f"[{tag}] free routing on the plain path (teacher-forced tokens only): "
+          f"{flips} of {decisions} (layer, token) expert choices differ from the "
+          f"kernel path's (the first: {first}); "
+          f"max abs logit difference prefill {float(gap[0]):.6f}, decode steps max "
+          f"{float(gap[1:].max()):.6f} (printed, not gated)")
 
 
 def phase_simulate_serving(np):
@@ -3360,13 +3487,20 @@ def main() -> int:
                                              da_tc["max_abs_err"], da_arr["max_abs_err"])
     # the serving paths, one model at a time (each frees its weights)
     serving = {}
-    for tag, arch, prompt_len, note in (
-            ("serve", "qwen2-0.5b", 512, ""),
+    for tag, arch, prompt_len, note, layers in (
+            ("serve", "qwen2-0.5b", 512, "", None),
             ("serve_rwkv6", "rwkv6-1.6b", 512,
-             ": it counts the channel mix as 3·D·d_ff, the tree holds 2·D·d_ff + D²"),
+             ": it counts the channel mix as 3·D·d_ff, the tree holds 2·D·d_ff + D²", None),
             ("serve_hybrid", "recurrentgemma-9b", 2560,
-             ": it leaves out the gates' wa and wx")):
-        counts, prof = phase_serve(torch, np, ops, ref, tag, arch, prompt_len, note)
+             ": it leaves out the gates' wa and wx", None),
+            ("serve_moe", "qwen2-moe-a2.7b", 512,
+             ": it counts the 60 real experts, the tree holds the 64 of ep_pad_to", None),
+            # 32 layers are ~84 GB in bf16, more than one card holds: full
+            # width, 2 layers
+            ("serve_phi35_moe", "phi3.5-moe-42b-a6.6b", 512,
+             ": it leaves out layernorm's shifts; depth cut to 2 of 32 layers", 2)):
+        counts, prof = phase_serve(torch, np, ops, ref, tag, arch, prompt_len, note,
+                                   layers)
         serving[tag] = prof
         for name, _ in prof:
             by_path.setdefault(name, {})[tag] = counts[name]
@@ -3382,6 +3516,11 @@ def main() -> int:
     kern["flash_attention"]["hd256_main_path_device_ms"] = hybrid[("flash_attention", "prefill")]
     kern["decode_attention"]["hd256_main_path_device_ms"] = hybrid[("decode_attention", "decode")]
     profiled["rglru"] = hybrid[("rglru", "prefill")]
+    moe_path = serving["serve_moe"]
+    kern["flash_attention"]["hd128_main_path_device_ms"] = moe_path[("flash_attention",
+                                                                     "prefill")]
+    kern["decode_attention"]["hd128_main_path_device_ms"] = moe_path[("decode_attention",
+                                                                      "decode")]
     kern["rglru"]["main_path_decode_device_ms"] = hybrid[("rglru", "decode")]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3400,9 +3539,9 @@ def main() -> int:
          "call_ms": kern[name]["call_ms"],
          "main_path_device_ms": profiled[name],
          **{k: v for k, v in kern[name].items()
-            if k.startswith(("decode_", "main_", "hd256_", "fp32_", "sweep_", "faults_",
-                              "width4_", "arrivals_", "scheduler_"))
-            and k not in ("hd256_bytes", "hd256_ops")}}
+            if k.startswith(("decode_", "main_", "hd128_", "hd256_", "fp32_", "sweep_",
+                              "faults_", "width4_", "arrivals_", "scheduler_"))
+            and k not in ("hd128_bytes", "hd128_ops", "hd256_bytes", "hd256_ops")}}
         for name, replaces in (
             ("steal_compact", "src/repro/kernels/steal_compact.py:44"),
             ("deque_apply", "src/repro/kernels/deque_apply.py:42"),

@@ -8,7 +8,7 @@ executor's `SchedulerConfig`'s) fields (its
 schedule's arrays, an arrival config's fields or a constellation's config
 fields and, for the deque layer, a `DequeState`'s ``(buf, bot, size)``.
 Enum-valued fields may be any enum (or plain string) with the same values. A model's input is its
-parameter tree (`lm_params` for the dense transformer, `rwkv6_params` for
+parameter tree (`lm_params` for the dense and MoE transformer, `rwkv6_params` for
 rwkv6, `rglru_params` for the RG-LRU hybrid). This module imports nothing
 of the reference package.
 """
@@ -105,12 +105,13 @@ def deque_state(buf, bot, size, device="cpu") -> dq.DequeState:
     return dq.DequeState(t(buf), t(bot), t(size))
 
 
-def _tensors(cfg: ModelConfig, node, device, fp32_leaves, name=""):
+def _tensors(dtype: str, node, device, fp32_leaves, name=""):
     """A tree of numpy arrays as tensors on `device`: leaves named in
-    `fp32_leaves` in fp32, every other leaf in cfg.dtype."""
+    `fp32_leaves` in fp32, every other leaf in `dtype` (a name of
+    `layers.DTYPES`)."""
     if isinstance(node, dict):
-        return {k: _tensors(cfg, v, device, fp32_leaves, k) for k, v in node.items()}
-    dt = torch.float32 if name in fp32_leaves else layers.dtype_of(cfg.dtype)
+        return {k: _tensors(dtype, v, device, fp32_leaves, k) for k, v in node.items()}
+    dt = torch.float32 if name in fp32_leaves else layers.dtype_of(dtype)
     return torch.from_numpy(np.array(node, np.float32)).to(device=device, dtype=dt)
 
 
@@ -125,24 +126,36 @@ def _lm_tree(cfg: ModelConfig, params: dict, device, fp32_leaves) -> dict:
     """The reference's parameter tree (numpy arrays, `layers` leaves stacked
     along a leading n_layers axis) as the port's: one dict per layer, leaves
     named in `fp32_leaves` in fp32 and every other leaf in cfg.dtype."""
-    out = {k: _tensors(cfg, v, device, fp32_leaves)
+    out = {k: _tensors(cfg.dtype, v, device, fp32_leaves)
            for k, v in params.items() if k != "layers"}
-    out["layers"] = [_tensors(cfg, _index(params["layers"], i), device, fp32_leaves)
+    out["layers"] = [_tensors(cfg.dtype, _index(params["layers"], i), device, fp32_leaves)
                      for i in range(cfg.n_layers)]
     return out
 
 
 def lm_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
-    """The port's transformer parameters from the reference's parameter
-    tree, given as numpy arrays (e.g. `jax.tree.map(np.asarray, params)`).
+    """The port's transformer parameters (dense or MoE) from the
+    reference's parameter tree, given as numpy arrays (e.g.
+    `jax.tree.map(np.asarray, params)`).
 
     The reference stacks every `layers` leaf along a leading n_layers axis;
     the port keeps one dict per layer. Weights are cast once to cfg.dtype
     on `device` — the reference casts its fp32 masters to cfg.dtype at
-    every use, so the values are the same — and norm scales stay fp32, as
-    the reference multiplies them in fp32. A tied embedding stays one
-    table."""
-    return _lm_tree(cfg, params, device, ("scale",))
+    every use, so the values are the same — and norm scales and
+    layernorm's `bias` stay fp32, as the reference computes with them in
+    fp32. The MoE leaves come across as they are: the router's `w` (D, E),
+    the experts' `wg` and `wu` (E, D, F) and `wd` (E, F, D), and `shared`;
+    the reference casts the router to the activations' type at use, so
+    cfg.dtype is its value. A tied embedding stays one table."""
+    return _lm_tree(cfg, params, device, ("scale", "bias"))
+
+
+def moe_params(params: dict, dtype: str = "float32", device="cpu") -> dict:
+    """One MoE layer's parameters from the reference's `moe_init` tree
+    (numpy arrays): the router's `w`, the experts' `wg`, `wu`, `wd` and
+    `shared`, every leaf in `dtype` (the type the reference casts each to
+    at use)."""
+    return _tensors(dtype, params, device, ())
 
 
 def rwkv6_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
@@ -177,7 +190,7 @@ def rglru_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
         kind = cfg.pattern[off]
         idx = cfg.pattern[:off].count(kind)
         per_layer.append(_index(params[kind], g, idx))
-    out = {k: _tensors(cfg, params[k], device, fp32)
+    out = {k: _tensors(cfg.dtype, params[k], device, fp32)
            for k in ("embed", "final_norm", "head")}
-    out["layers"] = [_tensors(cfg, lp, device, fp32) for lp in per_layer]
+    out["layers"] = [_tensors(cfg.dtype, lp, device, fp32) for lp in per_layer]
     return out

@@ -15,7 +15,8 @@
 //
 // Bound on the card: bytes. The cache rows below lengths[b] are read once:
 // at B=8, KV=2, hd=64 and lengths ~512..575 that is ~2.2 MB of bf16 K and V
-// per layer (~0.7 us at 3.35 TB/s); at recurrentgemma's B=8, KV=1, hd=256
+// per layer (~0.7 us at 3.35 TB/s); at qwen2-moe's B=8, KV=16, hd=128, the
+// same lengths, ~36 MB (~10.6 us); at recurrentgemma's B=8, KV=1, hd=256
 // and a full 2048-slot ring, ~16.8 MB (~5.0 us). The products are ~4 FLOP
 // per byte, far below the card's ratio, so the design aims at keeping enough
 // bytes in flight on every SM and at a short tail after the last byte.
@@ -23,11 +24,12 @@
 // bf16 design (tensor cores, one launch, `decode_attention_mma_kernel`):
 // - Split over T. One block of 4 warps per (b*KV + kv, chunk of CHUNK
 //   positions): CHUNK 128 at hd 64 (5 chunks of qwen2's 584-slot cache, 80
-//   blocks) and 256 at hd 256 (8 chunks of recurrentgemma's 2048-slot ring,
-//   64 blocks of 256 KB of cache each). Chunks at or past lengths[b] read no
-//   cache.
+//   blocks) and at hd 128 (5 chunks of qwen2-moe's, 640 blocks of 16 KV
+//   heads x 8 rows), 256 at hd 256 (8 chunks of recurrentgemma's 2048-slot
+//   ring, 64 blocks of 256 KB of cache each). Chunks at or past lengths[b]
+//   read no cache.
 // - Each warp owns tiles of 16 positions (position t0 + (i*WARPS + w)*16 for
-//   its tile i: 2 tiles at hd 64, 4 at hd 256) and keeps its own online
+//   its tile i: 2 tiles at hd 64 and 128, 4 at hd 256) and keeps its own online
 //   softmax over them. K and V stay bf16 in shared memory: the warp's tiles
 //   stream through its own 2-slot ring by cp.async (16 bytes a lane, rows
 //   past lengths[b] zero-filled), one commit group a tile, a slot refilled
@@ -47,7 +49,7 @@
 //   quarters of every product.
 // - The warps' partials (m, l, acc) merge in shared memory with weights
 //   exp(max(m_w - m, -80)). The blocks of a (b, kv) pair then merge inside
-//   a thread-block cluster of up to 16 (hd 64) or 8 (hd 256) consecutive
+//   a thread-block cluster of up to 16 (hd 64) or 8 (hd 128, 256) consecutive
 //   chunks, one cluster a pair at the serving shapes: each block pushes its
 //   partial's m and l to every block of the cluster and the acc of each
 //   (row, 4 dims) element to the block whose slice holds it, by stores to
@@ -63,7 +65,8 @@
 //   its 4 x 2 x 2 K/V tiles in 161 KB of shared memory, one block an SM,
 //   and a card's GPCs cannot hold the 16 clusters of 8 such blocks that
 //   chunks of 128 would need at once; the 8 clusters of chunks of 256 they
-//   can.
+//   can. At hd 128 a block holds 84.5 KB, two an SM, and clusters of 8 stay
+//   within the portable size.
 // - A cache longer than a cluster (more than 2048 positions) has several
 //   clusters a pair: each writes its slices to scratch (G x hd fp32 plus m
 //   and l a cluster) and takes a ticket per (b, kv, slice) (atomicAdd after
@@ -74,7 +77,7 @@
 //   replay the launch.
 //
 // fp32 design (CUDA cores, two passes, no serving path uses it): pass 1 runs
-// one block per (b*KV + kv, chunk of 64 (hd 64) or 32 (hd 256) positions),
+// one block per (b*KV + kv, chunk of 64 (hd 64) or 32 (hd 128, 256) positions),
 // stages q, K and V in shared memory as fp32, computes scores, the chunk's
 // max and sum and its PV partial, and writes (m, l, acc) to scratch; pass 2
 // runs one block of hd threads per (b*KV + kv, query row) that merges the
@@ -104,6 +107,7 @@ constexpr float kNegInf = -1e30f;
 // (chunk of cache positions, threads of pass 1) by head dim
 template <int HD> struct Shape;
 template <> struct Shape<64> { static constexpr int CHUNK = 64, THREADS = 128; };
+template <> struct Shape<128> { static constexpr int CHUNK = 32, THREADS = 128; };
 template <> struct Shape<256> { static constexpr int CHUNK = 32, THREADS = 256; };
 
 // pass 1's shared memory in floats: q rows, K rows padded by 4 (a warp's
@@ -300,6 +304,9 @@ template <int HD> struct Mma;
 template <> struct Mma<64> {
     static constexpr int WARPS = 4, TILES = 2, STAGES = 2, MAX_CLUSTER = 16;
 };
+template <> struct Mma<128> {
+    static constexpr int WARPS = 4, TILES = 2, STAGES = 2, MAX_CLUSTER = 8;
+};
 template <> struct Mma<256> {
     static constexpr int WARPS = 4, TILES = 4, STAGES = 2, MAX_CLUSTER = 8;
 };
@@ -331,14 +338,14 @@ struct MmaLayout {
     static constexpr int RECV_BYTES = (MAX_GROUP * HD / 4 + MC) * 16 + 2 * MC * MAX_GROUP * 4;
     static constexpr int BYTES = RECV_OFF + RECV_BYTES;
 };
-static_assert(MmaLayout<64>::MERGE_BYTES <= MmaLayout<64>::RING_END &&
-                  MmaLayout<256>::MERGE_BYTES <= MmaLayout<256>::RING_END,
-              "merge area");
-static_assert(Mma<64>::STAGES <= Mma<64>::TILES && Mma<256>::STAGES <= Mma<256>::TILES &&
-                  Mma<64>::STAGES <= 4 && Mma<256>::STAGES <= 4,
-              "ring slots");
-static_assert(Mma<64>::MAX_CLUSTER <= kMaxCluster && Mma<256>::MAX_CLUSTER <= kMaxCluster,
-              "tickets");
+template <int HD>
+constexpr bool layout_fits() {
+    return MmaLayout<HD>::MERGE_BYTES <= MmaLayout<HD>::RING_END &&    // merge area
+           Mma<HD>::STAGES <= Mma<HD>::TILES && Mma<HD>::STAGES <= 4 &&  // ring slots
+           Mma<HD>::MAX_CLUSTER <= kMaxCluster;                           // tickets
+}
+static_assert(layout_fits<64>() && layout_fits<128>() && layout_fits<256>(),
+              "decode_attention_mma_kernel layout");
 
 // blocks of a cluster at head dim HD with n_chunks chunks of the cache
 template <int HD>
@@ -890,16 +897,20 @@ long long scratch_mma(int BH, int G, int T_len) {
 // The largest group (query heads per KV head) the kernel takes at head dim
 // `hd`; 0 if it was not built for that head dim.
 extern "C" int decode_attention_max_group(int hd) {
-    return hd == 64 || hd == 256 ? MAX_GROUP : 0;
+    return hd == 64 || hd == 128 || hd == 256 ? MAX_GROUP : 0;
 }
 // cache positions per bf16 block at head dim `hd`; 0 if not built for it
 extern "C" int decode_attention_chunk(int hd) {
-    return hd == 64 ? MmaLayout<64>::CHUNK : hd == 256 ? MmaLayout<256>::CHUNK : 0;
+    return hd == 64    ? MmaLayout<64>::CHUNK
+           : hd == 128 ? MmaLayout<128>::CHUNK
+           : hd == 256 ? MmaLayout<256>::CHUNK
+                       : 0;
 }
 // warps of a bf16 block at head dim `hd` (each keeps its own online softmax
 // over tiles of decode_attention_tile() positions); 0 if not built
 extern "C" int decode_attention_warps(int hd) {
-    return hd == 64 ? Mma<64>::WARPS : hd == 256 ? Mma<256>::WARPS : 0;
+    return hd == 64 ? Mma<64>::WARPS : hd == 128 ? Mma<128>::WARPS
+                                     : hd == 256 ? Mma<256>::WARPS : 0;
 }
 extern "C" int decode_attention_tile() { return kTile; }
 // blocks of a bf16 cluster at head dim `hd` for a cache of T positions
@@ -907,7 +918,8 @@ extern "C" int decode_attention_cluster(int hd, int T_len) {
     const int chunk = decode_attention_chunk(hd);
     if (chunk == 0) return 0;
     const int n_chunks = (T_len + chunk - 1) / chunk;
-    return hd == 64 ? cluster_size<64>(n_chunks) : cluster_size<256>(n_chunks);
+    return hd == 64 ? cluster_size<64>(n_chunks) : hd == 128 ? cluster_size<128>(n_chunks)
+                                                             : cluster_size<256>(n_chunks);
 }
 // floats of scratch a launch needs; -1 if more than an int counts
 extern "C" int decode_attention_scratch_floats(int B, int KV, int G, int T_len, int hd,
@@ -915,9 +927,12 @@ extern "C" int decode_attention_scratch_floats(int B, int KV, int G, int T_len, 
     const int BH = B * KV;
     long long n = 0;
     if (bf16) {
-        n = hd == 64 ? scratch_mma<64>(BH, G, T_len) : scratch_mma<256>(BH, G, T_len);
+        n = hd == 64    ? scratch_mma<64>(BH, G, T_len)
+            : hd == 128 ? scratch_mma<128>(BH, G, T_len)
+                        : scratch_mma<256>(BH, G, T_len);
     } else {
-        const int chunk = hd == 64 ? Shape<64>::CHUNK : Shape<256>::CHUNK;
+        const int chunk = hd == 64 ? Shape<64>::CHUNK : hd == 128 ? Shape<128>::CHUNK
+                                                                  : Shape<256>::CHUNK;
         n = (long long)BH * ((T_len + chunk - 1) / chunk) * G * (hd + 2);
     }
     return n <= 0x7fffffffLL ? (int)n : -1;
@@ -926,11 +941,12 @@ extern "C" int decode_attention_scratch_floats(int B, int KV, int G, int T_len, 
 extern "C" int decode_attention_tickets_per_pair() { return kMaxCluster; }
 
 // q (B, KV, G, hd), caches (B, KV, T, hd), lengths (B,) int32, out like q,
-// hd 64 or 256; bf16 != 0 selects bfloat16 (tensor cores, one launch), else
-// float32 (CUDA cores, two launches). scratch: decode_attention_scratch_floats
-// floats; tickets: B*KV*decode_attention_tickets_per_pair() unsigned ints,
-// zero before the first launch (each bf16 launch leaves them zero). Launches
-// on `stream`; returns the first CUDA error that is not 0, else 0.
+// hd 64, 128 or 256; bf16 != 0 selects bfloat16 (tensor cores, one launch),
+// else float32 (CUDA cores, two launches). scratch:
+// decode_attention_scratch_floats floats; tickets:
+// B*KV*decode_attention_tickets_per_pair() unsigned ints, zero before the
+// first launch (each bf16 launch leaves them zero). Launches on `stream`;
+// returns the first CUDA error that is not 0, else 0.
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const void* lengths,
                                        void* scratch, void* tickets, void* out,
@@ -943,12 +959,15 @@ extern "C" int decode_attention_launch(const void* q, const void* kc,
     if (BH == 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
     float* s = (float*)scratch;
+    unsigned* tk = (unsigned*)tickets;
     if (bf16) {
-        return hd == 64 ? launch_mma<64>(q, kc, vc, lengths, s, (unsigned*)tickets, out,
-                                         BH, KV, G, T_len, st)
-                        : launch_mma<256>(q, kc, vc, lengths, s, (unsigned*)tickets, out,
-                                          BH, KV, G, T_len, st);
+        return hd == 64    ? launch_mma<64>(q, kc, vc, lengths, s, tk, out, BH, KV, G, T_len, st)
+               : hd == 128 ? launch_mma<128>(q, kc, vc, lengths, s, tk, out, BH, KV, G, T_len,
+                                             st)
+                           : launch_mma<256>(q, kc, vc, lengths, s, tk, out, BH, KV, G, T_len,
+                                             st);
     }
-    return hd == 64 ? launch_fp32<64>(q, kc, vc, lengths, s, out, BH, KV, G, T_len, st)
-                    : launch_fp32<256>(q, kc, vc, lengths, s, out, BH, KV, G, T_len, st);
+    return hd == 64    ? launch_fp32<64>(q, kc, vc, lengths, s, out, BH, KV, G, T_len, st)
+           : hd == 128 ? launch_fp32<128>(q, kc, vc, lengths, s, out, BH, KV, G, T_len, st)
+                       : launch_fp32<256>(q, kc, vc, lengths, s, out, BH, KV, G, T_len, st);
 }

@@ -19,9 +19,10 @@
 // at longer sequences and wider heads. At B=8, Sq=Sk=512, 14 heads, hd=64,
 // causal it must move ~17 MB of q, k, v and output (~5.0 us at 3.35 TB/s) and
 // do ~3.8 GFLOP of QK and PV products (~3.8 us at the bf16 tensor-core
-// rate); at recurrentgemma's prefill (B=8, KV=1, G=16, hd=256, S=2560,
-// window 2048) the products are ~413 GFLOP (~0.42 ms) against ~357 MB
-// (~0.11 ms).
+// rate); at qwen2-moe's (B=8, KV=16, G=1, hd=128, S=512) ~67 MB (~20.0 us)
+// against ~8.6 GFLOP (~8.7 us); at recurrentgemma's prefill (B=8, KV=1,
+// G=16, hd=256, S=2560, window 2048) the products are ~413 GFLOP (~0.42 ms)
+// against ~357 MB (~0.11 ms).
 //
 // bfloat16: tensor cores (`flash_attention_wgmma_kernel`, sm_90a). A work
 // item is (query head, tile of 128 consecutive query positions); the grid
@@ -50,10 +51,11 @@
 //   that PV product. The two compute warpgroups issue in turn (named
 //   barriers), so one's products also run beside the other's softmax.
 // - Loads by TMA. One thread of the loader issues every copy, 128-byte
-//   swizzled: Q once an item (two Q buffers at hd 64, so the next item's Q
-//   arrives during this one), K and V tiles into a ring of stages (128 keys,
-//   4 stages at hd 64: 160 KB of shared memory with Q; 64 keys, 2 stages at
-//   hd 256: 192 KB), each stage handed over by K-full, V-full, K-empty and
+//   swizzled: Q once an item (two Q buffers at hd 64 and 128, so the next
+//   item's Q arrives during this one), K and V tiles into a ring of stages
+//   (128 keys, 4 stages at hd 64: 160 KB of shared memory with Q; 128 keys, 2
+//   stages at hd 128: 192 KB; 64 keys, 2 stages at hd 256: 192 KB), each
+//   stage handed over by K-full, V-full, K-empty and
 //   V-empty mbarriers, K released after its S product and V after its PV
 //   product. The tensor maps are 3-D over (hd, positions, heads), encoded on
 //   the host (libcuda's cuTensorMapEncodeTiled, reached through
@@ -77,13 +79,14 @@
 // (recurrentgemma: MQA, 16 query heads over one KV head, a 2048-token window)
 // a thread cannot hold a 256-wide q row and accumulator (512 floats), so the
 // wide kernel splits each row over WIDE_LANES = 8 neighbouring threads of a
-// warp: thread `lane` holds dims lane*4 + 32*c (c < 8) of q and of the
+// warp: thread `lane` holds dims lane*4 + 32*c (c < 8; c < 4 at hd 128, the
+// MoE models' head dim, which takes the same kernel) of q and of the
 // accumulator, so the eight float4 reads of a K or V row by one row's
 // threads fall on distinct banks; the QK dot product is summed over the 8
 // threads by three xor shuffles. Each thread holds two rows, a block of 256
 // threads 64 rows: the G query heads of one KV head times 64 / G query
-// positions. K and V tiles of WIDE_BLOCK_K = 16 keys go through 32 KB of
-// static shared memory. The wrapper refuses other head dims and groups above
+// positions. K and V tiles of WIDE_BLOCK_K = 16 keys go through 32 KB (16 KB
+// at hd 128) of static shared memory. The wrapper refuses other head dims and groups above
 // the fp32 kernels' maximum (`flash_attention_max_group`), for both types.
 //
 // Built with nvcc into a shared library with a plain C interface (see
@@ -103,6 +106,7 @@
 #define BLOCK_Q 32
 #define BLOCK_K 32
 #define MAX_GROUP 8  // G * BLOCK_Q threads per block, at most 256
+#define MID_HEAD_DIM 128   // the wide kernel's layout, 16 dims a thread
 #define WIDE_HEAD_DIM 256
 #define WIDE_LANES 8       // threads per row
 #define WIDE_THREADS 256
@@ -382,9 +386,15 @@ void launch(const void* q, const void* k, const void* v, void* out, int BH,
     } else {
         const int bq = WIDE_ROWS / G;
         const dim3 grid((Sq + bq - 1) / bq, BH);
-        flash_attention_wide_kernel<T, WIDE_HEAD_DIM><<<grid, WIDE_THREADS, 0, st>>>(
-            (const T*)q, (const T*)k, (const T*)v, (T*)out, G, Sq, Sk, causal,
-            window, scale);
+        if (hd == MID_HEAD_DIM) {
+            flash_attention_wide_kernel<T, MID_HEAD_DIM><<<grid, WIDE_THREADS, 0, st>>>(
+                (const T*)q, (const T*)k, (const T*)v, (T*)out, G, Sq, Sk, causal,
+                window, scale);
+        } else {
+            flash_attention_wide_kernel<T, WIDE_HEAD_DIM><<<grid, WIDE_THREADS, 0, st>>>(
+                (const T*)q, (const T*)k, (const T*)v, (T*)out, G, Sq, Sk, causal,
+                window, scale);
+        }
     }
 }
 
@@ -403,11 +413,16 @@ constexpr int kLoaderRegs = 24, kComputeRegs = 240, kLaunchRegs = 168;
 // Shared-memory layout of one instantiation. Every tile is stored as blocks
 // of 64 columns (128 bytes a row, the 128-byte swizzle's span), each block
 // [rows][64] with its 8-row atoms 1024 bytes apart, as TMA writes it.
+// At hd 128 a compute thread holds the O fragment (64 fp32 registers), S of
+// a 128-key tile (64) and P twice (32 + 32): 192, as at hd 256 (128 + 32 +
+// 16 + 16), within the 240 setmaxnreg gives. Two stages of 128-key K and V
+// tiles (4 x 32 KB) and two Q buffers (2 x 32 KB) take 192 KB of the 227 KB
+// a block may use; a third stage would need 256 KB.
 template <int HD>
 struct Layout {
-    static constexpr int BK = HD == 64 ? 128 : 64;         // keys per tile
+    static constexpr int BK = HD == 256 ? 64 : 128;        // keys per tile
     static constexpr int STAGES = HD == 64 ? 4 : 2;        // K/V ring depth
-    static constexpr int QBUF = HD == 64 ? 2 : 1;          // Q tiles (and O staging)
+    static constexpr int QBUF = HD == 256 ? 1 : 2;         // Q tiles (and O staging)
     static constexpr int NCB = HD / 64;                    // 64-column blocks
     static constexpr uint32_t Q_CB = kRows * 128;          // bytes of a Q column block
     static constexpr uint32_t KV_CB = BK * 128;            // of a K or V column block
@@ -578,6 +593,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, registers) B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -1064,10 +1105,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // The largest group (query heads per KV head) the kernel takes at head dim
 // `hd`; 0 if it was not built for that head dim.
 extern "C" int flash_attention_max_group(int hd) {
-    return hd == HEAD_DIM ? MAX_GROUP : hd == WIDE_HEAD_DIM ? WIDE_MAX_GROUP : 0;
+    return hd == HEAD_DIM ? MAX_GROUP
+           : hd == MID_HEAD_DIM || hd == WIDE_HEAD_DIM ? WIDE_MAX_GROUP
+                                                       : 0;
 }
 
-// q (BH, G, Sq, hd), k and v (BH, Sk, hd), out like q, hd 64 or 256; bf16
+// q (BH, G, Sq, hd), k and v (BH, Sk, hd), out like q, hd 64, 128 or 256; bf16
 // != 0 selects bfloat16 (tensor cores), else float32 (CUDA cores). Launches
 // on `stream`; returns the first CUDA error (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -1082,6 +1125,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
             const cudaError_t err =
                 hd == HEAD_DIM
                     ? launch_wgmma<HEAD_DIM>(q, k, v, out, BH, G, Sq, Sk, causal, window, st)
+                : hd == MID_HEAD_DIM
+                    ? launch_wgmma<MID_HEAD_DIM>(q, k, v, out, BH, G, Sq, Sk, causal,
+                                                 window, st)
                     : launch_wgmma<WIDE_HEAD_DIM>(q, k, v, out, BH, G, Sq, Sk, causal,
                                                   window, st);
             if (err != cudaSuccess) return (int)err;

@@ -10,6 +10,10 @@ study — the port of `repro.launch.serve`, with the same flags and
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --requests 8 --prompt-len 512 --max-new 64          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \\
+      --reduced --device cpu
 
 Part 1 decodes a batch end to end with random weights (the family's
 `init`, seed 0). The prompts are drawn by numpy from seed 0, so they are
@@ -17,10 +21,12 @@ not the reference script's prompts, which come from `jax.random`. Part 2 runs
 `simulate_serving` on the same Pareto request lengths as the reference
 script (numpy, seed 0); with `--strategy global` it runs the neighbor
 rebalancer too, as the reference does, and `none` turns rebalancing off.
-`--reduced` shrinks the model to head dim 8 (qwen2-0.5b), an rwkv head
-dim of 16 (rwkv6-1.6b) or head dim 16 (recurrentgemma-9b), which the CUDA
-attention and `wkv6` kernels (head dims 64 and 256; `wkv6` 64) refuse: use
-it with `--device cpu`.
+`--reduced` shrinks the model to head dim 8 (qwen2-0.5b, phi3.5-moe), an
+rwkv head dim of 16 (rwkv6-1.6b), head dim 16 (recurrentgemma-9b) or 32
+(qwen2-moe), which the CUDA attention and `wkv6` kernels (head dims 64, 128
+and 256; `wkv6` 64) refuse: use it with `--device cpu`. At full size
+qwen2-moe-a2.7b (15.1 B parameters in the tree, ~30 GB in bf16) fits one
+80 GB card; phi3.5-moe-42b-a6.6b (~84 GB) does not.
 """
 
 from __future__ import annotations

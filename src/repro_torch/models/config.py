@@ -4,9 +4,9 @@
 One frozen dataclass describes every family (dense / MoE / SSM / hybrid /
 enc-dec / VLM); the per-arch instances live in `repro_torch.configs.<id>`
 and are resolved by `repro_torch.models.registry`. The port serves the
-dense, ssm (rwkv6) and hybrid (recurrentgemma) families; the other fields
-are kept so
-configurations carry across unchanged.
+dense, moe (qwen2-moe, phi3.5-moe), ssm (rwkv6) and hybrid (recurrentgemma)
+families; the other fields are kept so configurations carry across
+unchanged.
 """
 
 from __future__ import annotations
@@ -88,8 +88,11 @@ class ModelConfig:
         1,835,108,352 against the tree's 1,584,041,984 (+15.8%: it counts the
         channel mix as 3·D·d_ff where the tree holds 2·D·d_ff + D²); for
         recurrentgemma-9b 9,572,462,592 against 10,444,984,320 (−8.4%: it
-        leaves out the gates' wa and wx). Size nothing from it: count the
-        initialised tree."""
+        leaves out the gates' wa and wx); for qwen2-moe-a2.7b 14,315,735,040
+        against 15,146,403,840 (−5.5%: it counts the 60 real experts, the
+        tree holds the 64 of `ep_pad_to`); for phi3.5-moe-42b-a6.6b
+        41,872,527,360 against 41,872,793,600 (it leaves out layernorm's
+        shifts). Size nothing from it: count the initialised tree."""
         d, hd = self.d_model, self.hd
         qkv = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads + hd * self.n_heads * d
         if self.qkv_bias:

@@ -26,21 +26,23 @@ class ModelFns(NamedTuple):
 _FAMILY_FNS = {
     "dense": ModelFns(transformer.init, transformer.prefill,
                       transformer.decode_step),
+    "moe": ModelFns(transformer.init, transformer.prefill,
+                    transformer.decode_step),
     "ssm": ModelFns(rwkv6.init, rwkv6.prefill, rwkv6.decode_step),
     "hybrid": ModelFns(rglru.init, rglru.prefill, rglru.decode_step),
 }
 # families of the reference not served yet → ROADMAP Queue 1 item
-_FAMILY_ITEMS = {"moe": "15.4", "vlm": "15.5", "encdec": "15.6"}
+_FAMILY_ITEMS = {"vlm": "15.5", "encdec": "15.6"}
 
 ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b",
 }
 # the reference's other architectures → ROADMAP Queue 1 item
 _ARCH_ITEMS = {
-    "qwen2-moe-a2.7b": "15.4",
-    "phi3.5-moe-42b-a6.6b": "15.4",
     "llava-next-mistral-7b": "15.5",
     "whisper-tiny": "15.6",
     "mistral-large-123b": "15.8",

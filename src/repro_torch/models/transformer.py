@@ -1,10 +1,12 @@
-"""Decoder-only dense transformer: init, forward, and the serving path
-(prefill + single-token decode with a KV cache), in torch.
+"""Decoder-only transformer: init, forward, and the serving path (prefill +
+single-token decode with a KV cache), in torch.
 
 Mirrors `repro.models.transformer` for the dense family (qwen2, mistral,
-granite, yi). The layer stack is a Python loop over a list of per-layer
-parameter dicts (the reference scans stacked leaves); there is no remat
-and no sequence-sharding constraint, which are no-ops on one device.
+granite, yi) and the MoE family (qwen2-moe, phi3.5-moe: a per-layer
+`"moe"` FFN, `models.moe`, in place of the dense MLP). The layer stack is
+a Python loop over a list of per-layer parameter dicts (the reference
+scans stacked leaves); there is no remat and no sequence-sharding
+constraint, which are no-ops on one device.
 Prefill attention runs the `flash_attention` kernel, decode attention the
 `decode_attention` kernel (`layers`). The KV cache is (L, B, KV, T, hd), so
 one layer's slice is the decode kernel's (B, KV, T, hd) operand without a
@@ -13,10 +15,11 @@ With a sliding window the cache is a ring of T = min(cache_len, window)
 slots, as the reference's is.
 
 What the port does not serve yet raises `NotImplementedError` naming its
-ROADMAP item: MoE FFNs, VLM prefix embeddings, cross-attention decoders,
-and norms, activations and positions other than rmsnorm / swiglu / RoPE.
-A block pattern other than attention layers is not this family's: the
-hybrid family (`rglru`) serves it.
+ROADMAP item: VLM prefix embeddings, cross-attention decoders, and
+activations and positions other than swiglu / RoPE. Norms are rmsnorm or
+layernorm, as the reference's `make_norm` picks them. A block pattern
+other than attention layers is not this family's: the hybrid family
+(`rglru`) serves it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from .. import core
 from . import layers as L
+from . import moe
 from .config import ModelConfig
 
 
@@ -38,13 +42,10 @@ def check_config(cfg: ModelConfig) -> None:
     if cfg.dtype not in L.DTYPES:
         raise ValueError(f"dtype {cfg.dtype!r}: the port computes in "
                          f"{sorted(L.DTYPES)}")
-    if cfg.moe is not None:
-        raise not_ported("MoE FFN", "15.4")
     if cfg.cross_attention or cfg.n_encoder_layers:
         raise not_ported("encoder-decoder cross-attention", "15.6")
-    if cfg.norm != "rmsnorm" or cfg.act != "swiglu" or cfg.rope_theta <= 0:
-        raise not_ported(f"norm={cfg.norm!r}, act={cfg.act!r}, "
-                         f"rope_theta={cfg.rope_theta}", "15.6")
+    if cfg.act != "swiglu" or cfg.rope_theta <= 0:
+        raise not_ported(f"act={cfg.act!r}, rope_theta={cfg.rope_theta}", "15.6")
     if any(k != "attn" for k in cfg.block_kinds()):
         raise ValueError(f"block pattern {cfg.pattern} is not the dense "
                          f"family's (the hybrid family serves it)")
@@ -58,16 +59,29 @@ def _dims(cfg: ModelConfig) -> L.AttnDims:
     return L.AttnDims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qkv_bias)
 
 
+def _norm(cfg: ModelConfig):
+    """The reference's `make_norm`: rmsnorm, else layernorm."""
+    return L.rmsnorm if cfg.norm == "rmsnorm" else L.layernorm
+
+
+def _ffn(lp, cfg: ModelConfig, x):
+    """The block's FFN on the normed x: the MoE layer (its metrics dropped,
+    as the reference's prefill and decode drop them) or the dense MLP."""
+    if cfg.moe is not None:
+        return moe.moe_apply(lp["moe"], x, cfg.moe)[0]
+    return L.mlp_apply(lp["mlp"], x)
+
+
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
 def init(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights on `device` (default: the CUDA device; raises if there
     is none): normal(0, 0.02) from a seeded `torch.Generator` on that
-    device, ones for norm scales, zeros for biases — the reference's
-    distributions, not its `jax.random` draws (`convert.lm_params` carries
-    the reference's own weights across). Weights are stored in cfg.dtype,
-    norm scales in fp32."""
+    device, ones for norm scales, zeros for biases and layernorm's shifts —
+    the reference's distributions, not its `jax.random` draws
+    (`convert.lm_params` carries the reference's own weights across).
+    Weights are stored in cfg.dtype, norm scales and shifts in fp32."""
     check_config(cfg)
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.dtype)
@@ -85,7 +99,16 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
         return p
 
     def norm_p():
-        return {"scale": torch.ones(cfg.d_model, dtype=torch.float32, device=dev)}
+        p = {"scale": torch.ones(cfg.d_model, dtype=torch.float32, device=dev)}
+        if cfg.norm != "rmsnorm":
+            p["bias"] = torch.zeros(cfg.d_model, dtype=torch.float32, device=dev)
+        return p
+
+    def ffn_p():
+        if cfg.moe is not None:
+            return {"moe": moe.moe_init(D, cfg.moe, normal)}
+        return {"mlp": {"wg": dense_p(D, cfg.d_ff), "wu": dense_p(D, cfg.d_ff),
+                        "wd": dense_p(cfg.d_ff, D)}}
 
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     layers = [{
@@ -95,8 +118,7 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
                  "wv": dense_p(D, KV * hd, cfg.qkv_bias),
                  "wo": dense_p(H * hd, D)},
         "ln2": norm_p(),
-        "mlp": {"wg": dense_p(D, cfg.d_ff), "wu": dense_p(D, cfg.d_ff),
-                "wd": dense_p(cfg.d_ff, D)},
+        **ffn_p(),
     } for _ in range(cfg.n_layers)]
     params = {"embed": {"table": normal(cfg.vocab, D)}, "layers": layers,
               "final_norm": norm_p()}
@@ -112,17 +134,17 @@ def _trunk(params, cfg: ModelConfig, tokens, cache=None):
     """Embedding, the layer stack and the final norm over positions
     0..S-1; writes each layer's keys and values into `cache` (in place)
     when one is given. Returns the final hidden states (B, S, D)."""
-    dims = _dims(cfg)
+    dims, norm = _dims(cfg), _norm(cfg)
     x = L.embed(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
-        a, (k, v) = L.attention_apply(lp["attn"], dims, L.rmsnorm(lp["ln1"], x),
+        a, (k, v) = L.attention_apply(lp["attn"], dims, norm(lp["ln1"], x),
                                       cfg.rope_theta, causal=True,
                                       window=cfg.window)
         x = x + a
         if cache is not None:
             L.write_prefill(cache["k"][i], cache["v"][i], k, v)
-        x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
-    return L.rmsnorm(params["final_norm"], x)
+        x = x + _ffn(lp, cfg, norm(lp["ln2"], x))
+    return norm(params["final_norm"], x)
 
 
 def _head(params):
@@ -180,13 +202,13 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int,
 def decode_step(params, cfg: ModelConfig, token, cache, pos):
     """token (B,) int, pos (B,) int32 → (logits (B, V), cache, pos + 1).
     The cache is updated in place (and returned, as the reference's is)."""
-    dims = _dims(cfg)
+    dims, norm = _dims(cfg), _norm(cfg)
     x = L.embed(params["embed"], token[:, None])             # (B, 1, D)
     for i, lp in enumerate(params["layers"]):
-        a, _, _ = L.attention_decode(lp["attn"], dims, L.rmsnorm(lp["ln1"], x),
+        a, _, _ = L.attention_decode(lp["attn"], dims, norm(lp["ln1"], x),
                                      cache["k"][i], cache["v"][i], pos,
                                      cfg.rope_theta)
         x = x + a
-        x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
-    x = L.rmsnorm(params["final_norm"], x)
+        x = x + _ffn(lp, cfg, norm(lp["ln2"], x))
+    x = norm(params["final_norm"], x)
     return L.unembed(_head(params), x)[:, 0], cache, pos + 1

@@ -5,7 +5,9 @@ Mirrors `repro.runtime.serve_loop`:
   * `serve_requests` runs the real model — prefill of every prompt, then
     greedy decode to EOS or `max_new_tokens` — on one device, through the
     model family's kernels (`registry.get_fns`): for the dense transformer
-    `flash_attention` (prefill) and `decode_attention` (decode), for rwkv6
+    `flash_attention` (prefill) and `decode_attention` (decode), for the
+    MoE transformer (qwen2-moe, phi3.5-moe) the same kernels at head dim
+    128 around the neighbor-steal expert dispatch, for rwkv6
     `wkv6` (both), for the RG-LRU hybrid (recurrentgemma) `rglru` (both)
     with windowed `flash_attention` and `decode_attention` on a ring KV
     cache;

@@ -169,6 +169,30 @@ def test_cuda_attention_kernels_match_plain_versions(cuda_device, dtype):
         got = ops.decode_attention(q, kc, vc, ln)
         want = ref.decode_attention(q, kc, vc, ln)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    # head dim 128 (the MoE models): qwen2-moe's G 1 over 16 KV heads,
+    # phi3.5-moe's G 4 over 8, causal, windowed and not; decode lengths at
+    # the kernel's edges and over two clusters of 8 chunks
+    for B, KV, G, S, causal, window in ((2, 16, 1, 300, True, 0), (1, 8, 4, 333, False, 0),
+                                        (2, 8, 4, 257, True, 100)):
+        q = rnd(B, KV, G, S, 128)
+        k, v = rnd(B, KV, S, 128), rnd(B, KV, S, 128)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for B, KV, G, T, lengths in ((8, 16, 1, 584, [513, 1, 16, 17, 127, 128, 129, 584]),
+                                 (3, 8, 4, 1100, [0, 1025, 1100])):
+        q = rnd(B, KV, G, 128)
+        kc, vc = rnd(B, KV, T, 128), rnd(B, KV, T, 128)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+        got = ops.decode_attention(q, kc, vc, ln)
+        want = ref.decode_attention(q, kc, vc, ln)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == 8
-    assert ops.LAUNCHES["decode_attention"] == 5
+    assert ops.LAUNCHES["flash_attention"] == 11
+    assert ops.LAUNCHES["decode_attention"] == 7
+    # a head dim no kernel was built for raises; it never falls back
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.flash_attention(rnd(1, 1, 1, 8, 96), rnd(1, 1, 8, 96), rnd(1, 1, 8, 96))
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.decode_attention(rnd(1, 1, 1, 96), rnd(1, 1, 8, 96), rnd(1, 1, 8, 96),
+                             torch.ones((1,), dtype=torch.int32, device=cuda_device))

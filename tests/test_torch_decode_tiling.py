@@ -4,7 +4,7 @@ emulated on the CPU and held against the plain version
 interpret mode).
 
 The bf16 kernel (`kernels/csrc/decode_attention.cu`) splits the cache into
-chunks of CHUNK[hd] positions (128 at head dim 64, 256 at 256), one block
+chunks of CHUNK[hd] positions (128 at head dim 64 and 128, 256 at 256), one block
 each. A block has WARPS[hd] warps (4); warp w of a block owns the
 16-position tiles at t0 + (i * WARPS + w) * 16 of its chunk (t0 the chunk's
 first position, i = 0, 1, ...) and keeps its own running max over them:
@@ -13,7 +13,7 @@ accumulation) and summed unrounded into l, and earlier sums are rescaled by
 exp(max(m_old - m_new, -80)). The warps' (m, l, acc) merge with weights
 exp(max(m_w - m, -80)); then the blocks' the same way within a cluster of
 CL = min(MAX_CLUSTER[hd], chunks) consecutive chunks (16 at head dim 64, 8
-at 256), a cluster past the cache padded with empty partials; then the
+at 128 and 256), a cluster past the cache padded with empty partials; then the
 clusters'; and the output is acc / max(l, 1e-30) rounded to bf16. The
 plain version instead normalises
 first and rounds the normalised p. The emulation below follows the kernel's
@@ -37,9 +37,9 @@ from repro.kernels import ops as rops
 from repro_torch.kernels import ops, ref
 
 ATTN_ATOL_BF16, ATTN_RTOL_BF16 = 2e-2, 2 ** -7
-CHUNK = {64: 128, 256: 256}
-WARPS = {64: 4, 256: 4}
-MAX_CLUSTER = {64: 16, 256: 8}
+CHUNK = {64: 128, 128: 128, 256: 256}
+WARPS = {64: 4, 128: 4, 256: 4}
+MAX_CLUSTER = {64: 16, 128: 8, 256: 8}
 TILE = 16
 NEG_INF = -1e30
 
@@ -125,13 +125,15 @@ def _lengths(hd: int, T: int) -> list:
     return [min(x, T) for x in n + [T]]
 
 
-# (head dim, G, KV, T, q scale): qwen2's shape of group (hd 64, G 7) and
-# recurrentgemma's (hd 256, G 16 over one KV head), T ragged against the
-# chunk, in one cluster and (T 2100 at hd 64, 2600 at hd 256) in two; q x 8
-# spreads the scores wide, so the running max moves by large steps and p is
-# rounded against a stale max
+# (head dim, G, KV, T, q scale): qwen2's shape of group (hd 64, G 7),
+# recurrentgemma's (hd 256, G 16 over one KV head) and the MoE models' (hd
+# 128: qwen2-moe's G 1 over 16 KV heads, phi3.5-moe's G 4 over 8), T ragged
+# against the chunk, in one cluster and (T 2100 at hd 64, 2600 at hd 256,
+# 1100 at hd 128) in two; q x 8 spreads the scores wide, so the running max
+# moves by large steps and p is rounded against a stale max
 CASES = [(64, 7, 2, 300, 1), (64, 7, 2, 300, 8), (256, 16, 1, 600, 1),
-         (256, 16, 1, 600, 8), (64, 7, 1, 2100, 1), (256, 16, 1, 2600, 8)]
+         (256, 16, 1, 600, 8), (64, 7, 1, 2100, 1), (256, 16, 1, 2600, 8),
+         (128, 1, 16, 584, 1), (128, 4, 8, 1100, 8)]
 
 
 @pytest.mark.parametrize("hd,G,KV,T,qscale", CASES)
@@ -197,7 +199,7 @@ def test_built_kernel_has_the_emulated_tiling(cuda_device):
     from repro_torch.kernels import build
 
     lib = build.load("decode_attention")
-    for hd in (64, 256):
+    for hd in (64, 128, 256):
         assert lib.decode_attention_chunk(hd) == CHUNK[hd]
         assert lib.decode_attention_warps(hd) == WARPS[hd]
         for T in (1, 100, 584, 2048, 2600, 4096):

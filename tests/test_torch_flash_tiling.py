@@ -3,7 +3,7 @@ on the CPU and held against the plain version (`repro_torch.kernels.ref`)
 and the Pallas kernel (`repro.kernels.ops`, interpret mode).
 
 The bf16 kernel (`kernels/csrc/flash_attention.cu`) walks the keys in tiles
-of KEY_TILE[hd] (128 at head dim 64, 64 at 256), keeps a running max per
+of KEY_TILE[hd] (128 at head dim 64 and 128, 64 at 256), keeps a running max per
 row over the tiles seen so far, takes p = exp(s - max) against that running
 max, rounds p to bf16 for the PV product (fp32 accumulation), sums the
 unrounded p in fp32, and divides at the end. The plain version instead
@@ -28,7 +28,7 @@ from repro.kernels import ops as rops
 from repro_torch.kernels import ref
 
 ATTN_ATOL_BF16, ATTN_RTOL_BF16 = 2e-2, 2 ** -7
-KEY_TILE = {64: 128, 256: 64}
+KEY_TILE = {64: 128, 128: 128, 256: 64}
 NEG_INF = -1e30
 
 
@@ -82,8 +82,10 @@ def _pallas_block(S: int, tile: int) -> int:
 
 # (head dim, S, q scale): S is ragged (not a multiple of the key tile); q x 8
 # spreads the scores wide, so the running max moves by large steps and p is
-# rounded against a stale max
-SHAPES = [(64, 200, 1), (256, 150, 1), (64, 256, 8), (256, 192, 8)]
+# rounded against a stale max; head dim 128 is the MoE models' (qwen2-moe
+# at G 1, phi3.5-moe at G 4)
+SHAPES = [(64, 200, 1), (256, 150, 1), (64, 256, 8), (256, 192, 8), (128, 176, 1),
+          (128, 320, 8)]
 
 
 @pytest.mark.parametrize("G", [1, 7, 16])

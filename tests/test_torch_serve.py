@@ -70,27 +70,31 @@ def test_config_and_registry_mirror_reference():
     full_r, full_p = rreg.get_config("qwen2-0.5b"), preg.get_config("qwen2-0.5b")
     assert dataclasses.asdict(full_r) == dataclasses.asdict(full_p)
     assert full_p.n_params() == full_r.n_params()
-    assert preg.list_archs() == ["qwen2-0.5b", "rwkv6-1.6b", "recurrentgemma-9b"]
+    assert preg.list_archs() == ["qwen2-0.5b", "rwkv6-1.6b", "recurrentgemma-9b",
+                                 "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"]
     assert set(preg._ARCH_ITEMS) | set(preg.list_archs()) == set(rreg.list_archs())
     for arch in preg._ARCH_ITEMS:
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 15\.\d"):
             preg.get_config(arch)
-    for family in ("moe", "encdec", "vlm"):
+    for family in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match=r"Queue 1 item 15\.\d"):
             preg.get_fns(dataclasses.replace(full_p, family=family))
-    # the hybrid family is served (recurrentgemma, `models.rglru`)
+    # the hybrid family is served (recurrentgemma, `models.rglru`), and the
+    # MoE family by the transformer (test_torch_moe_serve.py)
     assert preg.get_fns(dataclasses.replace(full_p, family="hybrid")).prefill is prglru.prefill
+    assert preg.get_fns(dataclasses.replace(full_p, family="moe")).prefill is ptf.prefill
 
 
 @pytest.mark.parametrize("change,error", [
     ({"cross_attention": True}, NotImplementedError),
-    ({"act": "gelu"}, NotImplementedError), ({"norm": "layernorm"}, NotImplementedError),
+    ({"act": "gelu"}, NotImplementedError), ({"rope_theta": 0.0}, NotImplementedError),
     ({"pattern": ("rec", "attn")}, ValueError)])
 def test_unported_configs_raise(change, error):
     """What the port does not serve names its ROADMAP item; a block pattern
     with recurrent layers is not the dense family's (the hybrid family,
     test_torch_recurrentgemma.py, serves it). A sliding window is served:
-    `test_windowed_dense_matches_reference`."""
+    `test_windowed_dense_matches_reference`; so is layernorm
+    (phi3.5-moe, test_torch_moe_serve.py)."""
     cfg = dataclasses.replace(preg.reduced(preg.get_config("qwen2-0.5b")), **change)
     match = r"Queue 1 item 15\.\d" if error is NotImplementedError else "hybrid"
     with pytest.raises(error, match=match):
