@@ -9,7 +9,8 @@ schedule's arrays, an arrival config's fields or a constellation's config
 fields and, for the deque layer, a `DequeState`'s ``(buf, bot, size)``.
 Enum-valued fields may be any enum (or plain string) with the same values. A model's input is its
 parameter tree (`lm_params` for the dense and MoE transformer, `rwkv6_params` for
-rwkv6, `rglru_params` for the RG-LRU hybrid). This module imports nothing
+rwkv6, `rglru_params` for the RG-LRU hybrid; `master_params` for any of them
+as training's fp32 masters, and `adamw_state` for the optimizer's state). This module imports nothing
 of the reference package.
 """
 
@@ -30,6 +31,7 @@ from .core import topology as topo
 from .core import tracing
 from .models import layers
 from .models.config import ModelConfig
+from .optim import adamw
 
 _WORKLOADS = {"FibWorkload": tasks.FibWorkload, "UtsWorkload": tasks.UtsWorkload}
 
@@ -194,3 +196,28 @@ def rglru_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
            for k in ("embed", "final_norm", "head")}
     out["layers"] = [_tensors(cfg.dtype, lp, device, fp32) for lp in per_layer]
     return out
+
+
+_FAMILY_PARAMS = {"dense": lm_params, "moe": lm_params, "ssm": rwkv6_params,
+                  "hybrid": rglru_params}
+
+
+def master_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
+    """Training's master weights from the reference's parameter tree (numpy
+    arrays) of the dense, MoE, rwkv6 or hybrid family: the family's port
+    tree (`lm_params`, `rwkv6_params`, `rglru_params`) with every leaf in
+    fp32, the reference's own masters, which each use casts to cfg.dtype."""
+    return _FAMILY_PARAMS[cfg.family](dataclasses.replace(cfg, dtype="float32"),
+                                      params, device)
+
+
+def adamw_state(cfg: ModelConfig, m: dict, v: dict, count, device="cpu"):
+    """The port's `optim.adamw.AdamWState` from the reference's (its `m`
+    and `v`, trees of the parameters' structure as numpy arrays, and its
+    `count`): the moments as `master_params` trees, `count` an int32
+    scalar tensor."""
+    from .optim import adamw
+
+    return adamw.AdamWState(
+        m=master_params(cfg, m, device), v=master_params(cfg, v, device),
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device))

@@ -8,6 +8,16 @@ after its kernel launched, and nowhere else, so a run can show that its
 path really went through the kernels. Under CUDA graph capture a wrapper
 only records its kernel: `recording` takes the capture's counts back out,
 and `add_replays` counts the launches of each replay instead.
+
+Training: `flash_attention`, `wkv6` and `rglru` lie on a training forward.
+When grad mode is on and an input requires a gradient, each runs inside a
+`torch.autograd.Function` whose forward is the kernel (or, on the CPU, the
+plain version) as without autograd, and whose backward recomputes the
+function through the plain version under autograd from the saved inputs
+and returns its gradients — the reference has no backward Pallas kernel
+(XLA differentiates its kernels' oracles), and the recompute holds one
+call's intermediates at a time. Without such an input a wrapper runs as
+it always did.
 """
 
 from __future__ import annotations
@@ -78,6 +88,68 @@ def _raise_on(err: int, kernel: str) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _plain_grads(ctx, plain, grads):
+    """The gradients of `plain` (the kernel's plain version) at the saved
+    inputs, for the outputs' gradients `grads` (None where an output had
+    none): `plain` recomputed under autograd. One entry an input, None
+    where none is needed."""
+    inputs = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        outs = plain(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+    wanted = [t for t in inputs if t is not None and t.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                   [g for _, g in pairs], allow_unused=True)
+               if pairs and wanted else [None] * len(wanted))
+    return tuple(next(got) if t is not None and t.requires_grad else None
+                 for t in inputs)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _flash_attention(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(q, k, v):
+            return ref.flash_attention(q, k, v, causal=ctx.causal, window=ctx.window)
+        return _plain_grads(ctx, plain, (g,)) + (None, None)
+
+
+class _Wkv6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _wkv6(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        return _plain_grads(ctx, ref.wkv6, (g_out, g_state))
+
+
+class _Rglru(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, r, i, lam, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, r, i, lam, h0)
+        return _rglru(x, r, i, lam, h0)
+
+    @staticmethod
+    def backward(ctx, g_h, g_last):
+        return _plain_grads(ctx, ref.rglru, (g_h, g_last))
 
 
 def steal_compact(buf, bot, size, grants, width: int = stealing.GRANT_WIDTH):
@@ -155,7 +227,13 @@ def _check_attention(name: str, lib, q: torch.Tensor, G: int):
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q (B, KV, G, Sq, hd), k and v (B, KV, Sk, hd) → (B, KV, G, Sq, hd):
     causal (or not) attention over positions from 0, within `window`
-    positions when window > 0."""
+    positions when window > 0. Differentiable (see the module docstring)."""
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_attention(q, k, v, causal, window)
+
+
+def _flash_attention(q, k, v, causal: bool, window: int):
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     B, KV, G, Sq, hd = q.shape
@@ -220,7 +298,14 @@ def wkv6(r, k, v, w, u, state=None):
     hd), u (H, hd), state (B, H, hd, hd) or None (zeros), all float32 →
     (out (B, S, H, hd), final state (B, H, hd, hd)) float32: the RWKV-6
     recurrence of `ref.wkv6`, any S >= 1. bf16 r, k, v are taken as they
-    come and converted to fp32 inside the kernel, which is exact."""
+    come and converted to fp32 inside the kernel, which is exact.
+    Differentiable (see the module docstring)."""
+    if _wants_grad(r, k, v, w, u, state):
+        return _Wkv6.apply(r, k, v, w, u, state)
+    return _wkv6(r, k, v, w, u, state)
+
+
+def _wkv6(r, k, v, w, u, state):
     if r.device.type == "cpu":
         return ref.wkv6(r, k, v, w, u, state)
     B, S, H, hd = r.shape
@@ -253,7 +338,14 @@ def wkv6(r, k, v, w, u, state=None):
 def rglru(x, r, i, lam, h0=None):
     """x, r, i (B, S, W) of one type (float32 or bfloat16), lam (W,) float32,
     h0 (B, W) float32 or None (zeros) → (h (B, S, W), final h (B, W)) float32:
-    the RG-LRU recurrence of `ref.rglru`, any S >= 1."""
+    the RG-LRU recurrence of `ref.rglru`, any S >= 1. Differentiable (see the
+    module docstring)."""
+    if _wants_grad(x, r, i, lam, h0):
+        return _Rglru.apply(x, r, i, lam, h0)
+    return _rglru(x, r, i, lam, h0)
+
+
+def _rglru(x, r, i, lam, h0):
     if x.device.type == "cpu":
         return ref.rglru(x, r, i, lam, h0)
     B, S, W = x.shape

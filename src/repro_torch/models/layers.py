@@ -4,10 +4,12 @@ RG-LRU hybrid), in torch.
 Mirrors `repro.models.layers` function by function, with two differences
 of form:
 
-  * parameters are nested dicts of tensors already in the compute type
-    (the reference keeps fp32 masters and casts each weight at every use;
-    the values are the same), except norm scales and biases, which stay
-    fp32 as the reference multiplies and adds them in fp32;
+  * every weight is cast to the activations' type at use, as the
+    reference casts its fp32 masters (`cast`): training holds fp32
+    masters, which AdamW updates, and the serving parameters are stored
+    in the compute type already, where the cast returns the tensor itself
+    (no copy, no op); norm scales and biases stay fp32, as the reference
+    multiplies and adds them in fp32;
   * attention runs through the hand-written kernels (`kernels.ops`):
     `flash_attention` for prefill, `decode_attention` for decode, which on
     CPU tensors run their plain versions. Keys and values come back in the
@@ -35,6 +37,12 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A weight in `dtype` at its use: `w` itself when it is stored in that
+    type (the serving parameters), else a cast copy (fp32 masters)."""
+    return w.to(dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -80,9 +88,9 @@ def apply_rope(x, positions, theta: float):
 # Dense projections
 # --------------------------------------------------------------------------- #
 def dense(params, x):
-    y = torch.matmul(x, params["w"])
+    y = torch.matmul(x, cast(params["w"], x.dtype))
     if "b" in params:
-        y = y + params["b"]
+        y = y + cast(params["b"], x.dtype)
     return y
 
 
@@ -188,9 +196,26 @@ def mlp_apply(params, x):
 # --------------------------------------------------------------------------- #
 # Embedding / unembedding
 # --------------------------------------------------------------------------- #
-def embed(params, tokens):
-    return params["table"][tokens]
+def embed(params, tokens, dtype: torch.dtype):
+    """The table's rows of `tokens`, in `dtype`."""
+    return cast(params["table"][tokens], dtype)
 
 
 def unembed(params, x):
-    return torch.matmul(x, params["table"].t())
+    return torch.matmul(x, cast(params["table"], x.dtype).t())
+
+
+def softmax_xent(logits, labels, mask=None, z_weight: float = 0.0):
+    """Mean next-token cross entropy: an fp32 logsumexp over the vocabulary,
+    optionally + z_weight·lse², the mean over positions where `mask` (if
+    given) is set — the reference's `layers.softmax_xent`."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if z_weight:
+        nll = nll + z_weight * lse ** 2
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

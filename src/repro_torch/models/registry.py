@@ -1,9 +1,10 @@
 """Architecture registry: `--arch <id>` → (config, model functions), for
 the architectures the port serves.
 
-Mirrors `repro.models.registry`: `get_config`, `get_fns`, `list_archs`
-and `reduced` (copied verbatim, so tests shrink a config exactly as the
-reference does). An architecture or family the port does not serve yet
+Mirrors `repro.models.registry`: `ModelFns` (init, loss_fn, prefill,
+decode_step, in the reference's field order), `get_config`, `get_fns`,
+`list_archs` and `reduced` (copied verbatim, so tests shrink a config
+exactly as the reference does). An architecture or family the port does not serve yet
 raises `NotImplementedError` naming its ROADMAP item.
 """
 
@@ -19,17 +20,19 @@ from .config import ModelConfig
 
 class ModelFns(NamedTuple):
     init: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
 
 
 _FAMILY_FNS = {
-    "dense": ModelFns(transformer.init, transformer.prefill,
-                      transformer.decode_step),
-    "moe": ModelFns(transformer.init, transformer.prefill,
-                    transformer.decode_step),
-    "ssm": ModelFns(rwkv6.init, rwkv6.prefill, rwkv6.decode_step),
-    "hybrid": ModelFns(rglru.init, rglru.prefill, rglru.decode_step),
+    "dense": ModelFns(transformer.init, transformer.loss_fn,
+                      transformer.prefill, transformer.decode_step),
+    "moe": ModelFns(transformer.init, transformer.loss_fn,
+                    transformer.prefill, transformer.decode_step),
+    "ssm": ModelFns(rwkv6.init, rwkv6.loss_fn, rwkv6.prefill, rwkv6.decode_step),
+    "hybrid": ModelFns(rglru.init, rglru.loss_fn, rglru.prefill,
+                       rglru.decode_step),
 }
 # families of the reference not served yet → ROADMAP Queue 1 item
 _FAMILY_ITEMS = {"vlm": "15.5", "encdec": "15.6"}

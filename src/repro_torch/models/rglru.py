@@ -23,8 +23,11 @@ The embedding is not scaled and the head is a table of its own, as in the
 reference's code. The layer stack is a Python list of per-layer parameter
 dicts in `cfg.block_kinds()` order (the reference groups them into
 (n_groups, per_group, ...) stacks plus a `rem` list; `convert.rglru_params`
-carries its tree across). Weights are stored in cfg.dtype; norm scales and
-`lam` stay fp32, as the reference computes with them in fp32.
+carries its tree across). Weights are stored in cfg.dtype (or, for
+training, as fp32 masters; every use casts them to the activations' type,
+as the reference casts its masters); norm scales and `lam` stay fp32, as
+the reference computes with them in fp32. `loss_fn` is the reference's,
+with `remat` (`models.remat`) around each layer.
 
 The decode state is {"h": (n_rec, B, W) fp32, "conv": (n_rec, B, K-1, W)
 in cfg.dtype, "k", "v": (n_att, B, KV, T, hd) in cfg.dtype}: each recurrent
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import layers as L
+from . import remat as remat_lib
 from .config import ModelConfig
 from .transformer import not_ported, resolve_device
 
@@ -70,16 +74,17 @@ def check_config(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
     """Random weights on `device` (default: the CUDA device; raises if there
     is none): normal(0, 0.02) from a seeded `torch.Generator` on that device
     for the matrices and tables, and the reference's constants for the rest
     (norm scales 1, biases 0, lam 2) — the reference's distributions, not its
     `jax.random` draws (`convert.rglru_params` carries the reference's own
-    weights across)."""
+    weights across). With `masters` every leaf is fp32 (training's master
+    weights)."""
     check_config(cfg)
     dev = resolve_device(device)
-    dt = L.dtype_of(cfg.dtype)
+    dt = torch.float32 if masters else L.dtype_of(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     D, W, K = cfg.d_model, _lru_width(cfg), cfg.conv1d_width
@@ -145,14 +150,15 @@ def _causal_conv(x, w, b, state):
 def _rec_block(lp, x, cfg: ModelConfig, h0, conv_state):
     """x: (B, S, D); h0: (B, W) fp32; conv_state (B, K-1, W). Returns (x,
     final h, new conv state)."""
+    dt = x.dtype
     y = L.rmsnorm(lp["ln1"], x)
-    vx = y @ lp["in_x"]
-    g = F.gelu(y @ lp["in_g"], approximate="tanh")
+    vx = y @ L.cast(lp["in_x"], dt)
+    g = F.gelu(y @ L.cast(lp["in_g"], dt), approximate="tanh")
     vx, conv_state = _causal_conv(vx, lp["conv_w"], lp["conv_b"], conv_state)
-    r = torch.sigmoid(vx @ lp["wa"] + lp["ba"])
-    i = torch.sigmoid(vx @ lp["wx"] + lp["bx"])
+    r = torch.sigmoid(vx @ L.cast(lp["wa"], dt) + L.cast(lp["ba"], dt))
+    i = torch.sigmoid(vx @ L.cast(lp["wx"], dt) + L.cast(lp["bx"], dt))
     h, hT = rglru_scan(vx, r, i, lp["lam"], h0)
-    x = x + (h * g) @ lp["out"]
+    x = x + (h * g) @ L.cast(lp["out"], dt)
     x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
     return x, hT, conv_state
 
@@ -185,26 +191,29 @@ def make_state(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     }
 
 
-def _trunk(params, cfg: ModelConfig, tokens, state=None):
+def _trunk(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
     """Embedding, the layer stack and the final norm over positions 0..S-1,
     every recurrent layer from zeros; fills `state` (in place) when one is
-    given. Returns the final hidden states (B, S, D)."""
+    given; `remat` wraps each layer (`models.remat`). Returns the final
+    hidden states (B, S, D)."""
     check_config(cfg)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
     B = x.shape[0]
     W, K = _lru_width(cfg), cfg.conv1d_width
     h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
     conv0 = torch.zeros((B, K - 1, W), dtype=x.dtype, device=x.device)
+    rec_block, attn_block = remat_lib.wrap(_rec_block, remat), remat_lib.wrap(
+        _attn_block, remat)
     ri = ai = 0
     for lp, kind in zip(params["layers"], cfg.block_kinds()):
         if kind == "rec":
-            x, hT, conv = _rec_block(lp, x, cfg, h0, conv0)
+            x, hT, conv = rec_block(lp, x, cfg, h0, conv0)
             if state is not None:
                 state["h"][ri] = hT
                 state["conv"][ri] = conv
             ri += 1
         else:
-            x, (k, v) = _attn_block(lp, x, cfg)
+            x, (k, v) = attn_block(lp, x, cfg)
             if state is not None:
                 L.write_prefill(state["k"][ai], state["v"][ai], k, v)
             ai += 1
@@ -214,6 +223,17 @@ def _trunk(params, cfg: ModelConfig, tokens, state=None):
 def forward(params, cfg: ModelConfig, tokens):
     """tokens (B, S) → logits (B, S, V)."""
     return L.unembed(params["head"], _trunk(params, cfg, tokens))
+
+
+def loss_fn(params, cfg: ModelConfig, batch, remat: str = "none"):
+    """Next-token LM loss → (loss, {"xent": loss}). batch: {tokens (B, S),
+    loss_mask (B, S)?}."""
+    tokens = batch["tokens"]
+    logits = L.unembed(params["head"], _trunk(params, cfg, tokens, remat=remat))
+    mask = batch.get("loss_mask")
+    loss = L.softmax_xent(logits[:, :-1], tokens[:, 1:],
+                          None if mask is None else mask[:, 1:])
+    return loss, {"xent": loss}
 
 
 # --------------------------------------------------------------------------- #
@@ -238,7 +258,7 @@ def decode_step(params, cfg: ModelConfig, token, state, pos):
     state is updated in place (and returned, as the reference returns its
     new state)."""
     dims = _dims(cfg)
-    x = L.embed(params["embed"], token[:, None])             # (B, 1, D)
+    x = L.embed(params["embed"], token[:, None], L.dtype_of(cfg.dtype))  # (B, 1, D)
     ri = ai = 0
     for lp, kind in zip(params["layers"], cfg.block_kinds()):
         if kind == "rec":

@@ -14,9 +14,12 @@ Mirrors `repro.models.rwkv6`. Per block:
     (k Wv).
 
 The layer stack is a Python loop over per-layer parameter dicts (the
-reference scans stacked leaves). Weights are stored in cfg.dtype; the
-layernorms' scale and bias, `gn`'s scale, `w0` and `u` stay fp32, as the
-reference computes with them in fp32. The reference runs its chunk-parallel
+reference scans stacked leaves). Weights are stored in cfg.dtype (or, for
+training, as fp32 masters; every use casts them to the activations' type,
+as the reference casts its masters); the layernorms' scale and bias,
+`gn`'s scale, `w0` and `u` stay fp32, as the reference computes with them
+in fp32. `loss_fn` is the reference's, with `remat` (`models.remat`) around
+each layer. The reference runs its chunk-parallel
 `wkv_chunked` when S is a multiple of 256 above 256 and the sequential scan
 otherwise; the port has the kernel's one path (the two agree to fp32
 rounding). `wkv_chunked` itself, the form for context parallelism, is not
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import layers as L
+from . import remat as remat_lib
 from .config import ModelConfig
 from .transformer import not_ported, resolve_device
 
@@ -61,16 +65,17 @@ def check_config(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
     """Random weights on `device` (default: the CUDA device; raises if there
     is none): normal(0, 0.02) from a seeded `torch.Generator` on that
     device for the matrices and tables, and the reference's constants for
     the rest (layernorms 1 and 0, lerp coefficients 0.5, w0 -6, u 0, gn
     scale 1) — the reference's distributions, not its `jax.random` draws
-    (`convert.rwkv6_params` carries the reference's own weights across)."""
+    (`convert.rwkv6_params` carries the reference's own weights across).
+    With `masters` every leaf is fp32 (training's master weights)."""
     check_config(cfg)
     dev = resolve_device(device)
-    dt = L.dtype_of(cfg.dtype)
+    dt = torch.float32 if masters else L.dtype_of(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     D, dff = cfg.d_model, cfg.d_ff
@@ -119,7 +124,7 @@ def _token_shift(x, prev):
 
 
 def _lerp(x, xs, mu):
-    return x + (xs - x) * mu
+    return x + (xs - x) * L.cast(mu, x.dtype)
 
 
 def _time_mix(lp, x, cfg: ModelConfig, shift_state, wkv_state):
@@ -133,18 +138,20 @@ def _time_mix(lp, x, cfg: ModelConfig, shift_state, wkv_state):
     mix = lp["mix"]
     xr, xk, xv, xg, xw = (_lerp(x, xs, mix[m])
                           for m in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"))
-    r = (xr @ lp["wr"]).view(B, S, H, hd)
-    k = (xk @ lp["wk"]).view(B, S, H, hd)
-    v = (xv @ lp["wv"]).view(B, S, H, hd)
-    g = xg @ lp["wg"]
+    dt = x.dtype
+    r = (xr @ L.cast(lp["wr"], dt)).view(B, S, H, hd)
+    k = (xk @ L.cast(lp["wk"], dt)).view(B, S, H, hd)
+    v = (xv @ L.cast(lp["wv"], dt)).view(B, S, H, hd)
+    g = xg @ L.cast(lp["wg"], dt)
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), in fp32
-    dlog = lp["w0"] + ((xw @ lp["w_lora_a"]) @ lp["w_lora_b"]).float()
+    dlog = lp["w0"] + ((xw @ L.cast(lp["w_lora_a"], dt))
+                       @ L.cast(lp["w_lora_b"], dt)).float()
     w = torch.exp(-torch.exp(dlog)).view(B, S, H, hd)
     # r, k, v go in as the projections made them (the kernel converts bf16
     # to fp32 inside, exactly); w, u and the state are fp32
     out, wkv_state = ops.wkv6(r, k, v, w, lp["u"], wkv_state)
-    out = L.rmsnorm(lp["gn"], out.view(B, S, D)).to(x.dtype) * F.silu(g)
-    return out @ lp["wo"], new_shift, wkv_state
+    out = L.rmsnorm(lp["gn"], out.view(B, S, D)).to(dt) * F.silu(g)
+    return out @ L.cast(lp["wo"], dt), new_shift, wkv_state
 
 
 def _channel_mix(lp, x, shift_state):
@@ -152,8 +159,9 @@ def _channel_mix(lp, x, shift_state):
     new_shift = x[:, -1, :]
     xk = _lerp(x, xs, lp["cmix"]["mu_k"])
     xr = _lerp(x, xs, lp["cmix"]["mu_r"])
-    k = torch.square(torch.relu(xk @ lp["ck"]))
-    return torch.sigmoid(xr @ lp["cr"]) * (k @ lp["cv"]), new_shift
+    k = torch.square(torch.relu(xk @ L.cast(lp["ck"], x.dtype)))
+    return (torch.sigmoid(xr @ L.cast(lp["cr"], x.dtype))
+            * (k @ L.cast(lp["cv"], x.dtype)), new_shift)
 
 
 def _empty_state(cfg: ModelConfig, B: int, device=None):
@@ -166,21 +174,27 @@ def _empty_state(cfg: ModelConfig, B: int, device=None):
                                device=device)}
 
 
-def _trunk(params, cfg: ModelConfig, tokens, state=None):
+def _layer(lp, x, cfg: ModelConfig, shift_att, shift_ffn, wkv):
+    """One block → (x, new shift_att, new shift_ffn, new wkv state)."""
+    a, s_a, s_wkv = _time_mix(lp, L.layernorm(lp["ln1"], x), cfg, shift_att, wkv)
+    x = x + a
+    c, s_f = _channel_mix(lp, L.layernorm(lp["ln2"], x), shift_ffn)
+    return x + c, s_a, s_f, s_wkv
+
+
+def _trunk(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
     """Embedding, the layer stack and the final layernorm, from `state` or,
-    with none, from zeros (`_empty_state`). Returns (final hidden states
-    (B, S, D), new state)."""
+    with none, from zeros (`_empty_state`); `remat` wraps each layer
+    (`models.remat`). Returns (final hidden states (B, S, D), new state)."""
     check_config(cfg)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
     if state is None:
         state = _empty_state(cfg, x.shape[0], x.device)
+    layer = remat_lib.wrap(_layer, remat)
     sa, sf, wkv = [], [], []
     for i, lp in enumerate(params["layers"]):
-        a, s_a, s_wkv = _time_mix(lp, L.layernorm(lp["ln1"], x), cfg,
-                                  state["shift_att"][i], state["wkv"][i])
-        x = x + a
-        c, s_f = _channel_mix(lp, L.layernorm(lp["ln2"], x), state["shift_ffn"][i])
-        x = x + c
+        x, s_a, s_f, s_wkv = layer(lp, x, cfg, state["shift_att"][i],
+                                   state["shift_ffn"][i], state["wkv"][i])
         sa.append(s_a)
         sf.append(s_f)
         wkv.append(s_wkv)
@@ -193,6 +207,18 @@ def forward(params, cfg: ModelConfig, tokens, state=None):
     """tokens (B, S) → (logits (B, S, V), new state)."""
     x, new_state = _trunk(params, cfg, tokens, state)
     return L.unembed(params["head"], x), new_state
+
+
+def loss_fn(params, cfg: ModelConfig, batch, remat: str = "none"):
+    """Next-token LM loss → (loss, {"xent": loss}), from a zero state.
+    batch: {tokens (B, S), loss_mask (B, S)?}."""
+    tokens = batch["tokens"]
+    x, _ = _trunk(params, cfg, tokens, remat=remat)
+    logits = L.unembed(params["head"], x)
+    mask = batch.get("loss_mask")
+    loss = L.softmax_xent(logits[:, :-1], tokens[:, 1:],
+                          None if mask is None else mask[:, 1:])
+    return loss, {"xent": loss}
 
 
 # --------------------------------------------------------------------------- #

@@ -5,8 +5,9 @@ Mirrors `repro.models.transformer` for the dense family (qwen2, mistral,
 granite, yi) and the MoE family (qwen2-moe, phi3.5-moe: a per-layer
 `"moe"` FFN, `models.moe`, in place of the dense MLP). The layer stack is
 a Python loop over a list of per-layer parameter dicts (the reference
-scans stacked leaves); there is no remat and no sequence-sharding
-constraint, which are no-ops on one device.
+scans stacked leaves); there is no sequence-sharding constraint, a no-op
+on one device. Training (`loss_fn`) takes fp32 master weights, which every
+use casts to cfg.dtype, and `remat` (`models.remat`) around each layer.
 Prefill attention runs the `flash_attention` kernel, decode attention the
 `decode_attention` kernel (`layers`). The KV cache is (L, B, KV, T, hd), so
 one layer's slice is the decode kernel's (B, KV, T, hd) operand without a
@@ -28,7 +29,7 @@ import torch
 
 from .. import core
 from . import layers as L
-from . import moe
+from . import moe, remat as remat_lib
 from .config import ModelConfig
 
 
@@ -65,26 +66,29 @@ def _norm(cfg: ModelConfig):
 
 
 def _ffn(lp, cfg: ModelConfig, x):
-    """The block's FFN on the normed x: the MoE layer (its metrics dropped,
-    as the reference's prefill and decode drop them) or the dense MLP."""
+    """The block's FFN on the normed x → (out, metrics): the MoE layer's
+    (`moe_dropped`, `moe_dropped_pre_steal`, `moe_aux`), or the dense MLP
+    with none. Prefill and decode drop them, as the reference's do."""
     if cfg.moe is not None:
-        return moe.moe_apply(lp["moe"], x, cfg.moe)[0]
-    return L.mlp_apply(lp["mlp"], x)
+        return moe.moe_apply(lp["moe"], x, cfg.moe)
+    return L.mlp_apply(lp["mlp"], x), {}
 
 
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
     """Random weights on `device` (default: the CUDA device; raises if there
     is none): normal(0, 0.02) from a seeded `torch.Generator` on that
     device, ones for norm scales, zeros for biases and layernorm's shifts —
     the reference's distributions, not its `jax.random` draws
     (`convert.lm_params` carries the reference's own weights across).
-    Weights are stored in cfg.dtype, norm scales and shifts in fp32."""
+    Weights are stored in cfg.dtype (the serving parameters), or with
+    `masters` in fp32 (training's master weights, the same draws before
+    the cast); norm scales and shifts in fp32."""
     check_config(cfg)
     dev = resolve_device(device)
-    dt = L.dtype_of(cfg.dtype)
+    dt = torch.float32 if masters else L.dtype_of(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
@@ -130,21 +134,32 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
 # --------------------------------------------------------------------------- #
 # Forward (prefill)
 # --------------------------------------------------------------------------- #
-def _trunk(params, cfg: ModelConfig, tokens, cache=None):
+def _layer(lp, x, cfg: ModelConfig):
+    """One block over positions 0..S-1 → (x, (k, v), the FFN's metrics)."""
+    norm = _norm(cfg)
+    a, kv = L.attention_apply(lp["attn"], _dims(cfg), norm(lp["ln1"], x),
+                              cfg.rope_theta, causal=True, window=cfg.window)
+    x = x + a
+    f, metrics = _ffn(lp, cfg, norm(lp["ln2"], x))
+    return x + f, kv, metrics
+
+
+def _trunk(params, cfg: ModelConfig, tokens, cache=None, remat: str = "none",
+           metrics=None):
     """Embedding, the layer stack and the final norm over positions
     0..S-1; writes each layer's keys and values into `cache` (in place)
-    when one is given. Returns the final hidden states (B, S, D)."""
-    dims, norm = _dims(cfg), _norm(cfg)
-    x = L.embed(params["embed"], tokens)
+    when one is given, and appends each layer's metrics to the list
+    `metrics` when one is given. `remat` wraps each layer
+    (`models.remat`). Returns the final hidden states (B, S, D)."""
+    x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
+    layer = remat_lib.wrap(_layer, remat)
     for i, lp in enumerate(params["layers"]):
-        a, (k, v) = L.attention_apply(lp["attn"], dims, norm(lp["ln1"], x),
-                                      cfg.rope_theta, causal=True,
-                                      window=cfg.window)
-        x = x + a
+        x, (k, v), m = layer(lp, x, cfg)
         if cache is not None:
             L.write_prefill(cache["k"][i], cache["v"][i], k, v)
-        x = x + _ffn(lp, cfg, norm(lp["ln2"], x))
-    return norm(params["final_norm"], x)
+        if metrics is not None:
+            metrics.append(m)
+    return _norm(cfg)(params["final_norm"], x)
 
 
 def _head(params):
@@ -159,6 +174,39 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None, enc_out=None):
     if enc_out is not None:
         raise not_ported("encoder output for cross-attention", "15.6")
     return L.unembed(_head(params), _trunk(params, cfg, tokens))
+
+
+def aggregate(per_layer: list) -> dict:
+    """The reference's per-forward metrics from per-layer ones: `moe_aux`
+    summed over the layers, every other metric averaged."""
+    if not per_layer or not per_layer[0]:
+        return {}
+    return {k: (torch.sum if k == "moe_aux" else torch.mean)(
+        torch.stack([m[k] for m in per_layer])) for k in per_layer[0]}
+
+
+def loss_fn(params, cfg: ModelConfig, batch, remat: str = "none"):
+    """Next-token LM loss → (loss, metrics). batch: {tokens (B, S),
+    loss_mask (B, S)?}. The MoE family adds `moe_aux` (summed over the
+    layers) to the cross entropy; `metrics` holds the layers' aggregated
+    metrics and `xent`, the returned loss (the reference's `loss_fn`)."""
+    check_config(cfg)
+    if batch.get("prefix_embeds") is not None:
+        raise not_ported("VLM prefix embeddings", "15.5")
+    if batch.get("enc_out") is not None:
+        raise not_ported("encoder output for cross-attention", "15.6")
+    tokens = batch["tokens"]
+    per_layer = []
+    x = _trunk(params, cfg, tokens, remat=remat, metrics=per_layer)
+    logits = L.unembed(_head(params), x)
+    mask = batch.get("loss_mask")
+    loss = L.softmax_xent(logits[:, :-1], tokens[:, 1:],
+                          None if mask is None else mask[:, 1:])
+    metrics = aggregate(per_layer)
+    if "moe_aux" in metrics:
+        loss = loss + metrics["moe_aux"]
+    metrics["xent"] = loss
+    return loss, metrics
 
 
 # --------------------------------------------------------------------------- #
@@ -203,12 +251,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     """token (B,) int, pos (B,) int32 → (logits (B, V), cache, pos + 1).
     The cache is updated in place (and returned, as the reference's is)."""
     dims, norm = _dims(cfg), _norm(cfg)
-    x = L.embed(params["embed"], token[:, None])             # (B, 1, D)
+    x = L.embed(params["embed"], token[:, None], L.dtype_of(cfg.dtype))  # (B, 1, D)
     for i, lp in enumerate(params["layers"]):
         a, _, _ = L.attention_decode(lp["attn"], dims, norm(lp["ln1"], x),
                                      cache["k"][i], cache["v"][i], pos,
                                      cfg.rope_theta)
         x = x + a
-        x = x + _ffn(lp, cfg, norm(lp["ln2"], x))
+        x = x + _ffn(lp, cfg, norm(lp["ln2"], x))[0]
     x = norm(params["final_norm"], x)
     return L.unembed(_head(params), x)[:, 0], cache, pos + 1

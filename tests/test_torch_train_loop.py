@@ -1,0 +1,163 @@
+"""Port parity of the training driver: `repro_torch.runtime.train_loop.train`
+from the reference's own initial state (`convert.master_params`,
+`convert.adamw_state`) against `repro.runtime.train_loop.train`, step by
+step through `history` (every metric key), on the CPU at the reduced
+qwen2-0.5b and qwen2-moe configs in fp32; restart from a checkpoint; the
+neighbor-steal batch balance; the launcher; the families not ported yet.
+
+Tolerances (fp32, 5 steps): the learning rate within rtol 2e-6 (`cos` and
+`pow` of another library); the loss, cross entropy and MoE metrics within
+rtol 1e-4 and the gradient norm within 1e-3 — the gradients agree to ~1e-6
+of each leaf, and AdamW's normalised step turns a last-bit difference of a
+gradient within a few eps of 0 into a share of lr for that weight, which
+the next steps' losses carry. A restarted run equals the uninterrupted one
+exactly: the CPU's arithmetic is deterministic and the checkpoint holds
+fp32 values bit for bit.
+"""
+
+import dataclasses
+import io
+import shutil
+from contextlib import redirect_stdout
+
+import jax
+import numpy as np
+import pytest
+import torch
+from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
+
+from repro.data import synthetic as rsyn
+from repro.models import registry as rreg
+from repro.optim import adamw as radam
+from repro.runtime import train_loop as rtl
+from repro_torch import convert
+from repro_torch.data import synthetic as psyn
+from repro_torch.launch import train as launcher
+from repro_torch.models import registry as preg
+from repro_torch.optim import adamw as padam
+from repro_torch.runtime import train_loop as ptl
+
+torch.set_num_threads(1)
+STEPS = 5
+OPT = dict(lr_peak=3e-3, warmup_steps=2, total_steps=STEPS)
+DATA = dict(seq_len=32, global_batch=8)
+TOL = {"lr": 2e-6, "grad_norm": 1e-3}
+
+
+def _cfgs(arch: str, d_model: int = 48):
+    rc = dataclasses.replace(rreg.reduced(rreg.get_config(arch), d_model=d_model),
+                             dtype="float32")
+    pc = dataclasses.replace(preg.reduced(preg.get_config(arch), d_model=d_model),
+                             dtype="float32")
+    return rc, pc
+
+
+def _port_state(arch: str, pc):
+    """The reference `train`'s initial state (seed 0) as the port's."""
+    rc = _cfgs(arch, pc.d_model)[0]
+    params = rreg.get_fns(rc).init(jax.random.PRNGKey(0), rc)
+    opt = jax.tree.map(np.asarray, radam.init(params))
+    params = jax.tree.map(np.asarray, params)
+    return (convert.master_params(pc, params),
+            convert.adamw_state(pc, opt.m, opt.v, opt.count))
+
+
+def _port_train(arch, pc, tc, **kw):
+    return ptl.train(arch, tc, padam.AdamWConfig(**OPT),
+                     psyn.DataConfig(vocab=pc.vocab, **DATA), model_cfg=pc,
+                     device="cpu", init_state=_port_state(arch, pc), **kw)
+
+
+@pytest.mark.parametrize("arch,fields", [
+    ("qwen2-0.5b", dict()),
+    ("qwen2-0.5b", dict(balance_tokens=True)),
+    ("qwen2-0.5b", dict(num_microbatches=2, remat="full")),
+    ("qwen2-moe-a2.7b", dict(balance_tokens=True))])
+def test_history_matches_reference(arch, fields):
+    rc, pc = _cfgs(arch)
+    tc = dict(steps=STEPS, log_every=1, **fields)
+    _, want = rtl.train(arch, rtl.TrainConfig(**tc), radam.AdamWConfig(**OPT),
+                        rsyn.DataConfig(vocab=rc.vocab, **DATA), model_cfg=rc)
+    _, got = _port_train(arch, pc, ptl.TrainConfig(**tc))
+    assert [h["step"] for h in got] == [h["step"] for h in want] == list(range(STEPS))
+    for w, g in zip(want, got):
+        assert set(w) == set(g), (set(w), set(g))
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=TOL.get(k, 1e-4),
+                                       err_msg=f"step {w['step']} {k}")
+    assert got[-1]["loss"] < got[0]["loss"]
+
+
+def test_restart_equals_uninterrupted_run(tmp_path):
+    """A run cut after step 2 (a hook raises once the checkpoint of the first
+    two steps is written) and restarted from that checkpoint goes on
+    exactly as the uninterrupted run: history and parameters bit for bit."""
+    _, pc = _cfgs("qwen2-0.5b")
+    tc = ptl.TrainConfig(steps=4, log_every=1, ckpt_every=2,
+                         ckpt_dir=str(tmp_path / "whole"))
+    whole_params, whole = _port_train("qwen2-0.5b", pc, tc)
+    assert sorted(ptl.Checkpointer(tc.ckpt_dir).all_steps()) == [2, 4]
+
+    def crash(step, params, metrics):
+        if step == 2:
+            raise KeyboardInterrupt
+
+    cut = dataclasses.replace(tc, ckpt_dir=str(tmp_path / "cut"))
+    with pytest.raises(KeyboardInterrupt):
+        _port_train("qwen2-0.5b", pc, cut, hooks=[crash])
+    assert ptl.Checkpointer(cut.ckpt_dir).all_steps() == [2]
+    out = io.StringIO()
+    with redirect_stdout(out):
+        params, resumed = _port_train("qwen2-0.5b", pc, cut)
+    assert "[train] restored step 2" in out.getvalue()
+    assert [h["step"] for h in resumed] == [2, 3]
+    assert resumed == whole[2:]
+    for a, b in zip(padam.leaves(whole_params), padam.leaves(params)):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_layout(tmp_path):
+    """The checkpoint holds the parameters and the AdamW state (m, v, count)
+    as the reference's manifest spells a (params, AdamWState) pair."""
+    _, pc = _cfgs("qwen2-0.5b")
+    tc = ptl.TrainConfig(steps=2, log_every=1, ckpt_dir=str(tmp_path))
+    _port_train("qwen2-0.5b", pc, tc)
+    leaves = ptl.Checkpointer(str(tmp_path)).read(2)
+    assert int(leaves["1/.count"]) == 2
+    assert leaves["0/embed/table"].dtype == np.float32
+    assert leaves["1/.m/layers/0/attn/wq/w"].shape == (pc.d_model, pc.n_heads * pc.hd)
+
+
+def test_launcher_runs_on_the_cpu(tmp_path):
+    argv = ["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu", "--batch", "4",
+            "--seq", "32", "--lr", "1e-3", "--ckpt", str(tmp_path), "--ckpt-every", "2"]
+    for steps, first in ((3, "[launch/train] step     0 loss "),
+                         (5, "[launch/train] restored step 3")):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            launcher.main(argv + ["--steps", str(steps)])
+        lines = out.getvalue().splitlines()
+        assert lines[0].startswith(first), lines
+        assert lines[-2].startswith(f"[launch/train] step {steps - 1:5d} loss "), lines
+        assert lines[-1].startswith("[launch/train] ") and "tokens/s) on cpu" in lines[-1]
+    shutil.rmtree(tmp_path)
+
+
+@pytest.mark.parametrize("family,item", [("vlm", "15.5"), ("encdec", "15.6")])
+def test_unported_families_raise(family, item):
+    _, pc = _cfgs("qwen2-0.5b")
+    cfg = dataclasses.replace(pc, family=family)
+    with pytest.raises(NotImplementedError, match=rf"Queue 1 item {item}"):
+        ptl._make_batch(cfg, psyn.DataConfig(**DATA), 0, ptl.TrainConfig())
+    with pytest.raises(NotImplementedError, match=rf"Queue 1 item {item}"):
+        ptl.train("qwen2-0.5b", ptl.TrainConfig(steps=1), padam.AdamWConfig(),
+                  psyn.DataConfig(**DATA), model_cfg=cfg, device="cpu")
+
+
+def test_training_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    _, pc = _cfgs("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ptl.train("qwen2-0.5b", ptl.TrainConfig(steps=1), padam.AdamWConfig(),
+                  psyn.DataConfig(**DATA), model_cfg=pc)
