@@ -35,7 +35,10 @@ Phases — any failure exits non-zero:
      at the edges of a tile, a chunk and a cluster of the bf16 decode
      kernel, and a repeated call after the timing runs, bit-equal to the
      first), within a stated bf16 tolerance, with SDPA as the library
-     yardstick; then `wkv6` at rwkv6
+     yardstick; at head dim 128 also the dense models' GQA groups 4, 7 and
+     12 (granite-3-8b, yi-34b, mistral-large-123b; B 8 x KV 8, prefill S
+     512, decode against 584 slots) in bf16 and fp32, each against its
+     plain version and timed beside its bound and SDPA's; then `wkv6` at rwkv6
      serving's prefill (B=8, S=512, H=32, hd=64) and decode (S=1, carried
      state) shapes with bf16 r, k, v as the time mix hands them over and
      with fp32 ones, at S=7, one past the sequence kernel's tile and 1000,
@@ -204,14 +207,43 @@ Phases — any failure exits non-zero:
      ms, tokens/s, loss, lr, grad norm and `flash_attention` launches (24 a
      micro-batch forward, 24 more a micro-batch under full remat), peak
      memory beside the masters' and AdamW's bytes, model FLOPs a step from
-     the initialised tree; a restart (4 steps against 2 + a restart from the
-     step-2 checkpoint, at full width and 2 layers) equal within a stated
-     tolerance; and one step's loss and every gradient leaf through the
+     the initialised tree; a restart (a 4-step run cut after its step-2
+     checkpoint and restarted from it, at full width and 2 layers) equal
+     within a stated tolerance to the schedule it runs, steps 0, 1, 2, 2,
+     3 (the reference's checkpoint labels: the restart runs step 2
+     again); and one step's loss and every gradient leaf through the
      kernels (`flash_attention`, `wkv6`, `rglru` under autograd) against the
      plain versions within stated tolerances for qwen2-0.5b (full depth),
      rwkv6-1.6b (2 layers), recurrentgemma-9b (3 layers) and
      qwen2-moe-a2.7b (2 layers, the plain path replaying the expert
      choices).
+  18. serve the dense models at head dim 128 the same way (`[serve_granite]`,
+     `[serve_yi]`, `[serve_mistral]`):
+     granite-3-8b at full width and depth (40 layers, 32 heads over 8 KV
+     heads, tied 49,155-token vocabulary), yi-34b at full width and depth
+     (60 layers, 56 over 8, rope_theta 5e6) and mistral-large-123b at full
+     width and 4 of its 88 layers (96 over 8; 88 layers are ~246 GB); each
+     prefill launches `flash_attention` once a layer, each decode step
+     `decode_attention` once a layer; every step's logits teacher-forced
+     through the kernels, the plain versions and the plain versions in
+     fp32 (q, k, v upcast, the output rounded once): the kernel path's gap
+     to the fp32-attention path within the plain path's own gap +
+     LOGIT_TOL (at these depths and widths random-weight logits move by
+     more than LOGIT_TOL between any two bf16 roundings of attention, the
+     plain versions' included; the kernel-vs-plain gap is printed); and at
+     each model's first SHALLOW_LAYERS layers, where the plain versions are
+     within LOGIT_TOL of the fp32 path, the kernel path within LOGIT_TOL of
+     the plain path and of the fp32 path (an absolute check).
+  19. the sharded train step (`[sharded_train]`,
+     `launch.train.build_sharded_train`): qwen2-0.5b at full width and
+     depth, batch 8 x 512, 3 steps on a 1 x 1 ("data", "model")
+     `DeviceMesh` over NCCL from the launcher's `init_fn(0)` (its peak
+     memory within the tree and 3 leaves in flight, every leaf the
+     unsharded init's) against the unsharded step from the same state
+     (each step's ms; the losses and every parameter leaf within a relative
+     L2 gap of 1e-5; `flash_attention` once a layer a step, inside
+     `local_map`), then a checkpoint of the sharded state restored onto the
+     mesh by `runtime.elastic.elastic_restore`, bit-equal.
 
 ``python3 chip_smoke.py --turns PARENT`` runs only the main-path phase,
 in turns with the checkout at PARENT (another commit's tree): parent, this
@@ -249,6 +281,12 @@ W_MAIN, CAP_MAIN = 4096, 64
 # about two bf16 ulps of the value (one ulp is 2^-8 to 2^-7 of it), ATOL
 # covers values near 0
 ATTN_ATOL_BF16, ATTN_RTOL_BF16 = 2e-2, 2 ** -7
+# fp32 outputs: |kernel - plain| <= ATTN_ATOL_FP32 (the same function summed
+# in another order, exp on the card; tests/test_torch_attention.py's)
+ATTN_ATOL_FP32 = 1e-4
+# GQA groups of the dense models at head dim 128 (granite-3-8b 32/8,
+# yi-34b 56/8, mistral-large-123b 96/8): B, KV, S (prefill), T (decode cache)
+ATTN_GROUPS, ATTN_GROUP_SHAPE = (4, 7, 12), (8, 8, 512, 584)
 # serving: max abs difference of any logit between the kernel path and the
 # plain-attention path, teacher-forced on the same tokens (bf16 logits; one
 # bf16 ulp at 4 is 2^-5; 24 layers of bf16 rounding in between)
@@ -748,6 +786,7 @@ def phase_attention(torch, ops, ref):
         out["decode_attention"].update(
             r if hd == 64 else {f"hd{hd}_{key}": val for key, val in r.items()})
     out["decode_attention"]["max_abs_err"] = max(errs)
+    _attention_groups(torch, ops, ref, out)
     for name, r in out.items():
         for hd, pre in ((64, ""), (128, "hd128_"), (256, "hd256_")):
             print(f"[kernels] {name}: device per launch at the hd-{hd} serving "
@@ -757,6 +796,80 @@ def phase_attention(torch, ops, ref):
                   f"{r[pre + 'bytes']} bytes, {r[pre + 'ops']} FLOP); eager wrapper "
                   f"call {r[pre + 'call_ms']:.6f} ms")
     return out
+
+
+def _attention_groups(torch, ops, ref, out):
+    """Both attention kernels at head dim 128 with G = 4, 7 and 12 query
+    heads a KV head (the dense models' groups), B 8 x KV 8, prefill S 512
+    and decode against T 584 slots (ragged lengths 512..575, as serving
+    leaves them), in bf16 and fp32, each against its plain version
+    (ATTN_ATOL_BF16 + ATTN_RTOL_BF16 x |plain|, ATTN_ATOL_FP32) and timed
+    beside its bound and SDPA's time. Adds `hd128_g<G>_<type>_*` keys and
+    the worst error to `out`."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    B, KV, S, T = ATTN_GROUP_SHAPE
+    hd = 128
+    lengths = torch.randint(512, 576, (B,), generator=torch.Generator().manual_seed(8)).tolist()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    valid = (torch.arange(T, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+    for G in ATTN_GROUPS:
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            elt = 2 if kind == "bf16" else 4
+            peak = BF16_OPS_PER_S if kind == "bf16" else FP32_OPS_PER_S
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+            q, k, v = rnd(B, KV, G, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd)
+            qd, kc, vc = rnd(B, KV, G, hd), rnd(B, KV, T, hd), rnd(B, KV, T, hd)
+            qh, qdh = q.view(B, KV * G, S, hd), qd.view(B, KV * G, 1, hd)
+            runs = {
+                "flash_attention": (
+                    lambda: ops.flash_attention(q, k, v, causal=True),
+                    lambda: ref.flash_attention(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(qh, k, v, is_causal=True,
+                                                           enable_gqa=True).view_as(q),
+                    _flash_work(B, KV, G, S, hd, True, 0, elt)),
+                "decode_attention": (
+                    lambda: ops.decode_attention(qd, kc, vc, ln),
+                    lambda: ref.decode_attention(qd, kc, vc, ln),
+                    lambda: F.scaled_dot_product_attention(qdh, kc, vc, attn_mask=valid,
+                                                           enable_gqa=True).view_as(qd),
+                    _decode_work(KV, G, hd, lengths, elt))}
+            for name, (kern, plain, lib, (nbytes, nops)) in runs.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                if kind == "bf16":
+                    allowed = ATTN_ATOL_BF16 + ATTN_RTOL_BF16 * want.float().abs()
+                else:
+                    allowed = torch.full_like(diff, ATTN_ATOL_FP32)
+                worst = float((diff / allowed).max())
+                err = float(diff.max())
+                if worst > 1 or not bool(torch.isfinite(got.float()).all()):
+                    raise SystemExit(f"{name} hd=128 G={G} {kind} disagrees with its "
+                                     f"plain version: max abs err {err}")
+                # fewer calls a graph where a call takes milliseconds (the plain
+                # versions; fp32 prefill, on the CUDA cores)
+                few = dict(calls=5, reps=3)
+                slow = few if kind == "fp32" and name == "flash_attention" else {}
+                r = {"ms": _device_ms(torch, kern, **slow),
+                     "plain_ms": _device_ms(torch, plain, **few),
+                     "library_ms": _device_ms(torch, lib, **slow)}
+                r["bound_ms"], r["bound_by"] = _bound_ms(nbytes, nops, peak)
+                print(f"[kernels] {name} hd=128 G={G} {kind} B={B} KV={KV} "
+                      + (f"S={S} causal" if name == "flash_attention" else
+                         f"T={T} lengths {min(lengths)}..{max(lengths)}")
+                      + f": max abs err {err:.6f} (max err / allowed {worst:.4f}); kernel "
+                      f"{r['ms']:.6f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+                      f"{r['bound_ms'] / r['ms']:.4f} of it; SDPA {r['library_ms']:.6f} ms; "
+                      f"plain {r['plain_ms']:.6f} ms")
+                out[name].update({f"hd128_g{G}_{kind}_{key}": val for key, val in r.items()})
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
 
 
 def _wkv6_work(B, S, H, hd, state: bool, elt: int = 4):
@@ -3082,9 +3195,19 @@ def _phase_sharded(torch, np, cpu):
 
 
 SERVE_BATCH, SERVE_NEW = 8, 64
-# timed reruns of each serving path's prefill and decode steps (the faster
-# is reported; 3 before the training phase needed the time)
-SERVE_RERUNS = 2
+# timed runs of each serving path's prefill and decode steps (the fastest
+# is reported): one, as `[total]` runs within ~100 s of the 1,200 s limit
+# and a second run costs a path its prefill + 63 decode steps, at the
+# times PERF.md records ~2.6 s (qwen2-0.5b), ~3.0 (rwkv6-1.6b), ~4.2
+# (recurrentgemma-9b), ~6.4 (qwen2-moe-a2.7b), ~0.5 (phi3.5-moe), ~3.9
+# (granite-3-8b), ~7.0 (yi-34b), ~0.6 (mistral-large-123b), ~28 s in
+# all, which the checks need first. Each path's profile still times its
+# kernels.
+SERVE_RERUNS = 1
+# the depth of each deep dense model's absolute check (`_shallow_check`):
+# its first layers, where the plain versions are themselves within
+# LOGIT_TOL of the fp32-attention path
+SHALLOW_LAYERS = {"granite-3-8b": 8, "yi-34b": 4, "mistral-large-123b": 2}
 # the kernels' symbols in a profile, by wrapper name (the serving paths run
 # both attention kernels in bf16, through their tensor-core kernels, and
 # `wkv6` and `rglru` through their sequence kernels in prefill and their
@@ -3162,23 +3285,75 @@ def _moe_log(torch, replay=None):
         raise SystemExit("moe replay: fewer MoE calls than the recorded run made")
 
 
+def _in_fp32(fn):
+    """`fn` (an attention kernel's plain version) on fp32 copies of its
+    floating inputs, the output cast back to the first input's type."""
+    def run(*args, **kw):
+        out = fn(*(a.float() if a.is_floating_point() else a for a in args), **kw)
+        return out.to(args[0].dtype)
+    return run
+
+
+def _shallow_check(torch, ops, ref, tag, fns, cfg, params, prompts, cache_len, kernels):
+    """The absolute end-to-end check of a deep dense model: its first
+    SHALLOW_LAYERS layers (the same weights, the full width), every step's
+    logits of a greedy run through the kernels teacher-forced through the
+    plain versions and through the plain versions in fp32 (`_in_fp32`); the
+    kernel path within LOGIT_TOL of both. Returns (kernel vs plain, kernel
+    vs fp32, plain vs fp32) max abs logit gaps."""
+    from unittest import mock
+
+    n = SHALLOW_LAYERS[cfg.name]
+    cut = dataclasses.replace(cfg, n_layers=n)
+    part = dict(params, layers=params["layers"][:n])
+    greedy, logits_k = _greedy_run(torch, fns, cut, part, prompts, cache_len)
+
+    def plain(fp32):
+        with contextlib.ExitStack() as stack:
+            for name in kernels:
+                fn = getattr(ref, name)
+                stack.enter_context(mock.patch.object(ops, name, _in_fp32(fn) if fp32 else fn))
+            return _greedy_run(torch, fns, cut, part, prompts, cache_len, feed=greedy)[1]
+
+    logits_p, logits_32 = plain(False), plain(True)
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    kp, k32, p32 = gap(logits_k, logits_p), gap(logits_k, logits_32), gap(logits_p, logits_32)
+    print(f"[{tag}] absolute check at {n} of {cfg.n_layers} layers (full width), "
+          f"teacher-forced, max abs logit difference: kernel vs plain path {kp:.6f}, kernel "
+          f"vs fp32-attention path {k32:.6f} (tolerance {LOGIT_TOL} each), plain vs "
+          f"fp32-attention path {p32:.6f}; |logit| max {float(logits_k.abs().max()):.4f}")
+    if not (bool(torch.isfinite(logits_k.float()).all()) and max(kp, k32) <= LOGIT_TOL):
+        raise SystemExit(f"{tag}: the kernel path is not within {LOGIT_TOL} of the plain "
+                         f"and fp32-attention paths at {n} layers")
+    return kp, k32, p32
+
+
 def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note: str = "",
-                layers: int | None = None):
+                layers: int | None = None, against_fp32: bool = False):
     """Serve `arch` at full width (and depth, unless `layers` cuts it) on the
     card through the serving entry point (random weights from seed 0):
     SERVE_BATCH requests of `prompt_len` tokens and SERVE_NEW new tokens,
     counting every kernel's launches from 0 and requiring exactly the
     model's (`_path_launches`); the same inputs then run teacher-forced
     through the plain versions of the path's kernels, every step's logits
-    within LOGIT_TOL (an MoE model's plain path also replays the kernel
+    within LOGIT_TOL — or, with `against_fp32` (the deep and wide dense
+    models, whose random-weight logits move by more than LOGIT_TOL between
+    any two bf16 roundings of attention), the kernel path's gap to a path
+    of fp32 attention within the plain path's own gap + LOGIT_TOL, and at
+    the model's first SHALLOW_LAYERS layers the kernel path within
+    LOGIT_TOL of both (`_shallow_check`) (an MoE
+    model's plain path also replays the kernel
     path's expert choices, layer by layer and step by step: a top-k over
     many experts can flip on one bf16 rounding of the attention output,
     which is a discrete change and not kernel error; with free routing the
     flips and the logit gap are printed, not gated); prefill and decode
-    rates (the launches of each half asserted on their own), peak device
-    memory beside the allocation before the run, an MoE model's dropped
-    shares, and the device's busy share and top kinds of device time from a
-    profile. Returns (main-path launches, {(kernel, "prefill" or
+    rates (the best of SERVE_RERUNS; the launches of each half asserted on
+    their own), peak device memory beside the allocation before the run,
+    an MoE model's dropped shares, and the device's busy share and top
+    kinds of device time from a profile. Returns (main-path launches, {(kernel, "prefill" or
     "decode"): device ms per launch in the profile})."""
     from unittest import mock
 
@@ -3247,10 +3422,12 @@ def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note:
     # kernel path, greedy, and the plain versions of the path's kernels
     # teacher-forced on its tokens (and on its expert choices): every step's
     # logits compared
-    def plain_run(replay=None):
+    def plain_run(replay=None, fp32=False):
         with contextlib.ExitStack() as plain:
             for name in kernels:
-                plain.enter_context(mock.patch.object(ops, name, getattr(ref, name)))
+                fn = getattr(ref, name)
+                plain.enter_context(mock.patch.object(
+                    ops, name, _in_fp32(fn) if fp32 else fn))
             log = plain.enter_context(_moe_log(torch, replay)) if is_moe else None
             return _greedy_run(torch, fns, cfg, params, prompts, sc.cache_len,
                                feed=greedy_k)[1], log
@@ -3268,11 +3445,31 @@ def phase_serve(torch, np, ops, ref, tag: str, arch: str, prompt_len: int, note:
     agree = float((greedy_k == greedy_p).float().mean())
     print(f"[{tag}] kernel vs plain path ({', '.join(kernels)}), teacher-forced: "
           f"max abs logit difference prefill {step_err[0]:.6f}, decode steps max "
-          f"{max(step_err[1:]):.6f} (tolerance {LOGIT_TOL}); mean abs "
-          f"{float(diff.mean()):.6f}; |logit| max {float(logits_k.abs().max()):.4f}; "
-          f"greedy-token agreement {agree:.6f} over {greedy_k.numel()} tokens; "
-          f"the kernel rerun reproduces the served tokens: {reproduced}")
-    if max(step_err) > LOGIT_TOL:
+          f"{max(step_err[1:]):.6f} ("
+          + ("against the fp32-attention path below" if against_fp32 else
+             f"tolerance {LOGIT_TOL}")
+          + f"); mean abs {float(diff.mean()):.6f}; |logit| max "
+          f"{float(logits_k.abs().max()):.4f}; greedy-token agreement {agree:.6f} over "
+          f"{greedy_k.numel()} tokens; the kernel rerun reproduces the served tokens: "
+          f"{reproduced}")
+    if against_fp32:
+        # both paths are bf16 attention, rounded in different places; the
+        # fp32-attention path (q, k, v upcast, the output rounded once) is
+        # the point both are held to: the kernels may add at most LOGIT_TOL
+        # to the plain versions' own distance from it
+        logits_32, _ = plain_run(log_k["ids"] if is_moe else None, fp32=True)
+        err_k = float((logits_k.float() - logits_32.float()).abs().max())
+        err_p = float((logits_p.float() - logits_32.float()).abs().max())
+        del logits_32
+        print(f"[{tag}] against the fp32-attention path, teacher-forced: max abs logit "
+              f"difference kernel path {err_k:.6f}, plain path {err_p:.6f} (the kernel "
+              f"path within the plain path's + {LOGIT_TOL})")
+        if err_k > err_p + LOGIT_TOL:
+            raise SystemExit(f"{tag}: the kernel path is farther from the fp32-attention "
+                             f"path than the plain path is, by more than {LOGIT_TOL}")
+        _shallow_check(torch, ops, ref, tag, fns, cfg, params, prompts, sc.cache_len,
+                       kernels)
+    elif max(step_err) > LOGIT_TOL:
         raise SystemExit(f"{tag}: kernel path and plain path disagree")
     del logits_p, diff
     if is_moe:
@@ -3421,8 +3618,9 @@ TRAIN_LOSS_ATOL, TRAIN_GRAD_RL2 = 0.02, 0.05
 # (rec, rec, attn) group
 TRAIN_CHECKS = (("qwen2-0.5b", None, 8), ("rwkv6-1.6b", 2, 4),
                 ("recurrentgemma-9b", 3, 4), ("qwen2-moe-a2.7b", 2, 4))
-# a restarted run against the uninterrupted one, every history value: the
-# same kernels on the same restored fp32 state (printed; exact so far)
+# a restarted run against the schedule it runs (the checkpoint's step run
+# again), every history value: the same kernels on the same restored fp32
+# state
 TRAIN_RESTART_RTOL = 1e-5
 
 
@@ -3546,47 +3744,60 @@ def _profile_train_step(torch, train_loop, registry, cfg, opt_cfg, data_cfg):
 
 
 def _restart_check(torch, train_loop, cfg, opt_cfg, data_cfg):
-    """4 steps uninterrupted (checkpoints at 2 and 4) against a run cut after
-    its checkpoint at step 2 and restarted from it: the restarted steps'
-    history must equal the uninterrupted run's within TRAIN_RESTART_RTOL.
+    """A run of 4 steps (checkpoints after steps 2 and 4, the reference's
+    labels) cut after its step-2 checkpoint and restarted from it, against
+    the schedule that restart runs: steps 0..2, then 2..3 — the batch of
+    step 2 twice — in one process from the same state. The restarted
+    steps' history must equal the schedule's within TRAIN_RESTART_RTOL.
     The checkpoints go to build/ (git-ignored) and are removed after."""
     import shutil
+
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
 
     root = Path(__file__).resolve().parent / "build" / "train_restart"
     shutil.rmtree(root, ignore_errors=True)
     tc = train_loop.TrainConfig(steps=4, log_every=1, ckpt_every=2,
-                                ckpt_dir=str(root / "whole"))
+                                ckpt_dir=str(root / "cut"))
     t0 = time.perf_counter()
-    _, whole = train_loop.train(cfg.name, tc, opt_cfg, data_cfg, model_cfg=cfg,
-                                device=TRAIN_DEVICE)
 
     class Cut(Exception):
         pass
 
     def cut_after_save(step, params, metrics):
-        if step == 2:
+        if step == 3:
             raise Cut
 
-    cut = dataclasses.replace(tc, ckpt_dir=str(root / "cut"))
     try:
-        train_loop.train(cfg.name, cut, opt_cfg, data_cfg, model_cfg=cfg,
+        train_loop.train(cfg.name, tc, opt_cfg, data_cfg, model_cfg=cfg,
                          hooks=[cut_after_save], device=TRAIN_DEVICE)
         raise SystemExit("[train] restart: the cut run was not cut")
     except Cut:
         pass
-    _, resumed = train_loop.train(cfg.name, cut, opt_cfg, data_cfg, model_cfg=cfg,
+    _, resumed = train_loop.train(cfg.name, tc, opt_cfg, data_cfg, model_cfg=cfg,
                                   device=TRAIN_DEVICE)
+    steps = train_loop.Checkpointer(tc.ckpt_dir).all_steps()
+    fns = registry.get_fns(cfg)
+    params = fns.init(cfg, seed=tc.seed, device=TRAIN_DEVICE, masters=True)
+    opt = adamw.init(params)
+    step_fn = train_loop.make_train_step(cfg, fns, opt_cfg)
+    schedule = []
+    for step in (0, 1, 2, 2, 3):
+        batch = train_loop._make_batch(cfg, data_cfg, step, tc, TRAIN_DEVICE)
+        params, opt, metrics = step_fn(params, opt, batch)
+        schedule.append({"step": step, **{k: float(v) for k, v in metrics.items()}})
     wall = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
-    if [h["step"] for h in resumed] != [2, 3]:
-        raise SystemExit(f"[train] restart: resumed steps {[h['step'] for h in resumed]}")
+    if [h["step"] for h in resumed] != [2, 3] or steps != [2, 4]:
+        raise SystemExit(f"[train] restart: resumed steps {[h['step'] for h in resumed]}, "
+                         f"checkpoints {steps}")
     worst = max(abs(r[k] - w[k]) / max(abs(w[k]), 1e-30)
-                for r, w in zip(resumed, whole[2:]) for k in w)
-    print(f"[train] restart ({cfg.n_layers} layers at full width): steps 2-3 restored "
-          f"from the step-2 checkpoint against the uninterrupted run: max relative "
-          f"difference {worst:.3e} over {len(whole[0])} keys (tolerance "
-          f"{TRAIN_RESTART_RTOL}); losses {[round(h['loss'], 6) for h in resumed]}; "
-          f"{wall:.3f} s with 4 checkpoints")
+                for r, w in zip(resumed, schedule[3:]) for k in w)
+    print(f"[train] restart ({cfg.n_layers} layers at full width): cut after the step-2 "
+          f"checkpoint, steps 2-3 restored from it against the schedule 0, 1, 2, 2, 3 "
+          f"run in one process: max relative difference {worst:.3e} over "
+          f"{len(schedule[0])} keys (tolerance {TRAIN_RESTART_RTOL}); losses "
+          f"{[round(h['loss'], 6) for h in resumed]}; checkpoints {steps}; {wall:.3f} s")
     if worst > TRAIN_RESTART_RTOL:
         raise SystemExit("[train] restart: the restarted run differs")
 
@@ -3664,6 +3875,149 @@ def phase_train(torch, np, ops, ref):
     _free(torch)
     print(f"[train] phase {time.perf_counter() - t_phase:.3f} s")
     return launches, checks
+
+
+# the sharded train step (`[sharded_train]`): qwen2-0.5b at full width and
+# depth, TRAIN_BATCH x TRAIN_SEQ, on a 1 x 1 NCCL DeviceMesh, against the
+# unsharded step from the same state; the same kernels run on both sides, so
+# every parameter leaf's relative L2 gap after the steps is ~0
+SHARDED_TRAIN_STEPS, SHARDED_TRAIN_RL2 = 3, 1e-5
+
+
+def phase_sharded_train(torch, np, ops):
+    """`launch.train.build_sharded_train` on a 1 x 1 ("data", "model")
+    `DeviceMesh` over an NCCL process group of one (the launcher's mesh on
+    one card): the launcher's `init_fn(0)` (its peak device memory beside
+    the tree's bytes, every leaf bit-equal to the unsharded init's), then
+    SHARDED_TRAIN_STEPS steps of the unsharded `make_train_step` and the
+    same steps sharded from the same state (parameters, AdamW's moments and
+    the batch as DTensors), each step timed; the losses and
+    every parameter leaf held within SHARDED_TRAIN_RL2 (relative L2), the
+    sharded steps' `flash_attention` launches counted from 0 (n_layers a
+    step); then a checkpoint of the sharded state, `elastic_restore`d onto
+    the same mesh, bit-equal leaf by leaf with the same placements.
+    Returns the sharded steps' launches."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import synthetic
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic, train_loop
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(TRAIN_ARCH)
+    fns = registry.get_fns(cfg)
+    mesh, formed = launch_train.launch_mesh(None)
+    try:
+        opt_cfg = adamw.AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+        data_cfg = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH)
+        init_fn, step_fn, specs = launch_train.build_sharded_train(
+            TRAIN_ARCH, mesh, model_cfg=cfg, opt_cfg=opt_cfg)
+        # the launcher's init: each leaf drawn and placed in turn, AdamW's
+        # moments made on the placed parameters; its peak beside the tree's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        sp, so = init_fn(0)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+        sizes = [t.numel() * t.element_size() for t in adamw.leaves(sp)]
+        tree, leaf = 3 * sum(sizes), max(sizes)
+        params = fns.init(cfg, seed=0, device=TRAIN_DEVICE, masters=True)
+        opt = adamw.init(params)
+        same = all(bool(torch.equal(b.full_tensor(), a)) for a, b in
+                   zip(adamw.leaves((params, opt)), adamw.leaves((sp, so))))
+        print(f"[sharded_train] init_fn(0): peak device memory grew {grew} bytes for the "
+              f"(params, m, v) tree of {tree} bytes, largest leaf {leaf} bytes (bound: the "
+              f"tree + 3 leaves in flight); every leaf bit-equal to the unsharded init's: {same}")
+        if not (same and grew <= tree + 3 * leaf):
+            raise SystemExit("[sharded_train] init_fn(0) differs from init, or held more "
+                             "than one whole leaf beside the placed tree")
+        step = train_loop.make_train_step(cfg, fns, opt_cfg)
+        tc = train_loop.TrainConfig()
+        batches = [train_loop._make_batch(cfg, data_cfg, i, tc, TRAIN_DEVICE)
+                   for i in range(SHARDED_TRAIN_STEPS)]
+        plain_ms, plain_loss = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            plain_loss.append(float(m["loss"]))
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        ops.reset_launch_counts()
+        sharded_ms, sharded_loss = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp, so, m = step_fn(sp, so, batch)
+            sharded_loss.append(float(m["loss"].full_tensor()))
+            sharded_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in ops.LAUNCHES.items() if n}
+        want = {"flash_attention": cfg.n_layers * SHARDED_TRAIN_STEPS}
+        names = [p for p, _ in sh.named_leaves(params)]
+        gaps = []
+        for name, a, b in zip(names, adamw.leaves(params), adamw.leaves(sp)):
+            if not isinstance(b, torch.distributed.tensor.DTensor):
+                raise SystemExit(f"[sharded_train] {name} is not a DTensor")
+            gaps.append((float((b.full_tensor() - a).detach().norm())
+                         / max(float(a.detach().norm()), 1e-30),
+                         name))
+        worst, worst_name = max(gaps)
+        loss_gap = max(abs(a - b) / abs(a) for a, b in zip(plain_loss, sharded_loss))
+        n_params = sum(t.numel() for t in adamw.leaves(params))
+        print(f"[sharded_train] {cfg.name} ({cfg.n_layers} layers, {n_params} parameters, "
+              f"fp32 masters, {cfg.dtype} compute), batch {TRAIN_BATCH} x {TRAIN_SEQ}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} over NCCL: unsharded step ms "
+              f"{[round(t, 3) for t in plain_ms]}, sharded step ms "
+              f"{[round(t, 3) for t in sharded_ms]} (step 0 with warm-up); losses "
+              f"{[round(v, 6) for v in sharded_loss]}, max relative loss gap {loss_gap:.3e}; "
+              f"worst leaf relative L2 gap after {SHARDED_TRAIN_STEPS} steps {worst:.3e} "
+              f"({worst_name}; tolerance {SHARDED_TRAIN_RL2}) over {len(gaps)} leaves; "
+              f"launches {counts} (expected {want})")
+        if counts != want:
+            raise SystemExit(f"[sharded_train] launches {counts}, expected {want}")
+        if not (worst <= SHARDED_TRAIN_RL2 and loss_gap <= SHARDED_TRAIN_RL2
+                and all(np.isfinite(sharded_loss))):
+            raise SystemExit("[sharded_train] the sharded step differs from the unsharded one")
+        del params, opt
+
+        # the elastic round trip: save the sharded state, restore it onto the mesh
+        root = Path(__file__).resolve().parent / "build" / "sharded_ckpt"
+        shutil.rmtree(root, ignore_errors=True)
+        ckpt = Checkpointer(str(root), async_save=False)
+        t0 = time.perf_counter()
+        ckpt.save(SHARDED_TRAIN_STEPS, (sp, so))
+        t_save = time.perf_counter() - t0
+        pspecs = sh.param_specs(fns.init(cfg, device="meta", masters=True), mesh, cfg)
+        t0 = time.perf_counter()
+        (rp, ro), at = elastic.elastic_restore(ckpt, (sp, so), mesh,
+                                               (pspecs, sh.opt_specs(pspecs)))
+        t_restore = time.perf_counter() - t0
+        shutil.rmtree(root, ignore_errors=True)
+        # by path: the restored dicts come back in the checkpoint's order
+        restored = dict(sh.named_leaves((rp, ro)))
+        same = [bool(torch.equal(a.full_tensor(), restored[p].full_tensor()))
+                and a.placements == restored[p].placements
+                for p, a in sh.named_leaves((sp, so))]
+        print(f"[sharded_train] elastic round trip: checkpoint of step {at} saved in "
+              f"{t_save:.3f} s, restored onto the mesh in {t_restore:.3f} s; "
+              f"{sum(same)} of {len(same)} leaves bit-equal with their placements")
+        if at != SHARDED_TRAIN_STEPS or not all(same):
+            raise SystemExit("[sharded_train] the elastic restore differs")
+        del sp, so, rp, ro
+    finally:
+        if formed:
+            dist.destroy_process_group()
+    _free(torch)
+    print(f"[sharded_train] phase {time.perf_counter() - t_phase:.3f} s")
+    return counts
 
 
 def _free(torch):
@@ -3796,9 +4150,17 @@ def main() -> int:
             # 32 layers are ~84 GB in bf16, more than one card holds: full
             # width, 2 layers
             ("serve_phi35_moe", "phi3.5-moe-42b-a6.6b", 512,
-             ": it leaves out layernorm's shifts; depth cut to 2 of 32 layers", 2)):
+             ": it leaves out layernorm's shifts; depth cut to 2 of 32 layers", 2),
+            # the dense models at head dim 128, GQA groups 4, 7 and 12; their
+            # logits held against the fp32-attention path (`phase_serve`)
+            ("serve_granite", "granite-3-8b", 512, "", None),
+            ("serve_yi", "yi-34b", 512, "", None),
+            # 88 layers are ~246 GB in bf16: full width, 4 layers
+            ("serve_mistral", "mistral-large-123b", 512,
+             "; depth cut to 4 of 88 layers", 4)):
+        dense = tag in ("serve_granite", "serve_yi", "serve_mistral")
         counts, prof = phase_serve(torch, np, ops, ref, tag, arch, prompt_len, note,
-                                   layers)
+                                   layers, against_fp32=dense)
         serving[tag] = prof
         for name, _ in prof:
             by_path.setdefault(name, {})[tag] = counts[name]
@@ -3813,6 +4175,8 @@ def main() -> int:
         by_path[name]["train"] = n
     for name, n in grad_launches.items():
         by_path[name]["train_grads"] = n
+    for name, n in phase_sharded_train(torch, np, ops).items():
+        by_path[name]["sharded_train"] = n
     profiled["flash_attention"] = serving["serve"][("flash_attention", "prefill")]
     profiled["decode_attention"] = serving["serve"][("decode_attention", "decode")]
     profiled["wkv6"] = serving["serve_rwkv6"][("wkv6", "prefill")]

@@ -4,7 +4,13 @@
     manifest recording tree paths, shapes, dtypes and the step, so restore
     never needs the writer's layout;
   * `restore()` rebuilds the target's tree from the manifest, as numpy
-    arrays;
+    arrays, or with `shardings` as DTensors placed on a (possibly
+    different) mesh — restoring onto another mesh (elastic shrink/grow) is
+    just another `shardings` argument;
+  * a DTensor leaf is saved whole (`full_tensor()`, a collective every
+    rank takes part in, one leaf at a time), as the reference saves the
+    `np.asarray` of a sharded array; only rank 0 keeps host copies and
+    writes, and a sharded restore reads and places one leaf at a time;
   * saves are atomic (tmp dir + rename) and optionally run on a background
     thread (work continues while the previous step flushes);
   * `keep` bounds retained checkpoints (oldest pruned).
@@ -68,11 +74,30 @@ def _shape(leaf) -> tuple:
     return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else np.shape(leaf)
 
 
-def _host(leaf):
-    """A leaf as a host array (a tensor copied off its device)."""
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
+def _host(leaf, keep: bool = True):
+    """A leaf as a host array (a tensor copied off its device; a DTensor
+    gathered whole first, on every rank, as the collective needs), or None
+    when not `keep`."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        return leaf.detach().cpu().numpy() if keep else None
+    return np.asarray(leaf) if keep else None
+
+
+def _writes(leaves) -> bool:
+    """Whether this process writes a tree with these leaves: always, but
+    for a tree of DTensors in a process group, where rank 0 writes."""
+    import torch.distributed as dist
+
+    return not (any(_is_dtensor(x) for x in leaves) and dist.is_initialized()
+                and dist.get_rank() != 0)
 
 
 class Checkpointer:
@@ -86,7 +111,10 @@ class Checkpointer:
     def save(self, step: int, tree) -> str:
         """Snapshot `tree` at `step`. Returns the checkpoint path."""
         leaves, paths = _flatten(tree)
-        host = [_host(x) for x in leaves]
+        writes = _writes(leaves)
+        host = [_host(x, writes) for x in leaves]
+        if not writes:
+            return self._step_dir(step)
         self.wait()
         if self.async_save:
             self._thread = threading.Thread(
@@ -134,28 +162,39 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def read(self, step: int) -> dict:
-        """Every leaf of checkpoint `step`, by its manifest path."""
+    def _files(self, step: int) -> dict:
+        """Each leaf's file in checkpoint `step`, by its manifest path."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        return {e["path"]: np.load(os.path.join(d, e["file"]))
-                for e in manifest["leaves"]}
+        return {e["path"]: os.path.join(d, e["file"]) for e in manifest["leaves"]}
 
-    def restore(self, target_tree, step: int | None = None):
+    def read(self, step: int) -> dict:
+        """Every leaf of checkpoint `step`, by its manifest path."""
+        return {path: np.load(f) for path, f in self._files(step).items()}
+
+    def restore(self, target_tree, step: int | None = None, shardings=None):
         """Rebuild `target_tree`'s structure from disk, its leaves as numpy
-        arrays; returns (tree, step)."""
+        arrays; returns (tree, step). `shardings`: optional tree (matching
+        the target) of `launch.shardings.NamedSharding`, placing each leaf
+        on its mesh under its spec as a DTensor (`distribute_tensor`) as
+        soon as it is read, so a rank holds one whole leaf at a time —
+        elastic restore onto any mesh."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        by_path = self.read(step)
+        files = self._files(step)
         leaves, paths = _flatten(target_tree)
+        if shardings is not None:
+            from ..launch.shardings import place
+
+            where = _flatten(shardings)[0]
         out = []
-        for leaf, path in zip(leaves, paths):
-            arr = by_path[path]
+        for i, (leaf, path) in enumerate(zip(leaves, paths)):
+            arr = np.load(files[path])
             if tuple(arr.shape) != _shape(leaf):
                 raise ValueError(
                     f"shape mismatch for {path}: ckpt {arr.shape} vs target "
                     f"{_shape(leaf)}")
-            out.append(arr)
+            out.append(arr if shardings is None else place(arr, where[i]))
         return _unflatten(target_tree, iter(out)), step

@@ -27,7 +27,8 @@ import os
 import numpy as np
 import torch
 
-from ..core import mesh_comm, scheduler, stealing, tasks
+from ..core import scheduler, stealing, tasks
+from .mesh import make_worker_mesh
 
 
 def job(strategy: str = "neighbor", torus: bool = False, n: int = 20, cutoff: int = 10,
@@ -67,12 +68,6 @@ def summary(state: scheduler.WorkerState, rounds: int) -> dict:
                 successes=int(a["successes"].sum()), overflow=int(a["overflow"].sum()))
 
 
-def _dist_mesh(rows: int, cols: int):
-    from torch.distributed.device_mesh import init_device_mesh
-
-    return init_device_mesh("cpu", (rows, cols), mesh_dim_names=("row", "col"))
-
-
 def dist_worker(rank: int, world_size: int, init_method: str, rows: int, cols: int,
                 specs: list, out: str):
     """One rank of a gloo run of every `job` in `specs` on a rows x cols
@@ -84,7 +79,7 @@ def dist_worker(rank: int, world_size: int, init_method: str, rows: int, cols: i
     dist.init_process_group("gloo", init_method=init_method, world_size=world_size,
                             rank=rank)
     try:
-        mesh = _dist_mesh(rows, cols)
+        mesh = make_worker_mesh(rows, cols)
         saved = {}
         for i, spec in enumerate(specs):
             state, rounds = run(mesh, spec)
@@ -116,7 +111,7 @@ def main(argv=None):
     spec = job(args.strategy, args.torus, args.n, args.cutoff, args.max_leaf_cost,
                args.capacity, args.max_rounds, args.seed)
     if args.backend is None:
-        mesh = mesh_comm.LocalMesh((args.rows, args.cols), device=args.device)
+        mesh = make_worker_mesh(args.rows, args.cols, device=args.device)
         where = f"local mesh on {mesh.device}"
         rank = 0
     else:
@@ -125,7 +120,7 @@ def main(argv=None):
         torch.set_num_threads(1)
         dist.init_process_group(args.backend)
         rank = dist.get_rank()
-        mesh = _dist_mesh(args.rows, args.cols)
+        mesh = make_worker_mesh(args.rows, args.cols)
         where = f"{dist.get_world_size()} ranks over {args.backend}"
     try:
         state, rounds = run(mesh, spec)

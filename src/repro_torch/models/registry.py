@@ -43,14 +43,14 @@ ARCH_MODULES = {
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "yi-34b": "repro_torch.configs.yi_34b",
 }
 # the reference's other architectures → ROADMAP Queue 1 item
 _ARCH_ITEMS = {
     "llava-next-mistral-7b": "15.5",
     "whisper-tiny": "15.6",
-    "mistral-large-123b": "15.8",
-    "granite-3-8b": "15.8",
-    "yi-34b": "15.8",
 }
 
 

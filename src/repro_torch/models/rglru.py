@@ -74,28 +74,32 @@ def check_config(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
+def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False,
+         place=None):
     """Random weights on `device` (default: the CUDA device; raises if there
     is none): normal(0, 0.02) from a seeded `torch.Generator` on that device
     for the matrices and tables, and the reference's constants for the rest
     (norm scales 1, biases 0, lam 2) — the reference's distributions, not its
     `jax.random` draws (`convert.rglru_params` carries the reference's own
     weights across). With `masters` every leaf is fp32 (training's master
-    weights)."""
+    weights). `place`, if given, takes each leaf as it is made and returns
+    what the tree holds (`L.init_leaf`)."""
     check_config(cfg)
     dev = resolve_device(device)
     dt = torch.float32 if masters else L.dtype_of(cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    # the meta device holds shapes only (the abstract tree of
+    # `launch.shardings`): nothing is drawn there
+    gen = None if dev.type == "meta" else torch.Generator(device=dev)
+    if gen is not None:
+        gen.manual_seed(seed)
     D, W, K = cfg.d_model, _lru_width(cfg), cfg.conv1d_width
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def normal(*shape):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * 0.02).to(dt)
+        return L.init_leaf(place, gen, shape, dt, dev)
 
     def full(shape, value, dtype=dt):
-        return torch.full(shape, value, dtype=dtype, device=dev)
+        return L.init_leaf(place, None, shape, dtype, dev, value)
 
     def norm_p():
         return {"scale": full((D,), 1.0, torch.float32)}
@@ -129,7 +133,9 @@ def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
 def rglru_scan(x, r, i, lam, h0):
     """x, r, i: (B, S, W); lam: (W,) fp32; h0: (B, W) fp32 → (h (B, S, W) in
     x's type, final h (B, W) fp32), through `kernels.ops.rglru`."""
-    h, hT = ops.rglru(x, r, i, lam, h0)
+    # on DTensors (the sharded step) each rank's rows and channels
+    h, hT = L.local_shards(ops.rglru, (x, r, i, lam, h0),
+                           ((0, 2),) * 3 + ((None, 0), (0, 1)), ((0, 2), (0, 1)))
     return h.to(x.dtype), hT
 
 
@@ -200,8 +206,8 @@ def _trunk(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
     x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
     B = x.shape[0]
     W, K = _lru_width(cfg), cfg.conv1d_width
-    h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
-    conv0 = torch.zeros((B, K - 1, W), dtype=x.dtype, device=x.device)
+    h0 = L.replicated(torch.zeros((B, W), dtype=torch.float32, device=x.device), x)
+    conv0 = L.replicated(torch.zeros((B, K - 1, W), dtype=x.dtype, device=x.device), x)
     rec_block, attn_block = remat_lib.wrap(_rec_block, remat), remat_lib.wrap(
         _attn_block, remat)
     ri = ai = 0

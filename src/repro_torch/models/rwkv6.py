@@ -65,28 +65,33 @@ def check_config(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
+def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False,
+         place=None):
     """Random weights on `device` (default: the CUDA device; raises if there
     is none): normal(0, 0.02) from a seeded `torch.Generator` on that
     device for the matrices and tables, and the reference's constants for
     the rest (layernorms 1 and 0, lerp coefficients 0.5, w0 -6, u 0, gn
     scale 1) — the reference's distributions, not its `jax.random` draws
     (`convert.rwkv6_params` carries the reference's own weights across).
-    With `masters` every leaf is fp32 (training's master weights)."""
+    With `masters` every leaf is fp32 (training's master weights). `place`,
+    if given, takes each leaf as it is made and returns what the tree holds
+    (`L.init_leaf`)."""
     check_config(cfg)
     dev = resolve_device(device)
     dt = torch.float32 if masters else L.dtype_of(cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    # the meta device holds shapes only (the abstract tree of
+    # `launch.shardings`): nothing is drawn there
+    gen = None if dev.type == "meta" else torch.Generator(device=dev)
+    if gen is not None:
+        gen.manual_seed(seed)
     D, dff = cfg.d_model, cfg.d_ff
     H, hd = _n_heads(cfg), cfg.rwkv_head_dim
 
     def normal(*shape):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * 0.02).to(dt)
+        return L.init_leaf(place, gen, shape, dt, dev)
 
     def full(shape, value, dtype=torch.float32):
-        return torch.full(shape, value, dtype=dtype, device=dev)
+        return L.init_leaf(place, None, shape, dtype, dev, value)
 
     def layernorm_p():
         return {"scale": full((D,), 1.0), "bias": full((D,), 0.0)}
@@ -149,7 +154,9 @@ def _time_mix(lp, x, cfg: ModelConfig, shift_state, wkv_state):
     w = torch.exp(-torch.exp(dlog)).view(B, S, H, hd)
     # r, k, v go in as the projections made them (the kernel converts bf16
     # to fp32 inside, exactly); w, u and the state are fp32
-    out, wkv_state = ops.wkv6(r, k, v, w, lp["u"], wkv_state)
+    # on DTensors (the sharded step) each rank's rows and heads
+    out, wkv_state = L.local_shards(ops.wkv6, (r, k, v, w, lp["u"], wkv_state),
+                                    ((0, 2),) * 4 + ((None, 0), (0, 1)), ((0, 2), (0, 1)))
     out = L.rmsnorm(lp["gn"], out.view(B, S, D)).to(dt) * F.silu(g)
     return out @ L.cast(lp["wo"], dt), new_shift, wkv_state
 
@@ -189,7 +196,8 @@ def _trunk(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
     check_config(cfg)
     x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
     if state is None:
-        state = _empty_state(cfg, x.shape[0], x.device)
+        state = {k: L.replicated(v, x)
+                 for k, v in _empty_state(cfg, x.shape[0], x.device).items()}
     layer = remat_lib.wrap(_layer, remat)
     sa, sf, wkv = [], [], []
     for i, lp in enumerate(params["layers"]):

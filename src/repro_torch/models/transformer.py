@@ -70,14 +70,18 @@ def _ffn(lp, cfg: ModelConfig, x):
     (`moe_dropped`, `moe_dropped_pre_steal`, `moe_aux`), or the dense MLP
     with none. Prefill and decode drop them, as the reference's do."""
     if cfg.moe is not None:
-        return moe.moe_apply(lp["moe"], x, cfg.moe)
+        # on DTensors (the sharded step) the layer is whole on every rank (its
+        # tokens and experts gathered), so routing and capacities are the
+        # reference's over all B·S tokens; out: y and 3 metrics
+        return L.replicated_call(moe.moe_apply, (lp["moe"], x, cfg.moe), n_out=4)
     return L.mlp_apply(lp["mlp"], x), {}
 
 
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
+def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False,
+         place=None):
     """Random weights on `device` (default: the CUDA device; raises if there
     is none): normal(0, 0.02) from a seeded `torch.Generator` on that
     device, ones for norm scales, zeros for biases and layernorm's shifts —
@@ -85,27 +89,33 @@ def init(cfg: ModelConfig, seed: int = 0, device=None, masters: bool = False):
     (`convert.lm_params` carries the reference's own weights across).
     Weights are stored in cfg.dtype (the serving parameters), or with
     `masters` in fp32 (training's master weights, the same draws before
-    the cast); norm scales and shifts in fp32."""
+    the cast); norm scales and shifts in fp32. `place`, if given, takes
+    each leaf as it is made and returns what the tree holds (`L.init_leaf`)."""
     check_config(cfg)
     dev = resolve_device(device)
     dt = torch.float32 if masters else L.dtype_of(cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    # the meta device holds shapes only (the abstract tree of
+    # `launch.shardings`): nothing is drawn there
+    gen = None if dev.type == "meta" else torch.Generator(device=dev)
+    if gen is not None:
+        gen.manual_seed(seed)
 
     def normal(*shape):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * 0.02).to(dt)
+        return L.init_leaf(place, gen, shape, dt, dev)
+
+    def full(shape, value, dtype=dt):
+        return L.init_leaf(place, None, shape, dtype, dev, value)
 
     def dense_p(d_in, d_out, bias=False):
         p = {"w": normal(d_in, d_out)}
         if bias:
-            p["b"] = torch.zeros(d_out, dtype=dt, device=dev)
+            p["b"] = full((d_out,), 0.0)
         return p
 
     def norm_p():
-        p = {"scale": torch.ones(cfg.d_model, dtype=torch.float32, device=dev)}
+        p = {"scale": full((cfg.d_model,), 1.0, torch.float32)}
         if cfg.norm != "rmsnorm":
-            p["bias"] = torch.zeros(cfg.d_model, dtype=torch.float32, device=dev)
+            p["bias"] = full((cfg.d_model,), 0.0, torch.float32)
         return p
 
     def ffn_p():

@@ -18,11 +18,11 @@ to cfg.dtype. On the card the forward runs the hand-written kernels under
 autograd (`kernels.ops`). `train` runs on the CUDA device unless it is
 given another, and raises when there is no card; there is no `jit`.
 
-One difference from the reference: a checkpoint written during the run is
-labelled with the number of steps done (step s saves as s + 1), as the
-final one is. The reference labels it with the step's index, so a restart
-from it would run that step again; here a restarted run goes on exactly as
-the uninterrupted one.
+Checkpoints are the reference's: a mid-run save comes after step s has
+run, for s > start and s % ckpt_every == 0, under the label s; the final
+one under `steps`. A restart from a mid-run checkpoint therefore runs step
+s again (its batch twice, the schedule one step on), as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from .. import core
 from ..checkpoint import Checkpointer
 from ..core import balancer
 from ..data import packing, synthetic
+from ..models import layers as L
 from ..models import registry
 from ..models.transformer import not_ported
 from ..optim import adamw
@@ -88,18 +89,16 @@ def make_train_step(cfg, model_fns: registry.ModelFns, opt_cfg: adamw.AdamWConfi
             loss, metrics, grads = loss_and_grads(model_fns, cfg, params, batch, remat)
         else:
             n = num_microbatches
-            mbs = [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                    for k, v in batch.items()} for i in range(n)]
-            acc = adamw.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                       device=p.device), params)
-            l_sum = torch.zeros((), dtype=torch.float32,
-                                device=adamw.leaves(params)[0].device)
+            acc = adamw.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                 params)
+            l_sum = None
             per_mb = []
-            for mb in mbs:
+            for mb in microbatches(batch, n):
                 loss, metrics, g = loss_and_grads(model_fns, cfg, params, mb, remat)
                 adamw.tree_map(lambda a, b: a.add_(b.to(torch.float32)), acc, g)
                 del g
-                l_sum = l_sum + loss
+                # 0 + loss is loss: the sum from zeros, in micro-batch order
+                l_sum = loss if l_sum is None else l_sum + loss
                 per_mb.append(metrics)
             grads = adamw.tree_map(lambda g: g / n, acc)
             loss = l_sum / n
@@ -110,6 +109,18 @@ def make_train_step(cfg, model_fns: registry.ModelFns, opt_cfg: adamw.AdamWConfi
         return params, opt_state, metrics
 
     return train_step
+
+
+def microbatches(batch: dict, n: int) -> list:
+    """The n micro-batches of `batch`, the reference's split: micro-batch i
+    is rows [i·B/n, (i+1)·B/n) of every leaf. A DTensor leaf (the sharded
+    step's batch, its rows over the data-parallel mesh dims) is gathered
+    whole (token ids and the loss mask, B x S), and each micro-batch's rows
+    are sharded over those mesh dims again (`layers.batch_rows`), so every
+    micro-batch's activations stay sharded."""
+    whole = {k: L.gathered(v) for k, v in batch.items()}
+    whole = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:]) for k, v in whole.items()}
+    return [{k: L.row_sharded(v[i]) for k, v in whole.items()} for i in range(n)]
 
 
 @torch.no_grad()
@@ -127,8 +138,8 @@ def train(arch: str, train_cfg: TrainConfig, opt_cfg: adamw.AdamWConfig,
     masters=True)` and `adamw.init`, or `init_state`, a (params, opt_state)
     pair on `device` (e.g. the reference's, through `convert`), which is
     updated in place. `hooks` are called as hook(step, params, metrics)
-    after each step. The sharded placement (FSDP + TP) comes with
-    `launch/shardings.py` (ROADMAP.md, Queue 1 item 15.8)."""
+    after each step. The sharded step (FSDP + TP on a `DeviceMesh`) is
+    `launch.train.build_sharded_train`."""
     model_cfg = model_cfg or registry.get_config(arch)
     fns = registry.get_fns(model_cfg)
     dev = core.resolve_device(device, "repro_torch trains")
@@ -162,9 +173,8 @@ def train(arch: str, train_cfg: TrainConfig, opt_cfg: adamw.AdamWConfig,
                 dt = time.time() - t0
                 print(f"[train] step {step:5d} loss {m['loss']:.4f} "
                       f"lr {m.get('lr', 0):.2e} ({dt:.1f}s)")
-            done = step + 1
-            if ckpt and done < train_cfg.steps and done % train_cfg.ckpt_every == 0:
-                ckpt.save(done, (params, opt_state))
+            if ckpt and step > start and step % train_cfg.ckpt_every == 0:
+                ckpt.save(step, (params, opt_state))
         if ckpt:
             ckpt.save(train_cfg.steps, (params, opt_state))
     finally:

@@ -71,7 +71,8 @@ def test_config_and_registry_mirror_reference():
     assert dataclasses.asdict(full_r) == dataclasses.asdict(full_p)
     assert full_p.n_params() == full_r.n_params()
     assert preg.list_archs() == ["qwen2-0.5b", "rwkv6-1.6b", "recurrentgemma-9b",
-                                 "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"]
+                                 "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
+                                 "mistral-large-123b", "granite-3-8b", "yi-34b"]
     assert set(preg._ARCH_ITEMS) | set(preg.list_archs()) == set(rreg.list_archs())
     for arch in preg._ARCH_ITEMS:
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 15\.\d"):

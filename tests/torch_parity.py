@@ -6,7 +6,9 @@ as numpy arrays.
 """
 
 import gc
+import os
 
+import filelock
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,3 +161,21 @@ def check_against_reference(ref_result, workload, mesh, cfg,
             got = port_simulate(workload, mesh, cfg, step_mode="leap",
                                 deque_backend=backend)
             assert_results_equal(own_famine_ref, got)
+
+
+def run_once(tmp_path_factory, name: str, make):
+    """A directory that `make(directory)` fills once a test session: under
+    pytest-xdist every worker that needs it waits on a file lock in the
+    session's shared temporary directory, the first runs `make`, and the
+    rest read what it wrote (a module-scoped fixture alone runs once in
+    each worker that gets one of the module's tests)."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    out = base / name
+    with filelock.FileLock(f"{out}.lock"):
+        if not (out / "done").exists():
+            out.mkdir(exist_ok=True)
+            make(out)
+            (out / "done").touch()
+    return out
