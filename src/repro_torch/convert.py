@@ -8,7 +8,8 @@ executor's `SchedulerConfig`'s) fields (its
 schedule's arrays, an arrival config's fields or a constellation's config
 fields and, for the deque layer, a `DequeState`'s ``(buf, bot, size)``.
 Enum-valued fields may be any enum (or plain string) with the same values. A model's input is its
-parameter tree (`lm_params` for the dense and MoE transformer, `rwkv6_params` for
+parameter tree (`lm_params` for the transformer families and the
+encoder-decoder, `rwkv6_params` for
 rwkv6, `rglru_params` for the RG-LRU hybrid; `master_params` for any of them
 as training's fp32 masters, and `adamw_state` for the optimizer's state). This module imports nothing
 of the reference package.
@@ -136,9 +137,9 @@ def _lm_tree(cfg: ModelConfig, params: dict, device, fp32_leaves) -> dict:
 
 
 def lm_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
-    """The port's transformer parameters (dense or MoE) from the
-    reference's parameter tree, given as numpy arrays (e.g.
-    `jax.tree.map(np.asarray, params)`).
+    """The port's transformer parameters (dense, MoE, VLM, or the
+    encoder-decoder's two stacks) from the reference's parameter tree,
+    given as numpy arrays (e.g. `jax.tree.map(np.asarray, params)`).
 
     The reference stacks every `layers` leaf along a leading n_layers axis;
     the port keeps one dict per layer. Weights are cast once to cfg.dtype
@@ -148,8 +149,21 @@ def lm_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
     fp32. The MoE leaves come across as they are: the router's `w` (D, E),
     the experts' `wg` and `wu` (E, D, F) and `wd` (E, F, D), and `shared`;
     the reference casts the router to the activations' type at use, so
-    cfg.dtype is its value. A tied embedding stays one table."""
-    return _lm_tree(cfg, params, device, ("scale", "bias"))
+    cfg.dtype is its value. A tied embedding stays one table. The
+    cross-attention leaves (`lnx`, `xattn`) and the gelu MLP's (`wu`, `wd`
+    with their biases `b`, cast to cfg.dtype as the reference casts them at
+    use) come across as the others; the encoder-decoder's tree ({"encoder":
+    {"layers", "final_norm"}, "decoder"}) keeps its two parts, the
+    encoder's n_encoder_layers stacked leaves as a list of layers."""
+    fp32 = ("scale", "bias")
+    if "encoder" not in params:
+        return _lm_tree(cfg, params, device, fp32)
+    enc = params["encoder"]
+    return {"encoder": {
+        "layers": [_tensors(cfg.dtype, _index(enc["layers"], i), device, fp32)
+                   for i in range(cfg.n_encoder_layers)],
+        "final_norm": _tensors(cfg.dtype, enc["final_norm"], device, fp32)},
+        "decoder": _lm_tree(cfg, params["decoder"], device, fp32)}
 
 
 def moe_params(params: dict, dtype: str = "float32", device="cpu") -> dict:
@@ -198,14 +212,14 @@ def rglru_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
     return out
 
 
-_FAMILY_PARAMS = {"dense": lm_params, "moe": lm_params, "ssm": rwkv6_params,
-                  "hybrid": rglru_params}
+_FAMILY_PARAMS = {"dense": lm_params, "moe": lm_params, "vlm": lm_params,
+                  "encdec": lm_params, "ssm": rwkv6_params, "hybrid": rglru_params}
 
 
 def master_params(cfg: ModelConfig, params: dict, device="cpu") -> dict:
     """Training's master weights from the reference's parameter tree (numpy
-    arrays) of the dense, MoE, rwkv6 or hybrid family: the family's port
-    tree (`lm_params`, `rwkv6_params`, `rglru_params`) with every leaf in
+    arrays) of any family: the family's port tree (`lm_params`,
+    `rwkv6_params`, `rglru_params`) with every leaf in
     fp32, the reference's own masters, which each use casts to cfg.dtype."""
     return _FAMILY_PARAMS[cfg.family](dataclasses.replace(cfg, dtype="float32"),
                                       params, device)

@@ -1,4 +1,5 @@
-"""float32 transcendentals that give the reference's bits.
+"""float32 transcendentals that give the reference's bits (`log_f32`), or
+come within a few ulps of them (`erf_inv_f32`).
 
 The reference computes float32 `jnp.log` through XLA, whose CPU backend
 expands it into its own polynomial (Cephes style) with the multiply-adds
@@ -68,3 +69,35 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     q = _fma(p, y3, e * _LN2_LO)     # the product rounded to float32 first
     r = _fma(y2, -0.5, y)
     return _fma(e, _LN2_HI, r + q)
+
+
+# XLA's float32 erf_inv (Giles' single-precision approximation): Horner
+# coefficients, highest first, for w = -log1p(-x²) < 5 (in w - 2.5) and
+# w >= 5 (in sqrt(w) - 3)
+_ERF_INV_SMALL = tuple(float(np.float32(c)) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+    -0.00125372503, -0.00417768164, 0.246640727, 1.50140941))
+_ERF_INV_LARGE = tuple(float(np.float32(c)) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+    -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 erf⁻¹ of x in (-1, 1), XLA's expansion (`jax.lax.erf_inv`):
+    w = -log1p(-x²), a degree-8 polynomial in w - 2.5 or sqrt(w) - 3, times
+    x; ±1 give ±inf. Horner's steps are fused multiply-adds (`_fma`), as
+    XLA's CPU backend contracts them; its log1p is torch's. Within 3 ulps
+    of `jax.random.normal`'s draws over 2^20 of them (CHANGES.md). Any
+    device."""
+    x = x.to(torch.float32)
+    w = -torch.log1p(x * -x)
+    small = w < 5.0
+    t = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(small, _ERF_INV_SMALL[i], _ERF_INV_LARGE[i])
+
+    p = coef(0)
+    for i in range(1, len(_ERF_INV_SMALL)):
+        p = _fma(p, t, coef(i))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)

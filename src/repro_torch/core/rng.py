@@ -28,6 +28,7 @@ functions work on Python ints.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -99,6 +100,20 @@ def uniform(key, n: int, device) -> torch.Tensor:
     as `random_bits`'s."""
     bits = (random_bits(key, n, device) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def normal(key, n: int, device) -> torch.Tensor:
+    """float32 draws of ``jax.random.normal(key, (n,))``: a uniform on
+    (nextafter(-1, 0), 1) — `uniform`'s draw times 2 plus the lower bound,
+    clamped to it — then sqrt(2)·erf⁻¹ (`f32math.erf_inv_f32`, within 3
+    ulps of XLA's), shaped as `random_bits`'s. A draw of shape (a, b, ...)
+    is this one's n = a·b·... values in row-major order."""
+    from .f32math import erf_inv_f32
+
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    # maxval - minval is 2 - 2^-24, 2.0 in float32
+    u = torch.clamp(uniform(key, n, device) * 2.0 + lo, min=lo)
+    return erf_inv_f32(u) * float(np.float32(np.sqrt(2.0)))
 
 
 def randint(key, n: int, minval: int, maxval: int, device) -> torch.Tensor:

@@ -26,7 +26,10 @@ rwkv head dim of 16 (rwkv6-1.6b), head dim 16 (recurrentgemma-9b) or 32
 (qwen2-moe), which the CUDA attention and `wkv6` kernels (head dims 64, 128
 and 256; `wkv6` 64) refuse: use it with `--device cpu`. At full size
 qwen2-moe-a2.7b (15.1 B parameters in the tree, ~30 GB in bf16) fits one
-80 GB card; phi3.5-moe-42b-a6.6b (~84 GB) does not.
+80 GB card; phi3.5-moe-42b-a6.6b (~84 GB) does not. llava-next-mistral-7b
+serves the text alone, without prefix embeddings, as the reference's
+launcher does; whisper-tiny is refused (its prefill needs frames, which
+the reference's serving loop does not pass: ROADMAP Queue 3).
 """
 
 from __future__ import annotations

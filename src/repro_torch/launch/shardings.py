@@ -23,10 +23,12 @@ Rules are the reference's `_PARAM_RULES`, unchanged, matched against each
 leaf's path *in the reference's tree*. The reference stacks its layers
 (`layers/attn/wq/w` has a leading n_layers dim; the RG-LRU hybrid's
 `rec/...` and `attn/...` have two stack dims, (n_groups, per_group), and
-its remainder layers are `rem/<j>/...` unstacked); the port keeps one dict
-a layer (`layers/<i>/...`). So `reference_path` maps a port path to the
-reference's (the leaf correspondence `convert.lm_params`, `rwkv6_params`
-and `rglru_params` use), the rule gives the reference's spec, and its
+its remainder layers are `rem/<j>/...` unstacked; the encoder-decoder's
+two stacks are `encoder/layers/...` and `decoder/layers/...`); the port
+keeps one dict a layer (`layers/<i>/...`, `encoder/layers/<i>/...`). So
+`reference_path` maps a port path to the reference's (the leaf
+correspondence `convert.lm_params`, `rwkv6_params` and `rglru_params`
+use), the rule gives the reference's spec, and its
 leading stack-dim entries (always None) are dropped: the anchored rules
 (`^layers/u$`, the hybrid's `rec/.*out$` that its remainder layers do not
 match) give exactly the reference's specs.
@@ -129,12 +131,12 @@ def reference_path(path: str, cfg=None) -> tuple:
     """(the reference's path of the port's leaf `path`, the number of stack
     dims the reference's leaf has in front of the port's). The hybrid's
     layout needs `cfg` (its pattern and depth)."""
-    m = re.match(r"^layers/(\d+)/(.*)$", path)
+    m = re.match(r"^((?:encoder/|decoder/)?)layers/(\d+)/(.*)$", path)
     if m is None:
         return path, 0
-    i, rest = int(m.group(1)), m.group(2)
+    stack, i, rest = m.group(1), int(m.group(2)), m.group(3)
     if cfg is None or cfg.family != "hybrid":
-        return f"layers/{rest}", 1
+        return f"{stack}layers/{rest}", 1
     p = len(cfg.pattern)
     n_full = cfg.n_layers // p * p
     if i >= n_full:

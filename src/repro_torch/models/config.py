@@ -3,10 +3,9 @@
 
 One frozen dataclass describes every family (dense / MoE / SSM / hybrid /
 enc-dec / VLM); the per-arch instances live in `repro_torch.configs.<id>`
-and are resolved by `repro_torch.models.registry`. The port serves the
-dense, moe (qwen2-moe, phi3.5-moe), ssm (rwkv6) and hybrid (recurrentgemma)
-families; the other fields are kept so configurations carry across
-unchanged.
+and are resolved by `repro_torch.models.registry`. The port serves every
+family: dense, moe (qwen2-moe, phi3.5-moe), ssm (rwkv6), hybrid
+(recurrentgemma), vlm (llava) and encdec (whisper).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Building blocks of the serving paths (dense transformer, rwkv6 and the
-RG-LRU hybrid), in torch.
+"""Building blocks of the serving paths (the transformer and its
+encoder-decoder, rwkv6 and the RG-LRU hybrid), in torch.
 
 Mirrors `repro.models.layers` function by function, with two differences
 of form:
@@ -11,8 +11,10 @@ of form:
     (no copy, no op); norm scales and biases stay fp32, as the reference
     multiplies and adds them in fp32;
   * attention runs through the hand-written kernels (`kernels.ops`):
-    `flash_attention` for prefill, `decode_attention` for decode, which on
-    CPU tensors run their plain versions. Keys and values come back in the
+    `flash_attention` for prefill (cross-attention: the text's queries
+    against the encoder's frames, not causal), `decode_attention` for
+    decode (cross-attention: over all the frames), which on CPU tensors
+    run their plain versions. Keys and values come back in the
     kernels' layout (B, KV, S, hd), which is also the KV cache's layout.
     With a sliding window the cache is a ring of T = min(cache_len,
     window) slots (`ring_len`): position p lives in slot p % T.
@@ -24,9 +26,11 @@ the reference leaves them to XLA.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -108,30 +112,32 @@ class AttnDims:
 
 
 def attention_apply(params, dims: AttnDims, x, rope_theta: Optional[float],
-                    causal: bool = True, window: Optional[int] = None):
-    """Self-attention block body over positions 0..S-1 (no norm/residual):
-    projections, RoPE and `kernels.ops.flash_attention`.
+                    causal: bool = True, window: Optional[int] = None, kv_x=None):
+    """Attention block body over positions 0..S-1 (no norm/residual):
+    projections, RoPE (None: none) and `kernels.ops.flash_attention`.
 
-    x: (B, S, D). Returns (out (B, S, D), (k, v)) with k, v of shape
-    (B, KV, S, hd) — the rotated keys and the values, in the cache layout.
-    The kernel takes query and key positions from 0, so this is prefill
-    from an empty cache (the reference's `attention_apply` with
-    q_pos = k_pos = arange(S) and kv_x = x). On DTensors (the sharded train
-    step) RoPE and the kernel run on each rank's local batch rows and heads
-    (`local_shards`).
+    x: (B, S, D); kv_x: (B, F, D), the encoder's states for cross-attention
+    (not causal, no RoPE), or None for self-attention over x. Returns
+    (out (B, S, D), (k, v)) with k, v of shape (B, KV, F, hd) — the
+    rotated keys and the values, in the cache layout. The kernel takes
+    query and key positions from 0, so this is prefill from an empty cache
+    (the reference's `attention_apply` with q_pos = arange(S), k_pos =
+    arange(F)). On DTensors (the sharded train step) RoPE and the kernel
+    run on each rank's local batch rows and heads (`local_shards`).
     """
     B, S, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    Sk = kv_x.shape[1]
     H, KV, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     q = dense(params["wq"], x).view(B, S, H, hd)
-    k = dense(params["wk"], x).view(B, S, KV, hd)
-    v = dense(params["wv"], x).view(B, S, KV, hd)
+    k = dense(params["wk"], kv_x).view(B, Sk, KV, hd)
+    v = dense(params["wv"], kv_x).view(B, Sk, KV, hd)
 
     def core(q, k, v):
         b, s, h, kv = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
         if rope_theta is not None:
-            pos = torch.arange(s, device=q.device)
-            q = apply_rope(q, pos, rope_theta)
-            k = apply_rope(k, pos, rope_theta)
+            q = apply_rope(q, torch.arange(s, device=q.device), rope_theta)
+            k = apply_rope(k, torch.arange(k.shape[1], device=q.device), rope_theta)
         qg = q.view(b, s, kv, h // kv, hd).permute(0, 2, 3, 1, 4).contiguous()
         k = k.permute(0, 2, 1, 3).contiguous()
         v = v.permute(0, 2, 1, 3).contiguous()
@@ -299,6 +305,7 @@ def attention_decode(params, dims: AttnDims, x, cache_k, cache_v, pos,
     ring of T = min(cache_len, window) slots it is the same set of
     positions as the reference's window mask, pos - window < p <= pos, in
     slot order rather than position order (softmax does not care).
+    `rope_theta` None: no RoPE (the reference's `rope = None`).
     Returns (out (B, 1, D), cache_k, cache_v).
     """
     B = x.shape[0]
@@ -319,11 +326,51 @@ def attention_decode(params, dims: AttnDims, x, cache_k, cache_v, pos,
     return dense(params["wo"], o.reshape(B, 1, H * hd)), cache_k, cache_v
 
 
+def cross_attention_decode(params, dims: AttnDims, x, xk, xv):
+    """One query step of cross-attention against the encoder's keys and
+    values, xk and xv (B, KV, F, hd): the query projected from x (B, 1, D),
+    every one of the F frames visible (`kernels.ops.decode_attention` with
+    lengths F; the reference's `mha(..., causal=False)` over all frames).
+    Returns (B, 1, D)."""
+    B, F_ = x.shape[0], xk.shape[2]
+    H, KV, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    q = dense(params["wq"], x).view(B, KV, H // KV, hd)
+    lengths = torch.full((B,), F_, dtype=torch.int32, device=x.device)
+    o = ops.decode_attention(q, xk, xv, lengths)
+    return dense(params["wo"], o.reshape(B, 1, H * hd))
+
+
 # --------------------------------------------------------------------------- #
-# MLP (swiglu)
+# MLPs: swiglu, or gelu with biases (the reference's `mlp_apply`)
 # --------------------------------------------------------------------------- #
-def mlp_apply(params, x):
-    return dense(params["wd"], F.silu(dense(params["wg"], x)) * dense(params["wu"], x))
+def mlp_apply(params, x, act: str = "swiglu"):
+    """swiglu: wd(silu(wg x) * wu x); any other `act` is the reference's
+    gelu MLP, wd(gelu(wu x + b) + b), gelu the tanh approximation that
+    `jax.nn.gelu` defaults to, in x's type."""
+    if act == "swiglu":
+        return dense(params["wd"], F.silu(dense(params["wg"], x)) * dense(params["wu"], x))
+    return dense(params["wd"], F.gelu(dense(params["wu"], x), approximate="tanh"))
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (n, d) float32: the
+    reference's float64 numpy table, cast once (bit-equal to it)."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / d)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
+
+
+# rows of the table decode takes its positions from (the reference's T_abs)
+SINUSOID_ROWS = 8192
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_table(n: int, d: int, device) -> torch.Tensor:
+    """`sinusoidal_positions(n, d)` on `device`, made once: decode adds a
+    row of the SINUSOID_ROWS-row table every step."""
+    return sinusoidal_positions(n, d, device)
 
 
 # --------------------------------------------------------------------------- #

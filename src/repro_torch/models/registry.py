@@ -4,8 +4,9 @@ the architectures the port serves.
 Mirrors `repro.models.registry`: `ModelFns` (init, loss_fn, prefill,
 decode_step, in the reference's field order), `get_config`, `get_fns`,
 `list_archs` and `reduced` (copied verbatim, so tests shrink a config
-exactly as the reference does). An architecture or family the port does not serve yet
-raises `NotImplementedError` naming its ROADMAP item.
+exactly as the reference does). Every architecture and family of the
+reference is served: `_ARCH_ITEMS` and `_FAMILY_ITEMS`, which map one the
+port does not serve to its ROADMAP item, are empty.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import dataclasses
 import importlib
 from typing import Callable, NamedTuple
 
-from . import rglru, rwkv6, transformer
+from . import encdec, rglru, rwkv6, transformer
 from .config import ModelConfig
 
 
@@ -31,11 +32,15 @@ _FAMILY_FNS = {
     "moe": ModelFns(transformer.init, transformer.loss_fn,
                     transformer.prefill, transformer.decode_step),
     "ssm": ModelFns(rwkv6.init, rwkv6.loss_fn, rwkv6.prefill, rwkv6.decode_step),
+    "vlm": ModelFns(transformer.init, transformer.loss_fn,
+                    transformer.prefill, transformer.decode_step),
     "hybrid": ModelFns(rglru.init, rglru.loss_fn, rglru.prefill,
                        rglru.decode_step),
+    "encdec": ModelFns(encdec.init, encdec.loss_fn, encdec.prefill,
+                       encdec.decode_step),
 }
 # families of the reference not served yet → ROADMAP Queue 1 item
-_FAMILY_ITEMS = {"vlm": "15.5", "encdec": "15.6"}
+_FAMILY_ITEMS: dict[str, str] = {}
 
 ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
@@ -46,12 +51,11 @@ ARCH_MODULES = {
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "yi-34b": "repro_torch.configs.yi_34b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
-# the reference's other architectures → ROADMAP Queue 1 item
-_ARCH_ITEMS = {
-    "llava-next-mistral-7b": "15.5",
-    "whisper-tiny": "15.6",
-}
+# the reference's architectures not served yet → ROADMAP Queue 1 item
+_ARCH_ITEMS: dict[str, str] = {}
 
 
 def list_archs() -> list[str]:

@@ -45,7 +45,7 @@ from ..kernels import ops
 from . import layers as L
 from . import remat as remat_lib
 from .config import ModelConfig
-from .transformer import not_ported, resolve_device
+from .transformer import resolve_device
 
 
 def _lru_width(cfg: ModelConfig) -> int:
@@ -68,7 +68,10 @@ def check_config(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.n_layers} layers hold no whole group of the "
                          f"pattern {cfg.pattern}")
     if cfg.rope_theta <= 0:
-        raise not_ported("sinusoidal positions", "15.6")
+        # the reference's hybrid has no sinusoidal positions: it passes
+        # rope_theta to `apply_rope` as it is, where 0 makes 1/0 frequencies
+        raise ValueError(f"rope_theta {cfg.rope_theta}: the hybrid family rotates "
+                         f"its queries and keys by RoPE and needs rope_theta > 0")
 
 
 # --------------------------------------------------------------------------- #

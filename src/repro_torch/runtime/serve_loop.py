@@ -133,7 +133,8 @@ def serve_requests(arch_cfg, params, serve_cfg: ServeConfig, prompts,
     """
     dev = resolve_device(device)
     fns = fns or registry.get_fns(arch_cfg)
-    table = params["embed"]["table"]
+    # the encoder-decoder's embedding lies in its decoder's tree
+    table = params.get("decoder", params)["embed"]["table"]
     if table.device.type != dev.type:
         raise ValueError(f"params lie on {table.device}, serving on {dev}")
     tokens = torch.as_tensor(prompts).to(device=dev, dtype=torch.long)

@@ -28,6 +28,7 @@ does.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -35,11 +36,10 @@ import torch
 
 from .. import core
 from ..checkpoint import Checkpointer
-from ..core import balancer
+from ..core import balancer, rng
 from ..data import packing, synthetic
 from ..models import layers as L
 from ..models import registry
-from ..models.transformer import not_ported
 from ..optim import adamw
 
 
@@ -185,17 +185,30 @@ def train(arch: str, train_cfg: TrainConfig, opt_cfg: adamw.AdamWConfig,
 
 def _make_batch(model_cfg, data_cfg, step: int, train_cfg: TrainConfig, device="cpu"):
     """The step's batch on `device`: {tokens (B, S) int64, loss_mask (B, S)
-    fp32} from the synthetic corpus, or from `balance_packed_batch`."""
-    if model_cfg.family == "vlm":
-        raise not_ported("VLM prefix embeddings in training batches", "15.5")
-    if model_cfg.family == "encdec":
-        raise not_ported("encoder-decoder frames in training batches", "15.6")
+    fp32} from the synthetic corpus, or from `balance_packed_batch`; the
+    VLM family adds `prefix_embeds` and the encoder-decoder `frames`
+    (`frontend_inputs` from the data seed), as the reference's does."""
     d = synthetic.token_batch(
         dataclasses.replace(data_cfg, vocab=model_cfg.vocab), 0, 1, step)
     if train_cfg.balance_tokens:
         d = balance_packed_batch(model_cfg, data_cfg, step, train_cfg, device)
-    return {"tokens": torch.as_tensor(d["tokens"], device=device).long(),
-            "loss_mask": torch.as_tensor(d["loss_mask"], device=device)}
+    batch = {"tokens": torch.as_tensor(d["tokens"], device=device).long(),
+             "loss_mask": torch.as_tensor(d["loss_mask"], device=device)}
+    return dict(batch, **frontend_inputs(model_cfg, batch["tokens"].shape[0],
+                                         data_cfg.seed, step, device))
+
+
+def frontend_inputs(model_cfg, batch: int, seed: int, step: int, device="cpu") -> dict:
+    """The stub frontend's output of a step: a VLM's `prefix_embeds` or an
+    encoder-decoder's `frames`, (batch, n_frontend_tokens, d_model) fp32,
+    normal · 0.02 from fold_in(PRNGKey(seed), step) (`core.rng.normal`:
+    the reference's `jax.random.normal` draw); {} for the other families."""
+    name = {"vlm": "prefix_embeds", "encdec": "frames"}.get(model_cfg.family)
+    if name is None:
+        return {}
+    shape = (batch, model_cfg.n_frontend_tokens, model_cfg.d_model)
+    key = rng.fold_in(rng.PRNGKey(seed), step)
+    return {name: (rng.normal(key, math.prod(shape), device) * 0.02).view(shape)}
 
 
 def balance_packed_batch(model_cfg, data_cfg, step: int, train_cfg: TrainConfig,

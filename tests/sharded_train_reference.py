@@ -32,7 +32,8 @@ DATA = dict(seq_len=32, global_batch=8)
 # name -> (architecture, micro-batches, remat)
 CASES = {"plain": (ARCH, 1, "none"), "mb2-full": (ARCH, 2, "full"),
          "rwkv6": ("rwkv6-1.6b", 1, "none"), "hybrid": ("recurrentgemma-9b", 1, "none"),
-         "moe": ("qwen2-moe-a2.7b", 1, "none")}
+         "moe": ("qwen2-moe-a2.7b", 1, "none"), "vlm": ("llava-next-mistral-7b", 1, "none"),
+         "encdec": ("whisper-tiny", 1, "none")}
 DEVICES = 4
 
 

@@ -135,3 +135,26 @@ def test_fully_masked_rows_give_zero():
     assert torch.all(got[..., 109:, :] == 0)
     assert torch.all(got[..., :109, :].float().abs().sum(-1) > 0)
     assert torch.equal(got[..., 109:, :], ref.flash_attention(q, k, k, window=50)[..., 109:, :])
+
+
+@pytest.mark.parametrize("Sq,Sk", [(64, 384), (37, 250)])
+def test_cross_attention_order_matches_plain_and_pallas(Sq, Sk):
+    """Cross-attention's shape (whisper's decoder: Sq text positions against
+    Sk encoder frames, not causal, head dim 64, G 1), aligned and ragged:
+    the kernel's order against both yardsticks."""
+    rs = np_rng(1503 + Sq)
+    B, KV, G, hd = 2, 3, 1, 64
+    q = rs.standard_normal((B, KV, G, Sq, hd)) * 2
+    k = rs.standard_normal((B, KV, Sk, hd))
+    v = rs.standard_normal((B, KV, Sk, hd))
+    qt, kt, vt = (torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
+                  for a in (q, k, v))
+    got = emulate_kernel(qt, kt, vt, False, 0)
+    assert got.shape == qt.shape
+    _close(ref.flash_attention(qt, kt, vt, causal=False).float(), got,
+           "vs the plain version")
+    qj, kj, vj = (jnp.asarray(a, jnp.float32).astype(jnp.bfloat16) for a in (q, k, v))
+    pallas = rops.flash_attention(qj, kj, vj, causal=False, window=0,
+                                  block_q=_pallas_block(Sq, KEY_TILE[hd]),
+                                  block_k=_pallas_block(Sk, KEY_TILE[hd]))
+    _close(np.asarray(pallas, np.float32), got, "vs the Pallas kernel")

@@ -3,8 +3,8 @@
 field against the reference's; `SHAPES`, `TRAIN_MICROBATCHES`,
 `runnable`, `cases`, `shape_overrides`, `input_specs` and
 `cache_specs_abstract` against `repro.launch.shapes` for every
-architecture and shape (the VLM and encoder-decoder branches on their
-config objects, whose families the port does not serve yet); and the
+architecture and shape (the VLM and encoder-decoder branches included);
+and the
 fields new to the port's dense path — granite's tied 49,155-token vocabulary,
 yi's rope_theta 5e6 and mistral's 1e6, GQA groups 4, 7 and 12 at head dim
 128 — through prefill and decode against `repro.models.transformer`, with
@@ -27,7 +27,6 @@ import torch
 from torch_parity import as_np, assert_same, np_rng
 from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
-from repro.configs import llava_next_mistral_7b, whisper_tiny
 from repro.launch import shapes as rshapes
 from repro.models import registry as rreg
 from repro.models import transformer as rtf
@@ -35,28 +34,16 @@ from repro_torch import convert
 from repro_torch.launch import shapes as pshapes
 from repro_torch.models import registry as preg
 from repro_torch.models import transformer as ptf
-from repro_torch.models.config import ModelConfig, MoEConfig
 
 torch.set_num_threads(1)
 NEW = ("granite-3-8b", "yi-34b", "mistral-large-123b")
 KV_LEAVES = ("k", "v", "xk", "xv")
 
 
-def _port_cfg(rc) -> ModelConfig:
-    """The port's ModelConfig with the reference config's fields."""
-    f = dataclasses.asdict(rc)
-    if f["moe"] is not None:
-        f["moe"] = MoEConfig(**f["moe"])
-    return ModelConfig(**f)
-
-
 def _pairs():
-    """(reference cfg, port cfg) of every served architecture and of the
-    two the port does not serve yet (VLM, encoder-decoder)."""
-    out = [(rreg.get_config(a), preg.get_config(a)) for a in preg.list_archs()]
-    for mod in (llava_next_mistral_7b, whisper_tiny):
-        out.append((mod.CONFIG, _port_cfg(mod.CONFIG)))
-    return out
+    """(reference cfg, port cfg) of every architecture, the VLM and the
+    encoder-decoder included."""
+    return [(rreg.get_config(a), preg.get_config(a)) for a in preg.list_archs()]
 
 
 @pytest.mark.parametrize("arch", NEW)

@@ -34,6 +34,7 @@ from repro.models import transformer as rtf
 from repro.runtime import serve_loop as rserve
 from repro_torch import convert
 from repro_torch.core import balancer as pbal
+from repro_torch.models import encdec as pencdec
 from repro_torch.models import layers as pL
 from repro_torch.models import registry as preg
 from repro_torch.models import rglru as prglru
@@ -72,14 +73,14 @@ def test_config_and_registry_mirror_reference():
     assert full_p.n_params() == full_r.n_params()
     assert preg.list_archs() == ["qwen2-0.5b", "rwkv6-1.6b", "recurrentgemma-9b",
                                  "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
-                                 "mistral-large-123b", "granite-3-8b", "yi-34b"]
-    assert set(preg._ARCH_ITEMS) | set(preg.list_archs()) == set(rreg.list_archs())
-    for arch in preg._ARCH_ITEMS:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 15\.\d"):
-            preg.get_config(arch)
+                                 "mistral-large-123b", "granite-3-8b", "yi-34b",
+                                 "llava-next-mistral-7b", "whisper-tiny"]
+    # every architecture and family of the reference is served
+    assert set(preg.list_archs()) == set(rreg.list_archs())
+    assert preg._ARCH_ITEMS == {} and preg._FAMILY_ITEMS == {}
     for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item 15\.\d"):
-            preg.get_fns(dataclasses.replace(full_p, family=family))
+        fns = preg.get_fns(dataclasses.replace(full_p, family=family))
+        assert fns.prefill is (pencdec.prefill if family == "encdec" else ptf.prefill)
     # the hybrid family is served (recurrentgemma, `models.rglru`), and the
     # MoE family by the transformer (test_torch_moe_serve.py)
     assert preg.get_fns(dataclasses.replace(full_p, family="hybrid")).prefill is prglru.prefill
@@ -87,28 +88,46 @@ def test_config_and_registry_mirror_reference():
 
 
 @pytest.mark.parametrize("change,error", [
-    ({"cross_attention": True}, NotImplementedError),
-    ({"act": "gelu"}, NotImplementedError), ({"rope_theta": 0.0}, NotImplementedError),
+    ({"cross_attention": True}, ValueError),
+    ({"act": "gelu"}, None), ({"rope_theta": 0.0}, None),
     ({"pattern": ("rec", "attn")}, ValueError)])
 def test_unported_configs_raise(change, error):
-    """What the port does not serve names its ROADMAP item; a block pattern
-    with recurrent layers is not the dense family's (the hybrid family,
-    test_torch_recurrentgemma.py, serves it). A sliding window is served:
-    `test_windowed_dense_matches_reference`; so is layernorm
-    (phi3.5-moe, test_torch_moe_serve.py)."""
+    """The dense transformer computes what the reference's does: the gelu
+    MLP (wu, wd with biases, no wg) and sinusoidal positions (rope_theta <=
+    0) at the reference's values (test_torch_encdec.py holds them), and
+    cross-attention layers (lnx, xattn), whose forward needs the encoder's
+    states; a block pattern with recurrent layers is not the dense
+    family's (the hybrid family, test_torch_recurrentgemma.py, serves it).
+    A sliding window is served: `test_windowed_dense_matches_reference`; so
+    is layernorm (phi3.5-moe, test_torch_moe_serve.py)."""
     cfg = dataclasses.replace(preg.reduced(preg.get_config("qwen2-0.5b")), **change)
-    match = r"Queue 1 item 15\.\d" if error is NotImplementedError else "hybrid"
-    with pytest.raises(error, match=match):
-        ptf.init(cfg, device="cpu")
+    if "pattern" in change:
+        with pytest.raises(ValueError, match="hybrid"):
+            ptf.init(cfg, device="cpu")
+        return
+    params = ptf.init(cfg, device="cpu")
+    layer = params["layers"][0]
+    assert ("lnx" in layer and "xattn" in layer) == cfg.cross_attention
+    assert set(layer["mlp"]) == ({"wu", "wd"} if cfg.act == "gelu" else {"wg", "wu", "wd"})
+    assert ("b" in layer["mlp"]["wu"]) == (cfg.act == "gelu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    if error is not None:
+        with pytest.raises(error, match="enc_out"):
+            ptf.forward(params, cfg, tokens)
+        return
+    assert tuple(ptf.forward(params, cfg, tokens).shape) == (1, 4, cfg.vocab)
 
 
 def test_unported_inputs_raise(model):
+    """A prefix and prompt past the cache without a window, which the
+    reference writes as a ring, is refused as a prompt past the cache is
+    (ROADMAP Queue 3); so is an unknown MLP activation."""
     _, _, pc, pp = model
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="15.5"):
-        ptf.prefill(pp, pc, tokens, 8, prefix_embeds=torch.zeros(1, 2, pc.d_model))
-    with pytest.raises(NotImplementedError, match="15.6"):
-        ptf.forward(pp, pc, tokens, enc_out=torch.zeros(1, 2, pc.d_model))
+    with pytest.raises(ValueError, match="exceeds cache_len"):
+        ptf.prefill(pp, pc, tokens, 5, prefix_embeds=torch.zeros(1, 2, pc.d_model))
+    with pytest.raises(ValueError, match="act"):
+        ptf.forward(pp, dataclasses.replace(pc, act="relu"), tokens)
 
 
 def test_norm_and_rope_match_reference():

@@ -11,10 +11,10 @@ moments and the batch as DTensors) against the reference's
     the reference's initial parameters (`convert.master_params`).
   * The 1 x 1 mesh (one process) against the unsharded `make_train_step`,
     and the launcher on it with a checkpoint and a restart.
-  * Every family the port trains: the dense qwen2 (one micro-batch, and
-    two with full remat), rwkv6, the RG-LRU hybrid and the qwen2-moe MoE;
-    the VLM and encoder-decoder families raise `NotImplementedError`
-    naming their ROADMAP items (15.5, 15.6).
+  * Every family: the dense qwen2 (one micro-batch, and two with full
+    remat), rwkv6, the RG-LRU hybrid, the qwen2-moe MoE, the VLM (llava,
+    with its prefix embeddings) and the encoder-decoder (whisper, with its
+    frames).
 
 Tolerances: every step's loss within rtol 1e-5 (tests/test_torch_train.py's);
 AdamW's first moment after the first step, (1 - b1)·g, within 2e-5 ·
@@ -23,7 +23,10 @@ after steps 2 and 3 and the parameters after 3 steps within a few times
 the worst gap measured on the CPU (`LIMITS`): Adam's step is ~lr·g/|g|, so
 where |g| is within a few eps of 0 the gradients' last-bit differences
 move a parameter by a share of lr, and the gradients of the later steps
-see those parameters. Every leaf's placements equal its spec's before and
+see those parameters. A leaf whose gradient is zero in exact arithmetic
+(`ZERO_GRAD`: the encoder-decoder's key biases, which softmax cancels
+without RoPE) has moments of rounding noise alone, so its scale is the
+case's largest leaf. Every leaf's placements equal its spec's before and
 after the steps.
 """
 
@@ -62,7 +65,14 @@ LOSS_RTOL, GRAD_RTOL = 1e-5, 2e-5
 # the worst gaps measured here (first moments 2.0e-6 - 5.2e-5, parameters
 # 7.2e-4 - 2.9e-3; rwkv6 and the hybrid the largest)
 LIMITS = {"plain": (2e-5, 3e-3), "mb2-full": (1e-5, 3e-3), "rwkv6": (5e-5, 1e-2),
-          "hybrid": (2e-4, 1e-2), "moe": (4e-5, 3e-3)}
+          "hybrid": (2e-4, 1e-2), "moe": (4e-5, 3e-3),
+          # 5.2x and 4.5x / 5.2x the gaps measured here (vlm 5.8e-6, 4.5e-4;
+          # encdec 2.9e-6, 2.9e-4)
+          "vlm": (3e-5, 2e-3), "encdec": (1.5e-5, 1.5e-3)}
+# leaves whose gradient is zero in exact arithmetic, by case: a key bias
+# without RoPE, which softmax cancels (its moments are rounding noise of
+# ~1e-14); their moments are held against the case's largest leaf
+ZERO_GRAD = {"encdec": "wk/b"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -127,10 +137,12 @@ def test_sharded_step_equals_reference(runs, case):
     for what in [f"m{s}" for s in range(sr.STEPS)] + ["p"]:
         want = sh.named_leaves(_port_tree(ref, case, what))
         assert len(want) == len([k for k in port if k.startswith(f"{case}/{what}/")])
+        big = max(float(w.abs().max()) for _, w in want)
         for path, w in want:
             got, w = port[f"{case}/{what}/{path}"], w.numpy()
-            tol = (GRAD_RTOL * float(np.abs(w).max()) if what == "m0"
-                   else m_rtol * float(np.abs(w).max()) if what != "p"
+            zero = case in ZERO_GRAD and path.endswith(ZERO_GRAD[case])
+            scale = big if zero else float(np.abs(w).max())
+            tol = (GRAD_RTOL * scale if what == "m0" else m_rtol * scale if what != "p"
                    else p_share * sum_lr)
             np.testing.assert_allclose(got, w, rtol=0, atol=tol, err_msg=f"{what} {path}")
 
@@ -190,12 +202,28 @@ def test_launcher_on_one_by_one_mesh(one_rank, tmp_path):
     assert ptl.Checkpointer(str(tmp_path)).all_steps() == [3, 4, 6]
 
 
-@pytest.mark.parametrize("family,item", [("vlm", "15.5"), ("encdec", "15.6")])
-def test_unported_families_name_their_item(family, item):
-    cfg = dataclasses.replace(sr.port_cfg(), family=family)
-    mesh = pmesh.MeshShape.of((1, 1), pmesh.SINGLE_AXES)
-    with pytest.raises(NotImplementedError, match=rf"Queue 1 item {item}"):
-        plt.build_sharded_train(sr.ARCH, mesh, model_cfg=cfg)
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-tiny"])
+def test_unported_families_name_their_item(one_rank, arch):
+    """The VLM and encoder-decoder families build on a mesh and step there
+    as the unsharded step does (on the 1 x 1 mesh: equal; on 2 x 2, cases
+    "vlm" and "encdec" of `test_sharded_step_equals_reference`)."""
+    cfg = sr.port_cfg(arch)
+    fns = preg.get_fns(cfg)
+    opt_cfg = padam.AdamWConfig(**sr.OPT)
+    _, step_fn, _ = plt.build_sharded_train(arch, one_rank, model_cfg=cfg, opt_cfg=opt_cfg)
+    params = fns.init(cfg, seed=0, device="cpu", masters=True)
+    opt = padam.init(params)
+    sp, so = plt.build_sharded_train(arch, one_rank, model_cfg=cfg, opt_cfg=opt_cfg)[0](
+        state=padam.tree_map(lambda t: t.clone(), (params, opt)))
+    step = ptl.make_train_step(cfg, fns, opt_cfg)
+    batch = ptl._make_batch(cfg, synthetic.DataConfig(vocab=cfg.vocab, **sr.DATA), 0,
+                            ptl.TrainConfig())
+    params, opt, m = step(params, opt, batch)
+    sp, so, ms = step_fn(sp, so, batch)
+    np.testing.assert_allclose(float(ms["loss"].full_tensor()), float(m["loss"]), rtol=1e-6)
+    for a, b in zip(padam.leaves((params, opt)), padam.leaves((sp, so))):
+        np.testing.assert_allclose(b.full_tensor().detach().numpy(), a.detach().numpy(),
+                                   rtol=0, atol=1e-6)
 
 
 def test_training_needs_a_card_by_default():
