@@ -18,6 +18,17 @@ and returns its gradients — the reference has no backward Pallas kernel
 (XLA differentiates its kernels' oracles), and the recompute holds one
 call's intermediates at a time. Without such an input a wrapper runs as
 it always did.
+
+The meta device (`launch.dryrun`): the four model kernels
+(`flash_attention`, `decode_attention`, `wkv6`, `rglru`) take meta tensors
+too, through custom operators (`torch.library.custom_op`, namespace
+``repro_torch``) whose fake implementation gives the kernel's outputs,
+shapes and types alone, with no intermediate (the plain attention would
+make an Sq x Sk score matrix, which the kernel never holds), and whose FLOP
+formula (`torch.utils.flop_counter.register_flop_formula`) states the work
+the kernel does (`flash_work` and the others); the two scans' backward is
+one such operator too (`_meta_grads`). They are defined at the first meta
+call, count no launch, and are never reached on the CPU or the card.
 """
 
 from __future__ import annotations
@@ -137,6 +148,8 @@ class _Wkv6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_state):
+        if g_out is not None and g_out.device.type == "meta":
+            return _meta_grads(ctx, "wkv6", g_out)
         return _plain_grads(ctx, ref.wkv6, (g_out, g_state))
 
 
@@ -149,7 +162,134 @@ class _Rglru(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_h, g_last):
+        if g_h is not None and g_h.device.type == "meta":
+            return _meta_grads(ctx, "rglru", g_h)
         return _plain_grads(ctx, ref.rglru, (g_h, g_last))
+
+
+def _meta_grads(ctx, name: str, g):
+    """The scans' gradients on the meta device (the dry run): one custom
+    operator (`<name>_grads`) of the inputs' shapes, counted at twice the
+    forward's FLOPs (`wkv6_work`, `rglru_work`). The card recomputes the
+    plain version under autograd, a sequential scan of S steps; counting
+    it op by op takes tens of minutes a cell."""
+    ins = [torch.empty(0, device="meta") if t is None else t for t in ctx.saved_tensors]
+    grads = _meta_ops()[f"{name}_grads"](*ins, g)
+    return tuple(gr if t is not None and need else None
+                 for gr, t, need in zip(grads, ctx.saved_tensors, ctx.needs_input_grad))
+
+
+# --------------------------------------------------------------------------- #
+# The meta path (`launch.dryrun`)
+# --------------------------------------------------------------------------- #
+def flash_work(B, KV, G, Sq, Sk, hd, causal, window) -> int:
+    """FLOPs of `flash_attention`: the QK and PV products, 4·hd a visible
+    (query, key) pair and query head. The kernel visits only the key tiles
+    inside the causal and window band (a tile wholly outside it is skipped,
+    `csrc/flash_attention.cu`), so its work is the visible pairs plus the
+    masked part of the tiles that straddle the band's edges, which this
+    count leaves out (the count of `chip_smoke.py`'s bound)."""
+    i = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=Sk) if causal else torch.full_like(i, Sk)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    pairs = int(torch.clamp(hi - lo, min=0).sum())
+    return 4 * hd * B * KV * G * pairs
+
+
+def decode_work(B, KV, G, T, hd) -> int:
+    """FLOPs of `decode_attention` over full caches of T positions (on the
+    meta device the lengths are not known): 4·hd a position and query
+    head."""
+    return 4 * hd * B * KV * G * T
+
+
+def wkv6_work(B, S, H, hd) -> int:
+    """FLOPs of `wkv6` as its sequence kernel takes the steps (`chip_smoke.
+    py`'s `_wkv6_work`): per (b, h) and quad of four steps 17·hd² + 71·hd,
+    per step left over 5·hd² + 8·hd."""
+    quads, single = divmod(S, 4)
+    return B * H * (quads * (17 * hd * hd + 71 * hd) + single * (5 * hd * hd + 8 * hd))
+
+
+def rglru_work(B, S, W) -> int:
+    """Operations of `rglru`: ~12 an element (`chip_smoke.py`'s
+    `_rglru_work`)."""
+    return 12 * B * S * W
+
+
+_META: dict = {}
+# name -> (schema, fake: the kernel's outputs from its inputs' shapes alone)
+_META_SCHEMAS = {
+    "flash_attention": ("(Tensor q, Tensor k, Tensor v, bool causal, int window) -> Tensor",
+                        lambda q, k, v, causal, window: torch.empty_like(q)),
+    "decode_attention": ("(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths) "
+                         "-> Tensor",
+                         lambda q, k_cache, v_cache, lengths: torch.empty_like(q)),
+    "wkv6": ("(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? state) "
+             "-> (Tensor, Tensor)",
+             lambda r, k, v, w, u, state: (
+                 r.new_empty(r.shape, dtype=torch.float32),
+                 r.new_empty((r.shape[0], r.shape[2], r.shape[3], r.shape[3]),
+                             dtype=torch.float32))),
+    "rglru": ("(Tensor x, Tensor r, Tensor i, Tensor lam, Tensor? h0) -> (Tensor, Tensor)",
+              lambda x, r, i, lam, h0: (
+                  x.new_empty(x.shape, dtype=torch.float32),
+                  x.new_empty((x.shape[0], x.shape[2]), dtype=torch.float32))),
+    # the backward of the two scans (`_meta_grads`): a gradient an input
+    "wkv6_grads": ("(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor state, "
+                   "Tensor g) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+                   lambda *ts: tuple(torch.empty_like(t) for t in ts[:-1])),
+    "rglru_grads": ("(Tensor x, Tensor r, Tensor i, Tensor lam, Tensor h0, Tensor g) "
+                    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+                    lambda *ts: tuple(torch.empty_like(t) for t in ts[:-1])),
+}
+
+
+def _meta_only(*args, **kwargs):
+    raise RuntimeError("repro_torch's meta operators take meta tensors only")
+
+
+def _meta_ops() -> dict:
+    """The four custom operators of the meta path, defined once a process
+    (a second copy of this module finds them defined), each with its fake
+    and its FLOP formula."""
+    if _META:
+        return _META
+    from torch.utils.flop_counter import register_flop_formula
+
+    ns = torch.ops.repro_torch
+    if not hasattr(ns, "flash_attention"):
+        for name, (schema, fake) in _META_SCHEMAS.items():
+            torch.library.custom_op(f"repro_torch::{name}", _meta_only, mutates_args=(),
+                                    schema=schema).register_fake(fake)
+
+        @register_flop_formula(ns.flash_attention)
+        def _(q, k, v, causal, window, *args, **kwargs):
+            B, KV, G, Sq, hd = q
+            return flash_work(B, KV, G, Sq, k[2], hd, causal, window)
+
+        @register_flop_formula(ns.decode_attention)
+        def _(q, k_cache, *args, **kwargs):
+            B, KV, G, hd = q
+            return decode_work(B, KV, G, k_cache[2], hd)
+
+        @register_flop_formula(ns.wkv6)
+        def _(r, *args, **kwargs):
+            return wkv6_work(*r)
+
+        @register_flop_formula(ns.rglru)
+        def _(x, *args, **kwargs):
+            return rglru_work(*x)
+
+        @register_flop_formula(ns.wkv6_grads)
+        def _(r, *args, **kwargs):
+            return 2 * wkv6_work(*r)
+
+        @register_flop_formula(ns.rglru_grads)
+        def _(x, *args, **kwargs):
+            return 2 * rglru_work(*x)
+    _META.update({name: getattr(ns, name) for name in _META_SCHEMAS})
+    return _META
 
 
 def steal_compact(buf, bot, size, grants, width: int = stealing.GRANT_WIDTH):
@@ -234,6 +374,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
 
 
 def _flash_attention(q, k, v, causal: bool, window: int):
+    if q.device.type == "meta":
+        return _meta_ops()["flash_attention"](q, k, v, bool(causal), int(window))
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     B, KV, G, Sq, hd = q.shape
@@ -258,6 +400,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
     """q (B, KV, G, hd), caches (B, KV, T, hd), lengths (B,) int32 →
     (B, KV, G, hd): each row attends to the first lengths[b] positions of
     its cache."""
+    if q.device.type == "meta":
+        return _meta_ops()["decode_attention"](q, k_cache, v_cache, lengths)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, lengths)
     B, KV, G, hd = q.shape
@@ -306,6 +450,8 @@ def wkv6(r, k, v, w, u, state=None):
 
 
 def _wkv6(r, k, v, w, u, state):
+    if r.device.type == "meta":
+        return tuple(_meta_ops()["wkv6"](r, k, v, w, u, state))
     if r.device.type == "cpu":
         return ref.wkv6(r, k, v, w, u, state)
     B, S, H, hd = r.shape
@@ -346,6 +492,8 @@ def rglru(x, r, i, lam, h0=None):
 
 
 def _rglru(x, r, i, lam, h0):
+    if x.device.type == "meta":
+        return tuple(_meta_ops()["rglru"](x, r, i, lam, h0))
     if x.device.type == "cpu":
         return ref.rglru(x, r, i, lam, h0)
     B, S, W = x.shape

@@ -57,8 +57,17 @@ def production_shape(multi_pod: bool = False) -> MeshShape:
     return MeshShape.of(SINGLE_POD, SINGLE_AXES)
 
 
-def _device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+def _mesh_device_type(device_type: str | None) -> str:
+    """`device_type` as given, or "cuda" when None; raises when it is None
+    and there is no card (as `core.resolve_device` does). A type given is
+    taken as given: the dry run passes "cuda" over a fake process group,
+    which needs no card, and the tests pass "cpu" over gloo."""
+    if device_type is not None:
+        return device_type
+    if not torch.cuda.is_available():
+        raise RuntimeError("repro_torch's meshes are on CUDA devices by default and none "
+                           "is available; pass device_type='cpu' for a gloo group")
+    return "cuda"
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
@@ -68,16 +77,17 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = N
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = production_shape(multi_pod)
-    return init_device_mesh(device_type or _device_type(), tuple(shape.shape.values()),
+    return init_device_mesh(_mesh_device_type(device_type), tuple(shape.shape.values()),
                             mesh_dim_names=shape.axis_names)
 
 
 def make_mesh(shape, axis_names=SINGLE_AXES, device_type: str | None = None):
     """A `DeviceMesh` of `shape` named `axis_names` over the process group
-    (the launcher's 1 x 1 mesh on one card, the tests' 2 x 2 over gloo)."""
+    (the launcher's 1 x 1 mesh on one card, the tests' 2 x 2 over gloo), on
+    the CUDA devices unless `device_type` says otherwise."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(device_type or _device_type(), tuple(shape),
+    return init_device_mesh(_mesh_device_type(device_type), tuple(shape),
                             mesh_dim_names=tuple(axis_names))
 
 

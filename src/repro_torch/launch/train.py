@@ -66,15 +66,22 @@ def build_sharded_train(arch: str, mesh, model_cfg=None, num_microbatches=1,
 
     `step_fn(params, opt_state, batch)` → (params, opt_state, metrics):
     `make_train_step` on the DTensors, the batch (whole tensors, alike on
-    every rank) placed by `batch_specs` first. DTensor's sharding
-    propagation does what GSPMD does for the reference: weights sharded
-    over "data" are gathered for use (FSDP), "model" shards heads and
-    hidden units (TP), gradients come back reduced to the parameters'
-    placements. The hand-written kernels run on each rank's local rows and
+    every rank) placed by `batch_specs` first. DTensor does what GSPMD does
+    for the reference: weights sharded over "data" are gathered at use
+    (FSDP, `layers.cast`), "model" shards heads and hidden units (TP: each
+    product Megatron's on a rank's rows, `layers.dense`, a row-parallel
+    partial sum reduced at the residual add, `layers.residual`), gradients
+    come back reduced to the parameters' placements. The hand-written
+    kernels run on each rank's local rows and
     heads or channels (`layers.local_shards`: `flash_attention`, `wkv6`,
-    `rglru`); an MoE layer runs whole on every rank (`layers.
-    replicated_call`), its routing over all B·S tokens as the reference's,
-    its gathered experts recomputed in the backward rather than kept.
+    `rglru`); an MoE layer runs each "model" rank's E / tp experts
+    (`layers.expert_shards`: expert parallelism over "model"), their
+    places and the shared experts' tokens split again over "data", its
+    routing over all B·S tokens as the reference's, its experts gathered
+    over "data" only and again in the backward rather than kept; the
+    cross entropy keeps
+    the vocabulary sharded over "model" (`layers.vocab_nll`); with
+    `cfg.seq_shard_axis` the residual's sequence is sharded between blocks.
 
     `specs`: {"params", "opt": trees of `shardings.NamedSharding`, "cfg"}.
     """
@@ -86,11 +93,11 @@ def build_sharded_train(arch: str, mesh, model_cfg=None, num_microbatches=1,
                         place=lambda t: drawn.append(t) or t)
     pspecs = sh.param_specs(abstract, mesh, cfg)
     ospecs = sh.opt_specs(pspecs)
-    dev = _mesh_device(mesh)
 
     def init_fn(seed: int = 0, state=None):
         if state is None:
-            params = _placed_init(fns, cfg, seed, dev, mesh, abstract, drawn, pspecs)
+            params = _placed_init(fns, cfg, seed, _mesh_device(mesh), mesh, abstract,
+                                  drawn, pspecs)
             return params, sh.with_shardings(adamw.init(params), ospecs, mesh)
         params, opt_state = state
         return (sh.with_shardings(params, pspecs, mesh),

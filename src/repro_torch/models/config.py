@@ -59,7 +59,8 @@ class ModelConfig:
     # --- attention memory/compute shaping (overridable per input shape) ---
     attn_chunk_q: int = 0          # 0 → dense attention
     attn_chunk_k: int = 0
-    attn_skip_masked: bool = False # skip fully-masked causal blocks (§Perf)
+    attn_skip_masked: bool = False # skip fully-masked causal blocks (§Perf); the
+                                   # port's flash_attention kernel always does
     # --- distribution shaping (§Perf) ---
     seq_shard_axis: str = ""       # "model" → sequence-parallel residual
                                    # stream (TP all-reduce → RS+AG, ~½ wire)

@@ -42,8 +42,8 @@ def _enc_layer(lp, x, cfg: ModelConfig):
     dims = transformer._dims(cfg)
     a, _ = L.attention_apply(lp["attn"], dims, L.layernorm(lp["ln1"], x), None,
                              causal=False)
-    x = x + a
-    return x + L.mlp_apply(lp["mlp"], L.layernorm(lp["ln2"], x), "gelu")
+    x = L.residual(x, a)
+    return L.residual(x, L.mlp_apply(lp["mlp"], L.layernorm(lp["ln2"], x), "gelu"))
 
 
 def encode(params, cfg: ModelConfig, frames):

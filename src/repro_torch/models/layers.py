@@ -46,8 +46,20 @@ def dtype_of(name: str) -> torch.dtype:
 
 def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A weight in `dtype` at its use: `w` itself when it is stored in that
-    type (the serving parameters), else a cast copy (fp32 masters)."""
-    return w.to(dtype)
+    type (the serving parameters), else a cast copy (fp32 masters). On a
+    DTensor (the sharded step) the cast weight is then gathered over the
+    data-parallel mesh dims ("pod", "data") and keeps its "model" shard:
+    FSDP's gather at use, whose backward reduce-scatters the gradient.
+    Left to itself DTensor may rather split a product's contraction over
+    the FSDP dim and move the activations instead."""
+    w = w.to(dtype)
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if n in ("pod", "data") else p
+                 for n, p in zip(w.device_mesh.mesh_dim_names, w.placements))
+    return w if want == tuple(w.placements) else w.redistribute(w.device_mesh, want)
 
 
 # --------------------------------------------------------------------------- #
@@ -93,10 +105,61 @@ def apply_rope(x, positions, theta: float):
 # Dense projections
 # --------------------------------------------------------------------------- #
 def dense(params, x):
-    y = torch.matmul(x, cast(params["w"], x.dtype))
+    """x @ w (+ b). On DTensors (the sharded step) the product is
+    Megatron's on each rank's rows (`_tp_matmul`), w gathered over the
+    data dims at use (`cast`)."""
+    w = cast(params["w"], x.dtype)
+    y = _tp_matmul(x, w) if is_dtensor(x) else torch.matmul(x, w)
     if "b" in params:
         y = y + cast(params["b"], x.dtype)
     return y
+
+
+def _tp_matmul(x, w):
+    """x (..., K) @ w (K, N) for DTensors, x's rows placed as `batch_rows`
+    says: on each rank's rows (`local_map`), column-parallel where w's N is
+    split over "model" (x whole there; y split there), row-parallel where
+    w's K is (x split there, as a column-parallel product leaves it; y a
+    partial sum over "model"), or whole. So every rank does its rows' share
+    of the product and no more, whatever DTensor would choose (left to
+    itself it may keep a partial x partial by gathering w whole, or split
+    a replicated batch's tokens for free and then fail to regroup rows
+    that do not divide over the data ranks: yi-34b's 16-row micro-batches
+    over 32). Any other placement: DTensor's own matmul."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    rows, sums = batch_rows(mesh, x.shape[0])
+    last = x.dim() - 1
+    if "model" not in names:
+        return torch.matmul(x, w)
+    m = names.index("model")
+
+    def on_model(p, other):
+        return tuple(p if i == m else o for i, o in enumerate(other))
+
+    xm, wm = x.placements[m], w.placements[m]
+    if xm == Replicate() and wm == Shard(0):
+        # a whole x (attention whose heads do not divide over "model")
+        # against a row-parallel w: this rank's slice of x, taken locally
+        x, xm = x.redistribute(mesh, on_model(Shard(last), x.placements)), Shard(last)
+    if xm == Replicate() and wm == Shard(1):
+        out, x_grad = Shard(last), Partial()
+    elif xm == Shard(last) and wm == Shard(0):
+        out, x_grad = Partial(), Shard(last)
+    elif xm == Replicate() and wm == Replicate():
+        out, x_grad = Replicate(), Replicate()
+    else:
+        return torch.matmul(x, w)
+    if any(p != r for i, (p, r) in enumerate(zip(x.placements, rows)) if i != m) or any(
+            p != Replicate() for i, p in enumerate(w.placements) if i != m):
+        return torch.matmul(x, w)
+    return local_map(torch.matmul, out_placements=(on_model(out, rows),),
+                     in_placements=(on_model(xm, rows), on_model(wm, w.placements)),
+                     in_grad_placements=(on_model(x_grad, rows), on_model(wm, sums)),
+                     device_mesh=mesh, redistribute_inputs=False)(x, w)
 
 
 # --------------------------------------------------------------------------- #
@@ -129,9 +192,9 @@ def attention_apply(params, dims: AttnDims, x, rope_theta: Optional[float],
     kv_x = x if kv_x is None else kv_x
     Sk = kv_x.shape[1]
     H, KV, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = dense(params["wq"], x).view(B, S, H, hd)
-    k = dense(params["wk"], kv_x).view(B, Sk, KV, hd)
-    v = dense(params["wv"], kv_x).view(B, Sk, KV, hd)
+    q = split_heads(dense(params["wq"], x), B, S, H, hd)
+    k = split_heads(dense(params["wk"], kv_x), B, Sk, KV, hd)
+    v = split_heads(dense(params["wv"], kv_x), B, Sk, KV, hd)
 
     def core(q, k, v):
         b, s, h, kv = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
@@ -146,6 +209,22 @@ def attention_apply(params, dims: AttnDims, x, rope_theta: Optional[float],
 
     o, k, v = local_shards(core, (q, k, v), ((0, 2),) * 3, ((0, 2), (0, 1), (0, 1)))
     return dense(params["wo"], o), (k, v)
+
+
+def split_heads(t, *shape):
+    """`t.view(*shape)`: its last dim split into (heads, head dim). On a
+    DTensor whose last dim is sharded over a mesh dim that the heads do not
+    divide by (qwen2-0.5b's 14 heads, whisper's 6, over "model" 8), that
+    dim is gathered first: DTensor views no uneven split of a dim."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last, mesh = t.dim() - 1, t.device_mesh
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                     and shape[-2] % mesh.size(i) else p for i, p in enumerate(t.placements))
+        if want != tuple(t.placements):
+            t = t.redistribute(mesh, want)
+    return t.view(*shape)
 
 
 def init_leaf(place, gen, shape, dtype, device, value=None):
@@ -200,29 +279,127 @@ def row_sharded(t):
         if is_dtensor(t) else t
 
 
-def replicated_call(fn, args, n_out: int):
-    """`fn(*args)` whole on every rank (`local_map`): every DTensor among
-    `args` (a tree) gathered to a replicated tensor, the `n_out` tensors
-    out replicated; each rank computes the same values, gradients
-    included. The call is checkpointed (`torch.utils.checkpoint`): autograd
-    keeps the sharded inputs and the gather is redone in the backward, so
-    no more than one call's gathered weights (an MoE layer's experts) are
-    whole at a time."""
+def expert_shards(fn, params, x, cfg):
+    """The MoE layer `fn` (`models.moe.moe_apply`) on x (B, S, D) with its
+    `params` → (y, metrics). On DTensors (the sharded train step) the
+    experts are split over "model" (expert parallelism, the reference's
+    rule for `moe/w[gud]`): every rank takes the tokens whole (x gathered)
+    and the router whole, so that the routing, the capacities and the
+    neighbor-steal assignment are the reference's over all B·S tokens, and
+    runs only its E / tp experts' slots (`moe_apply(experts=(lo, hi))`)
+    with its experts' weights gathered over the other mesh dims (FSDP) and
+    its slice of the shared experts' hidden units. The ranks of the dims
+    over which x's rows are split (dp of them) split that work again
+    (`moe_apply(part=(i, dp))`): each runs 1/dp of its experts' places and
+    of the shared experts' tokens; a dim that holds x's rows whole ("pod"
+    when they do not divide over it) repeats it rather than pay an
+    all-reduce there. y and the load-balance loss are partial sums over
+    "model" and those dims, and y is reduced onto x's own placements (a
+    reduce-scatter over the batch dims, then a sum over "model").
+    Gradients follow: x's and the router's are partial sums there, each
+    expert's and shared slice's its "model" rank's own and partial over
+    the batch dims. When the experts or the shared hidden units do not
+    divide over "model" (the reference's rule then replicates them), every
+    "model" rank runs every expert. On plain tensors: `fn(params, x, cfg)`."""
+    if not is_dtensor(x):
+        return fn(params, x, cfg)
     import torch.utils._pytree as pytree
-
-    leaves = pytree.tree_leaves(args)
-    dts = [a for a in leaves if is_dtensor(a)]
-    if not dts:
-        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     from torch.utils.checkpoint import checkpoint
 
-    mesh = dts[0].device_mesh
-    whole = replicated_placements(mesh)
-    call = local_map(fn, out_placements=(whole,) * n_out,
-                     in_placements=tuple(whole if is_dtensor(a) else None for a in leaves),
-                     device_mesh=mesh, redistribute_inputs=True)
-    return checkpoint(call, *args, use_reentrant=False)
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    tp = dict(zip(names, mesh.shape)).get("model", 1)
+    E = cfg.n_experts + cfg.ep_pad_to
+    shared = params.get("shared")
+    split = tp > 1 and E % tp == 0 and (
+        shared is None or shared["wg"].shape[2] % tp == 0)
+
+    # the dims over which x's rows are split: their ranks split the work
+    rows = {n for n, q in zip(names, x.placements) if n != "model" and q.is_shard()}
+
+    def on_model(p, other=Replicate()):
+        return tuple((p if split else Replicate()) if n == "model" else
+                     other if n in rows else Replicate() for n in names)
+
+    whole, partial = on_model(Replicate()), on_model(Partial(), Partial())
+
+    def place(path):
+        keys = [getattr(k, "key", None) for k in path]
+        if keys[-1] in ("wg", "wu", "wd"):
+            if "shared" in keys:
+                return on_model(Shard(1 if keys[-1] == "wd" else 2))
+            return on_model(Shard(0))
+        return whole
+
+    flat = pytree.tree_flatten_with_path(params)[0]
+    in_p = tuple(place(path) for path, _ in flat) + (whole,)
+    # a replicated input's gradient: a partial sum over "model" and the
+    # row dims; an expert weight's: its "model" shard, partial over the
+    # row dims
+    grad_p = tuple(partial if p == whole else
+                   tuple(Partial() if n in rows else q for n, q in zip(names, p))
+                   for p in in_p)
+    spec = pytree.tree_structure(params)
+
+    def local(*leaves):
+        p = pytree.tree_unflatten(list(leaves[:-1]), spec)
+        rank = mesh.get_local_rank("model") if split else 0
+        lo = rank * (E // tp) if split else 0
+        i, dp = 0, 1
+        for n, size in zip(names, mesh.shape):
+            if n in rows:
+                i, dp = i * size + mesh.get_local_rank(n), dp * size
+        y, m = fn(p, leaves[-1], cfg,
+                  experts=(lo, lo + E // tp) if split else None,
+                  part=(i, dp) if dp > 1 else None)
+        return y, m["moe_dropped"], m["moe_dropped_pre_steal"], m["moe_aux"]
+
+    call = local_map(local, out_placements=(partial, whole, whole, partial),
+                     in_placements=in_p, in_grad_placements=grad_p, device_mesh=mesh,
+                     redistribute_inputs=True)
+    # checkpointed: the backward gathers the experts again rather than keep
+    # them, so one layer's gathered experts are whole at a time
+    y, dropped, pre, aux = checkpoint(call, *[t for _, t in flat], x, use_reentrant=False)
+    # the batch dims first (a reduce-scatter onto x's rows), then the sum
+    # over "model"
+    y = y.redistribute(mesh, tuple(q if n != "model" else p
+                                   for n, q, p in zip(names, x.placements, partial)))
+    y = y.redistribute(mesh, x.placements)
+    return y, {"moe_dropped": dropped, "moe_dropped_pre_steal": pre,
+               "moe_aux": gathered(aux)}
+
+
+def residual(x, a):
+    """x + a, the residual add. On DTensors a partial sum in `a` (a
+    row-parallel product's output) is first reduced onto x's placements:
+    an all-reduce where x is whole over "model" (Megatron's), a
+    reduce-scatter where its sequence is sharded there (`seq_sharded`).
+    Left partial, DTensor carries it into the next norm, which then sums
+    it in fp32 and holds several copies of the residual."""
+    if is_dtensor(a) and any(p.is_partial() for p in a.placements):
+        a = a.redistribute(a.device_mesh, x.placements if is_dtensor(x) else
+                           replicated_placements(a.device_mesh))
+    return x + a
+
+
+def seq_sharded(x, axis: str):
+    """The residual x (B, S, D) with its sequence sharded over the mesh dim
+    `axis` (and its batch rows as before) between blocks: the reference's
+    `_seq_constraint` (sequence-parallel residual: the per-block "model"
+    all-reduce becomes a reduce-scatter and an all-gather). The identity
+    on a plain tensor, with no `axis`, or when S < 2 or S does not divide
+    over `axis`."""
+    if not axis or not is_dtensor(x) or x.dim() != 3 or x.shape[1] < 2:
+        return x
+    from torch.distributed.tensor import Shard
+
+    names = tuple(x.device_mesh.mesh_dim_names)
+    if axis not in names or x.shape[1] % x.device_mesh.size(names.index(axis)):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Shard(1) if n == axis else p for n, p in zip(names, x.placements)))
 
 
 def replicated_placements(mesh) -> tuple:
@@ -246,20 +423,13 @@ def local_shards(fn, args, dims, out_dims):
     first = next(a for a in args if a is not None)
     if not is_dtensor(first):
         return fn(*args)
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = first.device_mesh
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     rows = batch_rows(mesh, first.shape[dims[0][0]])[0]
-    split = "model" in sizes and all(
-        a.shape[c] % sizes["model"] == 0
-        for a, (_, c) in zip(args, dims) if a is not None and c is not None)
-
-    def place(row, chan):
-        return tuple(Shard(chan) if n == "model" and split and chan is not None
-                     else Shard(row) if row is not None and isinstance(r, Shard)
-                     else Replicate() for n, r in zip(sizes, rows))
+    place = _placer(mesh, rows, [a.shape[c] for a, (_, c) in zip(args, dims)
+                                 if a is not None and c is not None])
 
     def grad_place(row, chan):
         return tuple(Partial() if row is None and isinstance(r, Shard) else p
@@ -273,6 +443,53 @@ def local_shards(fn, args, dims, out_dims):
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
+def _placer(mesh, rows: tuple, channels: list):
+    """`local_shards`' placements: place(row, chan) → a tensor's placements
+    with its rows as `rows` says and its dim `chan` over "model" when every
+    count in `channels` divides by that dim's size."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    split = "model" in sizes and all(c % sizes["model"] == 0 for c in channels)
+
+    def place(row, chan):
+        return tuple(Shard(chan) if n == "model" and split and chan is not None
+                     else Shard(row) if row is not None and isinstance(r, Shard)
+                     else Replicate() for n, r in zip(sizes, rows))
+    return place
+
+
+def sharded_zeros(shape, dtype, like, row: int, chan: int):
+    """Zeros of `shape` on `like`'s device. When `like` is a DTensor, a
+    DTensor on its mesh placed as `local_shards` places an argument whose
+    rows are dim `row` and whose heads are dim `chan` (a serving cache the
+    kernels then write and read in place), of which only the local shard
+    is made."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    mesh = like.device_mesh
+    pl = _placer(mesh, batch_rows(mesh, shape[row])[0], [shape[chan]])(row, chan)
+    return placed_zeros(shape, dtype, like.to_local().device, mesh, pl)
+
+
+def placed_zeros(shape, dtype, device, mesh, placements):
+    """A DTensor of zeros of the global `shape` on `mesh` under
+    `placements` (even shards), of which only this rank's local shard is
+    made on `device`: no data moves."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    stride = [1] * len(shape)       # the global tensor's, contiguous
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh,
+                              placements, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
 def ring_len(cache_len: int, window: Optional[int]) -> int:
     """Slots of a KV cache: min(cache_len, window) with a sliding window (a
     ring, position p in slot p % T), else cache_len (the reference's T)."""
@@ -283,15 +500,23 @@ def write_prefill(cache_k, cache_v, k, v) -> None:
     """Write a prefill's keys and values (B, KV, S, hd) into one layer's
     (B, KV, T, hd) caches IN PLACE: all S at slots 0..S-1 when S <= T, else
     the last T positions, position p at slot p % T (the reference's
-    prefill placement)."""
-    S, T = k.shape[2], cache_k.shape[2]
-    if S <= T:
-        cache_k[:, :, :S] = k
-        cache_v[:, :, :S] = v
-    else:
-        slots = torch.arange(S - T, S, device=k.device) % T
-        cache_k[:, :, slots] = k[:, :, S - T:]
-        cache_v[:, :, slots] = v[:, :, S - T:]
+    prefill placement). On DTensors each rank writes its own rows and
+    heads (caches from `sharded_zeros`)."""
+    def write(cache_k, cache_v, k, v):
+        S, T = k.shape[2], cache_k.shape[2]
+        if S <= T:
+            cache_k[:, :, :S] = k
+            cache_v[:, :, :S] = v
+        else:
+            slots = torch.arange(S - T, S, device=k.device) % T
+            cache_k[:, :, slots] = k[:, :, S - T:]
+            cache_v[:, :, slots] = v[:, :, S - T:]
+        return cache_k
+
+    if is_dtensor(k) and tuple(cache_k.placements) != tuple(k.placements):
+        raise ValueError(f"a cache placed {cache_k.placements} takes no keys placed "
+                         f"{k.placements} in place")
+    local_shards(write, (cache_k, cache_v, k, v), ((0, 1),) * 4, ((0, 1),))
 
 
 def attention_decode(params, dims: AttnDims, x, cache_k, cache_v, pos,
@@ -311,19 +536,28 @@ def attention_decode(params, dims: AttnDims, x, cache_k, cache_v, pos,
     B = x.shape[0]
     T = cache_k.shape[2]
     H, KV, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = dense(params["wq"], x).view(B, 1, H, hd)
-    k = dense(params["wk"], x).view(B, 1, KV, hd)
-    v = dense(params["wv"], x).view(B, 1, KV, hd)
-    if rope_theta is not None:
-        q = apply_rope(q, pos[:, None], rope_theta)
-        k = apply_rope(k, pos[:, None], rope_theta)
-    bidx = torch.arange(B, device=x.device)
-    slot = (pos % T).long()
-    cache_k[bidx, :, slot] = k[:, 0]
-    cache_v[bidx, :, slot] = v[:, 0]
-    lengths = torch.clamp(pos + 1, max=T).to(torch.int32)
-    o = ops.decode_attention(q.view(B, KV, H // KV, hd), cache_k, cache_v, lengths)
-    return dense(params["wo"], o.reshape(B, 1, H * hd)), cache_k, cache_v
+    q = split_heads(dense(params["wq"], x), B, 1, H, hd)
+    k = split_heads(dense(params["wk"], x), B, 1, KV, hd)
+    v = split_heads(dense(params["wv"], x), B, 1, KV, hd)
+
+    def core(q, k, v, cache_k, cache_v, pos):
+        # on DTensors each rank's rows and heads, its caches written in place
+        b, kv = q.shape[0], k.shape[2]
+        if rope_theta is not None:
+            q = apply_rope(q, pos[:, None], rope_theta)
+            k = apply_rope(k, pos[:, None], rope_theta)
+        bidx = torch.arange(b, device=q.device)
+        slot = (pos % T).long()
+        cache_k[bidx, :, slot] = k[:, 0]
+        cache_v[bidx, :, slot] = v[:, 0]
+        lengths = torch.clamp(pos + 1, max=T).to(torch.int32)
+        o = ops.decode_attention(q.view(b, kv, q.shape[2] // kv, hd), cache_k, cache_v,
+                                 lengths)
+        return o.reshape(b, 1, -1)
+
+    o = local_shards(core, (q, k, v, cache_k, cache_v, pos),
+                     ((0, 2),) * 3 + ((0, 1),) * 2 + ((0, None),), ((0, 2),))
+    return dense(params["wo"], o), cache_k, cache_v
 
 
 def cross_attention_decode(params, dims: AttnDims, x, xk, xv):
@@ -334,10 +568,14 @@ def cross_attention_decode(params, dims: AttnDims, x, xk, xv):
     Returns (B, 1, D)."""
     B, F_ = x.shape[0], xk.shape[2]
     H, KV, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = dense(params["wq"], x).view(B, KV, H // KV, hd)
-    lengths = torch.full((B,), F_, dtype=torch.int32, device=x.device)
-    o = ops.decode_attention(q, xk, xv, lengths)
-    return dense(params["wo"], o.reshape(B, 1, H * hd))
+    q = split_heads(dense(params["wq"], x), B, KV, H // KV, hd)
+
+    def core(q, xk, xv):
+        lengths = torch.full((q.shape[0],), F_, dtype=torch.int32, device=q.device)
+        return ops.decode_attention(q, xk, xv, lengths).reshape(q.shape[0], 1, -1)
+
+    o = local_shards(core, (q, xk, xv), ((0, 1),) * 3, ((0, 2),))
+    return dense(params["wo"], o)
 
 
 # --------------------------------------------------------------------------- #
@@ -383,22 +621,27 @@ def embed(params, tokens, dtype: torch.dtype):
 
 def column_gather(fn, table, tokens):
     """`fn(table, tokens)`, a gather of the table's rows. On a DTensor table
-    (the sharded train step) the gather is local: each rank takes its slice
-    of d_model for every token (the tokens gathered whole, a vocab-sharded
-    table gathered over the vocabulary), the rows sharded over d_model as
-    the table is — the reference's reason for sharding the table so."""
+    (the sharded step) the gather is local (`local_map`: torch 2.11 has no
+    DTensor rule for its backward, `index_put`): each rank takes its own
+    batch rows of `tokens` (`batch_rows`) from the table gathered whole at
+    use (FSDP's gather, as `cast` gathers a weight), and its rows come out
+    whole in d_model, replicated over "model"; the table's gradient is a
+    partial sum over the rows' mesh dims. Taking every token's slice of a
+    d_model-sharded table instead (the reference's reason for sharding the
+    table so) leaves the rows sharded over d_model on both mesh dims,
+    which DTensor regroups only by gathering the whole batch's activations
+    on every device (~26 GB a device at mistral-large's prefill_32k, the
+    dry run's count)."""
     if not is_dtensor(table):
         return fn(table, tokens)
-    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = table.device_mesh
-    cols = tuple(p if isinstance(p, Shard) and p.dim == 1 else Replicate()
-                 for p in table.placements)
-    rows = tuple(Shard(tokens.dim()) if isinstance(p, Shard) else Replicate() for p in cols)
+    rows, sums = batch_rows(mesh, tokens.shape[0])
     return local_map(fn, out_placements=(rows,),
-                     in_placements=(cols, replicated_placements(mesh)),
-                     device_mesh=mesh, redistribute_inputs=True)(table, tokens)
+                     in_placements=(replicated_placements(mesh), rows),
+                     in_grad_placements=(sums, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def unembed(params, x):
@@ -419,38 +662,97 @@ def softmax_xent(logits, labels, mask=None, z_weight: float = 0.0):
     """Mean next-token cross entropy: an fp32 logsumexp over the vocabulary,
     optionally + z_weight·lse², the mean over positions where `mask` (if
     given) is set — the reference's `layers.softmax_xent`, as a sum over
-    positions over their count (`row_sums`)."""
-    def sums(logits, labels, mask):
-        nll = _nll(logits, labels, z_weight)
+    positions over their count (`row_sums`). On DTensors the vocabulary
+    stays sharded over "model" (`vocab_nll`)."""
+    def sums(nll, mask):
         if mask is None:
             return torch.sum(nll), torch.full((), float(nll.numel()), device=nll.device)
         mask = mask.float()
         return torch.sum(nll * mask), torch.sum(mask)
 
-    num, den = row_sums(sums, (logits, labels, mask))
+    nll = vocab_nll(logits, labels, z_weight) if is_dtensor(logits) else \
+        _nll(logits, labels, z_weight)
+    num, den = row_sums(sums, (nll, mask))
     return num / torch.clamp(den, min=1.0)
+
+
+def vocab_nll(logits, labels, z_weight: float):
+    """`_nll` of DTensor logits (B, S, V) with the vocabulary sharded over
+    "model" (the head's rule, `head/table` over "model"; whole when V does
+    not divide) and the rows over the batch dims (`batch_rows`): the
+    max, the sum of exponentials and the label's logit are each a local
+    reduction over this rank's vocabulary, combined over "model" (a max,
+    then two sums of B x S floats), in fp32, so no rank holds a row's whole
+    vocabulary; where the vocabulary is whole, each rank's rows through
+    `_nll` as on one device. Returns the (B, S) fp32 nll with the rows'
+    placements."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    tp = dict(zip(names, mesh.shape)).get("model", 1)
+    V = logits.shape[-1]
+    split = tp > 1 and V % tp == 0
+    rows = batch_rows(mesh, logits.shape[0])[0]
+
+    if not split:      # each rank's rows with their whole vocabulary: `_nll`
+        return local_map(lambda lg, lab: _nll(lg, lab, z_weight), out_placements=(rows,),
+                         in_placements=(rows, rows), device_mesh=mesh,
+                         redistribute_inputs=True)(logits, labels)
+
+    def on_model(p):
+        return tuple(p if n == "model" else r for n, r in zip(names, rows))
+
+    vocab = on_model(Shard(logits.dim() - 1))
+    lf = logits.redistribute(mesh, vocab).float()
+
+    def run(fn, out, *args, grads=None):
+        return local_map(fn, out_placements=(out,), in_placements=tuple(
+            vocab if a is lf else rows for a in args), in_grad_placements=grads,
+            device_mesh=mesh, redistribute_inputs=True)(*args).redistribute(mesh, rows)
+
+    m = run(lambda lg: lg.detach().amax(-1), on_model(Partial("max")), lf)
+    s = run(lambda lg, m: torch.exp(lg - m[..., None]).sum(-1), on_model(Partial()), lf, m)
+    lse = m + torch.log(s)
+
+    def pick(lg, lab):
+        n = lg.shape[-1]
+        idx = lab.long() - mesh.get_local_rank("model") * n
+        inside = (idx >= 0) & (idx < n)
+        got = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    ll = run(pick, on_model(Partial()), lf, labels)
+    nll = lse - ll
+    if z_weight:
+        nll = nll + z_weight * lse ** 2
+    return nll
 
 
 def batch_rows(mesh, batch: int):
     """(placements of a tensor whose dim 0 is `batch` rows: sharded over
     the data-parallel mesh dims ("pod", "data") when `batch` divides by
-    their product, every other mesh dim replicated; the placements of a sum
-    over those rows: `Partial` where the rows are sharded)."""
+    their product, else over "data" alone when it divides by that (a
+    micro-batch of 32 rows on 2 x 32 x 8: each pod's ranks take the rows
+    again), every other mesh dim replicated; the placements of a sum over
+    those rows: `Partial` where the rows are sharded)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     dp = [n for n in sizes if n in ("pod", "data")]
-    split = batch % math.prod(sizes[n] for n in dp) == 0
-    rows = tuple(Shard(0) if n in dp and split else Replicate() for n in sizes)
-    sums = tuple(Partial() if n in dp and split else Replicate() for n in sizes)
+    if batch % math.prod(sizes[n] for n in dp):
+        dp = [n for n in dp if n == "data" and batch % sizes[n] == 0]
+    rows = tuple(Shard(0) if n in dp else Replicate() for n in sizes)
+    sums = tuple(Partial() if n in dp else Replicate() for n in sizes)
     return rows, sums
 
 
 def row_sums(fn, args):
     """`fn(*args)`, sums over the batch rows of `args` (dim 0; an arg may be
     None). On DTensors (the sharded train step) each rank sums its rows
-    (`batch_rows`), each with its whole last dim (the logits' vocabulary),
-    and the sums are reduced across ranks to replicated ones."""
+    (`batch_rows`), and the sums are reduced across ranks to replicated
+    ones."""
     first = args[0]
     if not is_dtensor(first):
         return fn(*args)

@@ -24,6 +24,22 @@ Mirrors `repro.models.moe` (`moe_init`, `_positions_in_expert`,
      activations' type; the order is the port's own and deterministic on
      the card, where an atomic scatter-add would not be).
 
+Expert parallelism (`experts=(lo, hi)`, the sharded train step's
+`layers.expert_shards`): the routing, the capacities and the
+neighbor-steal assignment are computed over all T tokens and every expert,
+the same on every rank, but only the slots of experts lo..hi-1 are
+dispatched, run and combined, through `params`' expert weights, which then
+hold those experts alone, and through its shared experts' slice of their
+hidden units; y is this rank's share of the sum, and the load-balance loss
+is carried by the rank that holds expert 0 (0 elsewhere), so that summing
+the ranks' outputs gives the whole layer's. A slot stolen across lo or hi
+leaves the rank that held its first expert for the next: the paper's
+single hop on the ring of expert-parallel ranks. `part=(i, n)` splits that
+work again over the n data-parallel ranks that hold the same experts: the
+i-th runs its experts' places i·ceil(C/n) onwards (ceil(C/n) of them) and
+the shared experts on the same range of the tokens, and only i = 0 carries
+the loss.
+
 Shared experts run densely on every token. Padded experts (`ep_pad_to`)
 get NEG_INF router logits, so no token routes to them. `routing`, when
 given, replaces the top-k choice by the given expert ids (the gates are
@@ -106,26 +122,14 @@ def route(params, xf: torch.Tensor, cfg: MoEConfig, routing=None):
     return probs, gate_vals, expert_ids
 
 
-def moe_apply(params, x, cfg: MoEConfig, capacity: int | None = None, routing=None):
-    """x (B, S, D) → (y (B, S, D), metrics): `moe_dropped` and
-    `moe_dropped_pre_steal` (fractions of the T·k slots, fp32 scalars) and
-    `moe_aux` (the Switch-style load-balance loss over the real experts).
-    `routing` (B·S, k) expert ids replaces the router's choice (see the
-    module docstring)."""
-    B, S, D = x.shape
-    T = B * S
+def assign(eid: torch.Tensor, cfg: MoEConfig, C: int):
+    """The slots' experts and places, from their chosen experts `eid` (T·k,)
+    int64: (order, the stable sort by expert; in that order each slot's
+    first expert, its final expert and place, whether it is kept, whether
+    the neighbor steal moved it; the slots that overflowed their first
+    expert, a count)."""
+    E = cfg.n_experts + cfg.ep_pad_to
     E_real = cfg.n_experts
-    E = E_real + cfg.ep_pad_to
-    k = cfg.top_k
-    dev = x.device
-    xf = x.reshape(T, D)
-    probs, gate_vals, expert_ids = route(params, xf, cfg, routing)
-    C = capacity_of(T, cfg, capacity)
-
-    eid = expert_ids.reshape(T * k)
-    gates = gate_vals.reshape(T * k)
-    token_of = torch.arange(T * k, device=dev) // k
-
     order = torch.argsort(eid, stable=True)
     sorted_eid = eid[order]
     pos = _positions_in_expert(sorted_eid, E)
@@ -150,14 +154,78 @@ def moe_apply(params, x, cfg: MoEConfig, capacity: int | None = None, routing=No
         final_eid = torch.where(keep2, steal_eid, final_eid)
         final_pos = torch.where(keep2, pos_steal, final_pos)
         keep = keep | keep2
+    else:
+        keep2 = torch.zeros_like(keep)
+    return order, sorted_eid, final_eid, final_pos, keep, keep2, dropped_first
+
+
+def cross_shard_steals(params, x, cfg: MoEConfig, shards: int,
+                       capacity: int | None = None) -> int:
+    """How many of `moe_apply`'s slots on x the neighbor steal moves from an
+    expert on one of `shards` expert-parallel ranks to an expert on the
+    next (the ring's hop across a shard boundary)."""
+    T = x.shape[0] * x.shape[1]
+    _, _, expert_ids = route(params, x.reshape(T, x.shape[-1]), cfg)
+    _, first, final, _, _, stolen, _ = assign(expert_ids.reshape(-1), cfg,
+                                              capacity_of(T, cfg, capacity))
+    per = (cfg.n_experts + cfg.ep_pad_to) // shards
+    return int((stolen & (first // per != final // per)).sum())
+
+
+def _part_range(n: int, part: tuple | None) -> tuple:
+    """Of n, the i-th of `part` (i, parts) contiguous ranges, ceil(n / parts)
+    long (rank 0's the longest; the last ones short or empty); all of n
+    without `part`."""
+    if part is None:
+        return 0, n
+    i, parts = part
+    step = -(-n // parts)
+    return min(i * step, n), min((i + 1) * step, n)
+
+
+def moe_apply(params, x, cfg: MoEConfig, capacity: int | None = None, routing=None,
+              experts: tuple | None = None, part: tuple | None = None):
+    """x (B, S, D) → (y (B, S, D), metrics): `moe_dropped` and
+    `moe_dropped_pre_steal` (fractions of the T·k slots, fp32 scalars) and
+    `moe_aux` (the Switch-style load-balance loss over the real experts).
+    `routing` (B·S, k) expert ids replaces the router's choice (see the
+    module docstring). `experts` (lo, hi): only those experts' slots, this
+    rank's share of y and of `moe_aux` (expert parallelism, see the module
+    docstring); None: every expert. `part` (i, n): of those, only the i-th
+    of n ranges of each expert's C places and of the T tokens for the
+    shared experts; None: all."""
+    B, S, D = x.shape
+    T = B * S
+    E_real = cfg.n_experts
+    E = E_real + cfg.ep_pad_to
+    k = cfg.top_k
+    dev = x.device
+    xf = x.reshape(T, D)
+    probs, gate_vals, expert_ids = route(params, xf, cfg, routing)
+    C = capacity_of(T, cfg, capacity)
+
+    eid = expert_ids.reshape(T * k)
+    gates = gate_vals.reshape(T * k)
+    token_of = torch.arange(T * k, device=dev) // k
+
+    order, sorted_eid, final_eid, final_pos, keep, _, dropped_first = assign(eid, cfg, C)
     dropped = (~keep).sum()
 
-    # dispatch: an (E·C + 1, D) buffer; dropped slots write the pad row E·C
-    dst = torch.where(keep, final_eid * C + final_pos.clamp(0, C - 1), E * C)
+    # dispatch: an (E·C + 1, D) buffer of the experts lo..hi-1 (E of them
+    # without `experts`) at places c_lo..c_hi-1 (C of them without `part`);
+    # dropped slots and other ranks' write the pad row
+    lo, hi = (0, E) if experts is None else experts
+    c_lo, c_hi = _part_range(C, part)
+    if experts is not None or part is not None:
+        keep = (keep & (final_eid >= lo) & (final_eid < hi)
+                & (final_pos >= c_lo) & (final_pos < c_hi))
+    E_loc, C_loc = hi - lo, c_hi - c_lo
+    dst = torch.where(keep, (final_eid - lo) * C_loc + (final_pos - c_lo).clamp(0, C_loc - 1),
+                      E_loc * C_loc)
     src_tok = token_of[order]
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    buf = torch.zeros((E_loc * C_loc + 1, D), dtype=x.dtype, device=dev)
     buf[dst] = xf[src_tok]
-    hbuf = buf[:E * C].view(E, C, D)
+    hbuf = buf[:E_loc * C_loc].view(E_loc, C_loc, D)
 
     g = torch.bmm(hbuf, params["wg"].to(x.dtype))
     u = torch.bmm(hbuf, params["wu"].to(x.dtype))
@@ -166,7 +234,8 @@ def moe_apply(params, x, cfg: MoEConfig, capacity: int | None = None, routing=No
     # combine: slot i of the sorted order is slot order[i] of (token, j);
     # its output weighted by its gate (0 if dropped), a token's k slots
     # summed in fp32
-    flat_o = torch.cat([o.reshape(E * C, D), torch.zeros((1, D), dtype=x.dtype, device=dev)])
+    flat_o = torch.cat([o.reshape(E_loc * C_loc, D),
+                        torch.zeros((1, D), dtype=x.dtype, device=dev)])
     contrib = flat_o[dst] * (gates[order] * keep).to(x.dtype)[:, None]
     by_slot = torch.empty_like(contrib)
     by_slot[order] = contrib
@@ -175,15 +244,20 @@ def moe_apply(params, x, cfg: MoEConfig, capacity: int | None = None, routing=No
     if cfg.n_shared:
         sp = params["shared"]
         n, _, dff = sp["wg"].shape
-        g = torch.matmul(xf, sp["wg"].to(x.dtype))                # (n, T, F)
-        u = torch.matmul(xf, sp["wu"].to(x.dtype))
-        h = (F.silu(g) * u).permute(1, 0, 2).reshape(T, n * dff)
-        yf = yf + torch.matmul(h, sp["wd"].to(x.dtype).reshape(n * dff, D))
+        t_lo, t_hi = _part_range(T, part)
+        xs = xf[t_lo:t_hi]
+        g = torch.matmul(xs, sp["wg"].to(x.dtype))                # (n, t, F)
+        u = torch.matmul(xs, sp["wu"].to(x.dtype))
+        h = (F.silu(g) * u).permute(1, 0, 2).reshape(t_hi - t_lo, n * dff)
+        ys = torch.matmul(h, sp["wd"].to(x.dtype).reshape(n * dff, D))
+        yf = yf + (ys if t_hi - t_lo == T else F.pad(ys, (0, 0, t_lo, T - t_hi)))
 
     # Switch-style load-balance auxiliary loss (over real experts only)
     me = probs[:, :E_real].mean(0)
     ce = _counts(expert_ids[:, 0], E)[:E_real].float() / T
     aux = (me * ce).sum() * E_real * cfg.router_aux_weight
+    if lo or c_lo:
+        aux = aux * 0.0      # carried by the rank of expert 0's first places (kept in the graph)
 
     # the reference's fractions as XLA compiles them: count x fp32(1 / (T·k))
     inv = torch.tensor(1.0 / (T * k), dtype=torch.float32, device=dev)

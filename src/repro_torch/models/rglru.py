@@ -167,8 +167,8 @@ def _rec_block(lp, x, cfg: ModelConfig, h0, conv_state):
     r = torch.sigmoid(vx @ L.cast(lp["wa"], dt) + L.cast(lp["ba"], dt))
     i = torch.sigmoid(vx @ L.cast(lp["wx"], dt) + L.cast(lp["bx"], dt))
     h, hT = rglru_scan(vx, r, i, lp["lam"], h0)
-    x = x + (h * g) @ L.cast(lp["out"], dt)
-    x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+    x = L.residual(x, (h * g) @ L.cast(lp["out"], dt))
+    x = L.residual(x, L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x)))
     return x, hT, conv_state
 
 
@@ -177,26 +177,29 @@ def _attn_block(lp, x, cfg: ModelConfig):
     shape (B, KV, S, hd)."""
     a, kv = L.attention_apply(lp["attn"], _dims(cfg), L.rmsnorm(lp["ln1"], x),
                               cfg.rope_theta, causal=True, window=cfg.window)
-    x = x + a
-    x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+    x = L.residual(x, a)
+    x = L.residual(x, L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x)))
     return x, kv
 
 
-def make_state(cfg: ModelConfig, batch: int, cache_len: int, device=None):
+def make_state(cfg: ModelConfig, batch: int, cache_len: int, device=None, like=None):
     """The decode state of a batch, zeros (see the module docstring), on
-    `device` (the card when None, as `init`)."""
+    `device` (the card when None, as `init`). With `like` a DTensor (a
+    prefill on a mesh) each leaf is a DTensor placed as the kernels take
+    it: rows over the data dims, the width or the KV heads over "model"
+    (`layers.sharded_zeros`)."""
     check_config(cfg)
     device = resolve_device(device)
     kinds = cfg.block_kinds()
     n_rec, n_att = kinds.count("rec"), kinds.count("attn")
     W, dt = _lru_width(cfg), L.dtype_of(cfg.dtype)
     kv = (n_att, batch, cfg.n_kv_heads, L.ring_len(cache_len, cfg.window), cfg.hd)
+    like = like if like is not None else torch.empty((), device=device)
     return {
-        "h": torch.zeros((n_rec, batch, W), dtype=torch.float32, device=device),
-        "conv": torch.zeros((n_rec, batch, cfg.conv1d_width - 1, W), dtype=dt,
-                            device=device),
-        "k": torch.zeros(kv, dtype=dt, device=device),
-        "v": torch.zeros(kv, dtype=dt, device=device),
+        "h": L.sharded_zeros((n_rec, batch, W), torch.float32, like, 1, 2),
+        "conv": L.sharded_zeros((n_rec, batch, cfg.conv1d_width - 1, W), dt, like, 1, 3),
+        "k": L.sharded_zeros(kv, dt, like, 1, 2),
+        "v": L.sharded_zeros(kv, dt, like, 1, 2),
     }
 
 
@@ -256,7 +259,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int):
     Only the last position is unembedded (the reference unembeds it
     alone too)."""
     B, S = tokens.shape
-    state = make_state(cfg, B, cache_len, device=tokens.device)
+    state = make_state(cfg, B, cache_len, device=tokens.device, like=tokens)
     x = _trunk(params, cfg, tokens, state)
     logits = L.unembed(params["head"], x[:, -1])
     return logits, state, torch.full((B,), S, dtype=torch.int32, device=tokens.device)
@@ -279,8 +282,8 @@ def decode_step(params, cfg: ModelConfig, token, state, pos):
             a, _, _ = L.attention_decode(lp["attn"], dims, L.rmsnorm(lp["ln1"], x),
                                          state["k"][ai], state["v"][ai], pos,
                                          cfg.rope_theta)
-            x = x + a
-            x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+            x = L.residual(x, a)
+            x = L.residual(x, L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x)))
             ai += 1
     x = L.rmsnorm(params["final_norm"], x)
     return L.unembed(params["head"], x)[:, 0], state, pos + 1

@@ -144,14 +144,14 @@ def _time_mix(lp, x, cfg: ModelConfig, shift_state, wkv_state):
     xr, xk, xv, xg, xw = (_lerp(x, xs, mix[m])
                           for m in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"))
     dt = x.dtype
-    r = (xr @ L.cast(lp["wr"], dt)).view(B, S, H, hd)
-    k = (xk @ L.cast(lp["wk"], dt)).view(B, S, H, hd)
-    v = (xv @ L.cast(lp["wv"], dt)).view(B, S, H, hd)
+    r = L.split_heads(xr @ L.cast(lp["wr"], dt), B, S, H, hd)
+    k = L.split_heads(xk @ L.cast(lp["wk"], dt), B, S, H, hd)
+    v = L.split_heads(xv @ L.cast(lp["wv"], dt), B, S, H, hd)
     g = xg @ L.cast(lp["wg"], dt)
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), in fp32
     dlog = lp["w0"] + ((xw @ L.cast(lp["w_lora_a"], dt))
                        @ L.cast(lp["w_lora_b"], dt)).float()
-    w = torch.exp(-torch.exp(dlog)).view(B, S, H, hd)
+    w = L.split_heads(torch.exp(-torch.exp(dlog)), B, S, H, hd)
     # r, k, v go in as the projections made them (the kernel converts bf16
     # to fp32 inside, exactly); w, u and the state are fp32
     # on DTensors (the sharded step) each rank's rows and heads
@@ -182,11 +182,15 @@ def _empty_state(cfg: ModelConfig, B: int, device=None):
 
 
 def _layer(lp, x, cfg: ModelConfig, shift_att, shift_ffn, wkv):
-    """One block → (x, new shift_att, new shift_ffn, new wkv state)."""
+    """One block → (x, new shift_att, new shift_ffn, new wkv state); the
+    residual's sequence sharded between blocks as the transformer's
+    (`layers.seq_sharded`)."""
+    x = L.seq_sharded(x, cfg.seq_shard_axis)
     a, s_a, s_wkv = _time_mix(lp, L.layernorm(lp["ln1"], x), cfg, shift_att, wkv)
-    x = x + a
+    x = L.residual(x, a)
+    x = L.seq_sharded(x, cfg.seq_shard_axis)
     c, s_f = _channel_mix(lp, L.layernorm(lp["ln2"], x), shift_ffn)
-    return x + c, s_a, s_f, s_wkv
+    return L.residual(x, c), s_a, s_f, s_wkv
 
 
 def _trunk(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):

@@ -10,7 +10,9 @@ P + S, the loss over the text only) and the encoder-decoder's decoder
 self-attention, the gelu MLP with biases, sinusoidal positions in place
 of RoPE when rope_theta <= 0). The layer stack is a Python loop over a
 list of per-layer parameter dicts (the reference scans stacked leaves);
-there is no sequence-sharding constraint, a no-op on one device.
+`cfg.seq_shard_axis` shards the residual's sequence between blocks on
+DTensors (`layers.seq_sharded`, the reference's `_seq_constraint`), the
+identity on one device.
 Training (`loss_fn`) takes fp32 master weights, which every use casts to
 cfg.dtype, and `remat` (`models.remat`) around each layer. Prefill
 attention runs the `flash_attention` kernel (cross-attention too: not
@@ -72,10 +74,9 @@ def _ffn(lp, cfg: ModelConfig, x):
     (`moe_dropped`, `moe_dropped_pre_steal`, `moe_aux`), or the dense MLP
     with none. Prefill and decode drop them, as the reference's do."""
     if cfg.moe is not None:
-        # on DTensors (the sharded step) the layer is whole on every rank (its
-        # tokens and experts gathered), so routing and capacities are the
-        # reference's over all B·S tokens; out: y and 3 metrics
-        return L.replicated_call(moe.moe_apply, (lp["moe"], x, cfg.moe), n_out=4)
+        # on DTensors (the sharded step) the experts are split over "model"
+        # and the routing is the reference's over all B·S tokens
+        return L.expert_shards(moe.moe_apply, lp["moe"], x, cfg.moe)
     return L.mlp_apply(lp["mlp"], x, cfg.act), {}
 
 
@@ -90,9 +91,9 @@ def _add_positions(x, cfg: ModelConfig, n: int, rows=None):
     else x."""
     if cfg.rope_theta > 0:
         return x
-    pe = L.sinusoidal_table(n, cfg.d_model, x.device)
+    pe = L.replicated(L.sinusoidal_table(n, cfg.d_model, x.device), x)
     pe = (pe if rows is None else pe[rows]).to(x.dtype)
-    return x + L.replicated(pe, x)
+    return x + pe
 
 
 # --------------------------------------------------------------------------- #
@@ -193,16 +194,18 @@ def _layer(lp, x, cfg: ModelConfig, enc_out=None):
     FFN's metrics): self-attention, cross-attention to `enc_out` (B, F, D)
     when the config has it, the FFN."""
     norm, dims = _norm(cfg), _dims(cfg)
+    x = L.seq_sharded(x, cfg.seq_shard_axis)
     a, kv = L.attention_apply(lp["attn"], dims, norm(lp["ln1"], x), _rope(cfg),
                               causal=True, window=cfg.window)
-    x = x + a
+    x = L.residual(x, a)
     xkv = None
     if cfg.cross_attention:
         c, xkv = L.attention_apply(lp["xattn"], dims, norm(lp["lnx"], x), None,
                                    causal=False, kv_x=enc_out)
-        x = x + c
+        x = L.residual(x, c)
+    x = L.seq_sharded(x, cfg.seq_shard_axis)
     f, metrics = _ffn(lp, cfg, norm(lp["ln2"], x))
-    return x + f, kv, xkv, metrics
+    return L.residual(x, f), kv, xkv, metrics
 
 
 def _check_inputs(cfg: ModelConfig, enc_out) -> None:
@@ -288,22 +291,25 @@ def loss_fn(params, cfg: ModelConfig, batch, remat: str = "none"):
 # Serving: prefill + single-token decode with KV cache
 # --------------------------------------------------------------------------- #
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
-               enc_frames: int = 0):
+               enc_frames: int = 0, like=None):
     """KV cache: k/v (L, B, KV, T, hd) zeros in cfg.dtype, T =
     `layers.ring_len(cache_len, cfg.window)`, and with cross-attention and
     `enc_frames` F > 0 xk/xv (L, B, KV, F, hd), on `device` (the card when
-    None, as `init`)."""
+    None, as `init`). With `like` a DTensor (a prefill on a mesh) each is a
+    DTensor placed as the attention kernels take their keys
+    (`layers.sharded_zeros`)."""
     check_config(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, L.ring_len(cache_len, cfg.window),
              cfg.hd)
     dt = L.dtype_of(cfg.dtype)
-    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    like = like if like is not None else torch.empty((), device=dev)
+    cache = {"k": L.sharded_zeros(shape, dt, like, 1, 2),
+             "v": L.sharded_zeros(shape, dt, like, 1, 2)}
     if cfg.cross_attention and enc_frames:
         xshape = (cfg.n_layers, batch, cfg.n_kv_heads, enc_frames, cfg.hd)
-        cache["xk"] = torch.zeros(xshape, dtype=dt, device=dev)
-        cache["xv"] = torch.zeros(xshape, dtype=dt, device=dev)
+        cache["xk"] = L.sharded_zeros(xshape, dt, like, 1, 2)
+        cache["xv"] = L.sharded_zeros(xshape, dt, like, 1, 2)
     return cache
 
 
@@ -325,7 +331,8 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int,
         raise ValueError(f"prompt length {P + S} ({P} prefix embeddings + {S} tokens) "
                          f"exceeds cache_len {cache_len}")
     frames = enc_out.shape[1] if cfg.cross_attention else 0
-    cache = make_cache(cfg, B, cache_len, device=tokens.device, enc_frames=frames)
+    cache = make_cache(cfg, B, cache_len, device=tokens.device, enc_frames=frames,
+                       like=tokens)
     x = _trunk(params, cfg, tokens, cache, prefix_embeds=prefix_embeds, enc_out=enc_out)
     logits = L.unembed(_head(params), x[:, -1])
     next_pos = torch.full((B,), P + S, dtype=torch.int32, device=tokens.device)
@@ -346,10 +353,10 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     for i, lp in enumerate(params["layers"]):
         a, _, _ = L.attention_decode(lp["attn"], dims, norm(lp["ln1"], x),
                                      cache["k"][i], cache["v"][i], pos, _rope(cfg))
-        x = x + a
+        x = L.residual(x, a)
         if cross:
-            x = x + L.cross_attention_decode(lp["xattn"], dims, norm(lp["lnx"], x),
-                                             cache["xk"][i], cache["xv"][i])
-        x = x + _ffn(lp, cfg, norm(lp["ln2"], x))[0]
+            x = L.residual(x, L.cross_attention_decode(lp["xattn"], dims, norm(lp["lnx"], x),
+                                                        cache["xk"][i], cache["xv"][i]))
+        x = L.residual(x, _ffn(lp, cfg, norm(lp["ln2"], x))[0])
     x = norm(params["final_norm"], x)
     return L.unembed(_head(params), x)[:, 0], cache, pos + 1

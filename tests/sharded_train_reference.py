@@ -5,15 +5,18 @@
 runs the reference's `repro.launch.train.build_sharded_train` (JAX on the
 CPU with `DEVICES` forced host devices, set by the parent in XLA_FLAGS
 before JAX is imported) on a (2, 2) ("data", "model") mesh for each of
-`CASES`, and writes, keys ``"<case>/..."``: the initial parameters
-(``init/<path>``), the loss of each step (``loss``), AdamW's first moment
-after each step s (``m<s>/<path>``) and the parameters after the last
-(``p/<path>``), paths in the reference's stacked tree.
+`CASES` (router columns scaled by `ROUTER_SCALE`), and writes, keys
+``"<case>/..."``: the initial parameters (``init/<path>``), the loss of
+each step (``loss``), AdamW's first moment after each step s
+(``m<s>/<path>``) and the parameters after the last (``p/<path>``), paths
+in the reference's stacked tree.
 
 `port_worker` is one rank of the port's side (`torch.multiprocessing`
 spawn, gloo): the same cases on a 2 x 2 `DeviceMesh` from the reference's
-initial parameters, keys ``"<case>/..."`` in the port's paths, and each
-leaf's placements checked against its spec.
+initial parameters, keys ``"<case>/..."`` in the port's paths, each
+leaf's placements checked against its spec, and (``crossings``) each MoE
+layer call's slots that the neighbor steal moves from one "model" rank's
+experts to the next's.
 """
 
 import dataclasses
@@ -33,7 +36,15 @@ DATA = dict(seq_len=32, global_batch=8)
 CASES = {"plain": (ARCH, 1, "none"), "mb2-full": (ARCH, 2, "full"),
          "rwkv6": ("rwkv6-1.6b", 1, "none"), "hybrid": ("recurrentgemma-9b", 1, "none"),
          "moe": ("qwen2-moe-a2.7b", 1, "none"), "vlm": ("llava-next-mistral-7b", 1, "none"),
-         "encdec": ("whisper-tiny", 1, "none")}
+         "encdec": ("whisper-tiny", 1, "none"), "seqpar": (ARCH, 1, "none")}
+# cases run with the sequence-parallel residual (`seq_shard_axis` "model",
+# the dry run's variant "opt") on both sides
+SEQ_SHARDED = {"seqpar"}
+# case -> (experts, factor): the initial router's columns of the last
+# expert of each "model" rank's 4 (both sides start from them) scaled, so
+# those experts are chosen more often than the rest, overflow, and the
+# neighbor steal moves slots across the ranks' boundary
+ROUTER_SCALE = {"moe": ((3, 7), 3.0)}
 DEVICES = 4
 
 
@@ -66,21 +77,41 @@ def reference(out: str):
     # sharding-type error at the first dense product)
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    saved, first = {}, {}
+    built, first, inits = {}, {}, {}
     for name, (arch, nmb, remat) in CASES.items():
         cfg = dataclasses.replace(registry.reduced(registry.get_config(arch),
-                                                   d_model=D_MODEL), dtype="float32")
+                                                   d_model=D_MODEL), dtype="float32",
+                                  seq_shard_axis="model" if name in SEQ_SHARDED else "")
         init_jit, step_jit, specs = rlt.build_sharded_train(
             arch, mesh, model_cfg=cfg, num_microbatches=nmb, remat=remat,
             opt_cfg=adamw.AdamWConfig(**OPT))
-        dc = synthetic.DataConfig(vocab=cfg.vocab, **DATA)
         with jax.set_mesh(mesh):
             if arch not in first:   # one init compile an architecture
                 first[arch] = jax.device_get(init_jit(jax.random.PRNGKey(0)))
-            params, opt = jax.device_put(first[arch], (specs["params"], specs["opt"]))
+        if name in ROUTER_SCALE:
+            experts, factor = ROUTER_SCALE[name]
+
+            def scaled(path, w):
+                if all(getattr(k, "key", None) != "router" for k in path):
+                    return w
+                f = np.ones(w.shape[-1], w.dtype)
+                f[list(experts)] = factor
+                return w * f
+            first[arch] = (jax.tree_util.tree_map_with_path(scaled, first[arch][0]),
+                           first[arch][1])
+        built[name] = cfg, step_jit, specs
+        for p, leaf in zip(rsh.tree_paths(first[arch][0]), jax.tree.leaves(first[arch][0])):
+            inits[f"{name}/init/{p}"] = np.asarray(leaf)
+    # the initial parameters first: the port's side starts from them while
+    # the reference's steps run
+    np.savez(init_path(out) + ".partial.npz", **inits)
+    os.replace(init_path(out) + ".partial.npz", init_path(out))
+    saved = dict(inits)
+    for name, (cfg, step_jit, specs) in built.items():
+        dc = synthetic.DataConfig(vocab=cfg.vocab, **DATA)
+        with jax.set_mesh(mesh):
+            params, opt = jax.device_put(first[CASES[name][0]], (specs["params"], specs["opt"]))
             paths = rsh.tree_paths(params)
-            for p, leaf in zip(paths, jax.tree.leaves(params)):
-                saved[f"{name}/init/{p}"] = np.asarray(leaf)
             losses = []
             for step in range(STEPS):
                 batch = rtl._make_batch(cfg, dc, step, rtl.TrainConfig())
@@ -94,6 +125,12 @@ def reference(out: str):
     np.savez(out, **saved)
 
 
+def init_path(out: str) -> str:
+    """Where `reference(out)` writes the initial parameters before its
+    steps."""
+    return str(out).removesuffix(".npz") + "-init.npz"
+
+
 def port_cfg(arch: str = ARCH):
     from repro_torch.models import registry
 
@@ -101,13 +138,16 @@ def port_cfg(arch: str = ARCH):
                                                 d_model=D_MODEL), dtype="float32")
 
 
-def port_worker(rank: int, world: int, init_method: str, ref_npz: str, out: str):
-    """One rank of the port's 2 x 2 runs of every case; rank 0 writes."""
+def port_worker(rank: int, world: int, init_method: str, init_npz: str, out: str):
+    """One rank of the port's 2 x 2 runs of every case from the reference's
+    initial parameters (`init_path`); rank 0 writes."""
     import torch
     import torch.distributed as dist
 
     from repro_torch import convert
     from repro_torch.data import synthetic
+    from repro_torch.models import layers as plyr
+    from repro_torch.models import moe as pmoe
     from repro_torch.launch import mesh as pmesh
     from repro_torch.launch import shardings as sh
     from repro_torch.launch import train as plt
@@ -116,12 +156,26 @@ def port_worker(rank: int, world: int, init_method: str, ref_npz: str, out: str)
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank)
+    # each MoE layer's slots that the neighbor steal moves across a boundary
+    # of the "model" ranks' experts (the EP ring's hop), on its whole input
+    crossings = []
+    expert_shards = plyr.expert_shards
+
+    def counted(fn, params, x, cfg):
+        with torch.no_grad():
+            router = {k: v.full_tensor() for k, v in params["router"].items()}
+            crossings.append(pmoe.cross_shard_steals({"router": router}, x.full_tensor(),
+                                                     cfg, x.device_mesh.size(1)))
+        return expert_shards(fn, params, x, cfg)
+
+    plyr.expert_shards = counted
     try:
         mesh = pmesh.make_mesh((2, 2), device_type="cpu")
-        ref = dict(np.load(ref_npz))
+        ref = dict(np.load(init_npz))
         saved = {}
         for name, (arch, nmb, remat) in CASES.items():
-            cfg = port_cfg(arch)
+            cfg = dataclasses.replace(port_cfg(arch), seq_shard_axis="model"
+                                      if name in SEQ_SHARDED else "")
             dc = synthetic.DataConfig(vocab=cfg.vocab, **DATA)
             init_fn, step_fn, specs = plt.build_sharded_train(
                 arch, mesh, model_cfg=cfg, num_microbatches=nmb, remat=remat,
@@ -145,10 +199,13 @@ def port_worker(rank: int, world: int, init_method: str, ref_npz: str, out: str)
             for p, leaf in sh.named_leaves(params):
                 saved[f"{name}/p/{p}"] = leaf.full_tensor().detach().numpy()
             saved[f"{name}/loss"] = np.asarray(losses)
+            saved[f"{name}/crossings"] = np.asarray(crossings, dtype=np.int64)
+            crossings.clear()
             saved[f"{name}/misplaced"] = np.asarray(sum(wrong))
         if rank == 0:
             np.savez(out, **saved)
     finally:
+        plyr.expert_shards = expert_shards
         dist.destroy_process_group()
 
 

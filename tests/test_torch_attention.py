@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import as_np, np_rng
+from torch_parity import as_np, np_rng, other_device
 from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.kernels import ops as rops
@@ -108,15 +108,16 @@ def test_cpu_wrappers_are_the_plain_versions():
 
 
 def test_wrappers_refuse_non_cuda_devices():
-    """Off the CPU a wrapper launches its kernel or raises: a tensor on
-    another device is refused before any build."""
-    q = torch.zeros((1, 2, 7, 4, HD), device="meta")
-    k = torch.zeros((1, 2, 4, HD), device="meta")
+    """Off the CPU and the meta device (the dry run's) a wrapper launches
+    its kernel or raises: a tensor on another device (torch's lazy one)
+    is refused before any build."""
+    q = torch.zeros((1, 2, 7, 4, HD), device=other_device())
+    k = torch.zeros((1, 2, 4, HD), device=other_device())
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="CUDA"):
         ops.decode_attention(q[:, :, :, 0], k, k,
-                             torch.zeros((1,), dtype=torch.int32, device="meta"))
+                             torch.zeros((1,), dtype=torch.int32, device=other_device()))
 
 
 @pytest.fixture

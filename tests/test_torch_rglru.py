@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import as_np, np_rng
+from torch_parity import as_np, np_rng, other_device
 from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.kernels import ops as rops
@@ -134,11 +134,12 @@ def test_cpu_wrapper_is_the_plain_version():
 
 @pytest.mark.parametrize("bad", ["device", "dtype", "lam_dtype", "shape"])
 def test_wrapper_refuses_bad_inputs(bad):
-    """Off the CPU the wrapper launches its kernel or raises: a tensor on
-    another device, an element type the kernel does not take, an fp16
+    """Off the CPU and the meta device (the dry run's) the wrapper launches
+    its kernel or raises: a tensor on another device (torch's lazy one),
+    an element type the kernel does not take, an fp16
     lam or a mismatched shape are refused before any build."""
-    x = torch.zeros((1, 3, 8), device="meta")
-    lam = torch.zeros((8,), device="meta")
+    x = torch.zeros((1, 3, 8), device=other_device())
+    lam = torch.zeros((8,), device=other_device())
     args = {"device": (x, x, x, lam),
             "dtype": (x.half(), x.half(), x.half(), lam),
             "lam_dtype": (x, x, x, lam.half()),

@@ -12,9 +12,11 @@ moments and the batch as DTensors) against the reference's
   * The 1 x 1 mesh (one process) against the unsharded `make_train_step`,
     and the launcher on it with a checkpoint and a restart.
   * Every family: the dense qwen2 (one micro-batch, and two with full
-    remat), rwkv6, the RG-LRU hybrid, the qwen2-moe MoE, the VLM (llava,
-    with its prefix embeddings) and the encoder-decoder (whisper, with its
-    frames).
+    remat, and one with the sequence-parallel residual, `seq_shard_axis`
+    "model" on both sides), rwkv6, the RG-LRU hybrid, the qwen2-moe MoE
+    (its experts over "model" in the port, two router columns scaled so
+    that the neighbor steal moves slots across that boundary), the VLM (llava, with its
+    prefix embeddings) and the encoder-decoder (whisper, with its frames).
 
 Tolerances: every step's loss within rtol 1e-5 (tests/test_torch_train.py's);
 AdamW's first moment after the first step, (1 - b1)·g, within 2e-5 ·
@@ -68,7 +70,9 @@ LIMITS = {"plain": (2e-5, 3e-3), "mb2-full": (1e-5, 3e-3), "rwkv6": (5e-5, 1e-2)
           "hybrid": (2e-4, 1e-2), "moe": (4e-5, 3e-3),
           # 5.2x and 4.5x / 5.2x the gaps measured here (vlm 5.8e-6, 4.5e-4;
           # encdec 2.9e-6, 2.9e-4)
-          "vlm": (3e-5, 2e-3), "encdec": (1.5e-5, 1.5e-3)}
+          "vlm": (3e-5, 2e-3), "encdec": (1.5e-5, 1.5e-3),
+          # the dense case with the sequence-parallel residual: plain's
+          "seqpar": (2e-5, 3e-3)}
 # leaves whose gradient is zero in exact arithmetic, by case: a key bias
 # without RoPE, which softmax cancels (its moments are rounding noise of
 # ~1e-14); their moments are held against the case's largest leaf
@@ -90,26 +94,37 @@ def _free_port() -> int:
 
 
 def _run_both(tmp):
-    """The reference's child, then the port's 4 gloo processes, writing
-    ref.npz and port.npz into `tmp`."""
+    """The reference's child and the port's 4 gloo processes, writing
+    ref.npz and port.npz into `tmp`: the port starts from the initial
+    parameters the child writes first, and runs while the child steps."""
     ref_out, port_out = tmp / "ref.npz", tmp / "port.npz"
+    init = Path(sr.init_path(str(ref_out)))
     # LLVM's optimization level 0 halves the child's compile CPU (~100 s
     # → ~55 s); its results move in the last bits, within the tolerances
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={sr.DEVICES} "
                          "--xla_backend_optimization_level=0",
                PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
-    subprocess.run([sys.executable, str(ROOT / "tests" / "sharded_train_reference.py"),
-                    str(ref_out)], env=env, check=True, timeout=REF_TIMEOUT)
-    ctx = mp.start_processes(
-        sr.port_worker, nprocs=4, join=False, start_method="spawn",
-        args=(4, f"tcp://localhost:{_free_port()}", str(ref_out), str(port_out)))
-    deadline = time.monotonic() + SPAWN_TIMEOUT
+    child = subprocess.Popen([sys.executable, str(ROOT / "tests" / "sharded_train_reference.py"),
+                              str(ref_out)], env=env)
+    ctx = None
     try:
+        deadline = time.monotonic() + REF_TIMEOUT
+        while not init.exists():
+            assert child.poll() in (None, 0), f"the reference's child failed: {child.returncode}"
+            assert time.monotonic() < deadline, "the reference's child timed out"
+            time.sleep(0.5)
+        ctx = mp.start_processes(
+            sr.port_worker, nprocs=4, join=False, start_method="spawn",
+            args=(4, f"tcp://localhost:{_free_port()}", str(init), str(port_out)))
+        spawn_deadline = time.monotonic() + SPAWN_TIMEOUT
         while not ctx.join(timeout=5):
-            assert time.monotonic() < deadline, "the port's gloo run timed out"
+            assert time.monotonic() < spawn_deadline, "the port's gloo run timed out"
+        assert child.wait(timeout=max(1.0, deadline - time.monotonic())) == 0
     finally:
-        for p in ctx.processes:
+        if child.poll() is None:
+            child.kill()
+        for p in ctx.processes if ctx is not None else ():
             if p.is_alive():
                 p.kill()
 
@@ -145,6 +160,21 @@ def test_sharded_step_equals_reference(runs, case):
             tol = (GRAD_RTOL * scale if what == "m0" else m_rtol * scale if what != "p"
                    else p_share * sum_lr)
             np.testing.assert_allclose(got, w, rtol=0, atol=tol, err_msg=f"{what} {path}")
+
+
+def test_steal_crossings_counted_in_the_two_by_two_run(runs):
+    """The 2 x 2 gloo run's MoE case (3 steps of 2 layers, the router's
+    columns of experts 3 and 7 x 3 on both sides: `sr.ROUTER_SCALE`)
+    counts, at each layer call, the slots
+    that the neighbor steal moves from one "model" rank's experts to the
+    other's: some do, so the parity above holds with slots crossing the
+    expert-parallel boundary, and only the MoE case calls the layer."""
+    crossings = runs[1]["moe/crossings"]
+    assert crossings.shape == (3 * 2,)
+    assert ((crossings >= 0) & (crossings <= 8 * 32 * 2)).all(), crossings
+    assert crossings.sum() > 0, crossings
+    assert not [k for k in runs[1] if k.endswith("/crossings") and k != "moe/crossings"
+                and runs[1][k].size]
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import as_np, np_rng
+from torch_parity import as_np, np_rng, other_device
 from torch_parity import release_reference_compiles  # noqa: F401  (autouse)
 
 from repro.kernels import ops as rops
@@ -104,10 +104,11 @@ def test_cpu_wrapper_is_the_plain_version():
 
 
 def test_wrapper_refuses_non_cuda_devices():
-    """Off the CPU the wrapper launches its kernel or raises: a tensor on
-    another device is refused before any build."""
-    x = torch.zeros((1, 3, 2, 64), device="meta")
-    u = torch.zeros((2, 64), device="meta")
+    """Off the CPU and the meta device (the dry run's) the wrapper launches
+    its kernel or raises: a tensor on another device (torch's lazy one)
+    is refused before any build."""
+    x = torch.zeros((1, 3, 2, 64), device=other_device())
+    u = torch.zeros((2, 64), device=other_device())
     with pytest.raises(ValueError, match="CUDA"):
         ops.wkv6(x, x, x, x, u)
 

@@ -5,6 +5,7 @@ Inputs are made with numpy from a seed and handed to the JAX reference
 as numpy arrays.
 """
 
+import functools
 import gc
 import os
 
@@ -19,6 +20,11 @@ import torch
 # a third of the kernel's default limit on a process's memory mappings
 # (vm.max_map_count, 65,530)
 MAPPINGS_BEFORE_CLEAR = 20_000
+
+
+# the session's compilation cache (`_share_compiles`): a bound, far above
+# the tens of MB a whole run writes
+COMPILE_CACHE_BYTES = 4 << 30
 
 
 def _mappings() -> int:
@@ -36,18 +42,49 @@ def _release_if_crowded():
         gc.collect()
 
 
+def _share_compiles(tmp_path_factory):
+    """JAX's persistent compilation cache in the test session's shared
+    temporary directory (unless one is set already): a reference function
+    compiled once in the session, for one set of static arguments and
+    shapes, is read back by every pytest-xdist worker and after
+    `jax.clear_caches()` instead of being compiled again. The executables
+    are the ones the compiler gives; only compiles of a second or more are
+    kept (JAX's default). A size limit turns on the cache's file lock, so
+    that no worker reads an entry another is still writing."""
+    if jax.config.jax_compilation_cache_dir:
+        return
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    jax.config.update("jax_compilation_cache_max_size", COMPILE_CACHE_BYTES)
+    jax.config.update("jax_compilation_cache_dir", str(base / "jax-compiles"))
+
+
 @pytest.fixture(autouse=True)
-def release_reference_compiles():
+def release_reference_compiles(tmp_path_factory):
     """Drop JAX's compiled executables around a parity test once this
     process holds more than MAPPINGS_BEFORE_CLEAR memory mappings (autouse
     where a module imports it). XLA's CPU backend maps each executable's
     code in many small regions (~700 for a simulator compile) and keeps
     them while JAX caches it; an xdist worker that compiles the reference
     test after test reaches the kernel's limit, where LLVM cannot allocate
-    and XLA segfaults in the next compile, taking the worker down."""
+    and XLA segfaults in the next compile, taking the worker down. A
+    dropped executable is read back from the session's compilation cache
+    (`_share_compiles`)."""
+    _share_compiles(tmp_path_factory)
     _release_if_crowded()
     yield
     _release_if_crowded()
+
+
+@functools.cache
+def other_device() -> torch.device:
+    """A device that is neither the CPU nor the card nor meta (the model
+    kernels' wrappers take meta tensors, for the dry run): torch's lazy
+    tensor device, its TorchScript backend started once a process."""
+    import torch._lazy.ts_backend
+    torch._lazy.ts_backend.init()
+    return torch.device("lazy")
 
 
 def np_rng(seed: int) -> np.random.Generator:
